@@ -1,0 +1,102 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points need CUDA unless the caller names the CPU, and the weight
+bridge refuses trees that do not fit the model."""
+
+import ast
+import copy
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tests.test_torch_models import configs, jax_model_and_variables
+from transformertts_tpu_torch.convert import torch_state_from_jax
+from transformertts_tpu_torch.infer import Synthesizer, make_decode_fn
+from transformertts_tpu_torch.models import TransformerTTS
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "transformertts_tpu")
+SOURCES = sorted((ROOT / "transformertts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_sources_found():
+    names = {p.name for p in SOURCES}
+    assert {"decode_step.py", "api.py", "serving.py", "chip_smoke.py", "g2p.py"} <= names
+
+
+def test_entry_points_need_cuda_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, pcfg = configs()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TransformerTTS(pcfg.model)
+    model = TransformerTTS(pcfg.model, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_decode_fn(model, pcfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Synthesizer(pcfg, state_dict=model.state_dict())
+    assert make_decode_fn(model, pcfg, device="cpu") is not None
+
+
+def test_chip_smoke_fails_without_cuda():
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_convert_refuses_missing_and_extra_leaves():
+    jcfg, pcfg = configs()
+    variables = jax_model_and_variables(jcfg)[1]
+    state = torch_state_from_jax(variables, pcfg.model)
+    assert set(state) == set(TransformerTTS(pcfg.model, device="meta").state_dict())
+
+    missing = copy.deepcopy(variables)
+    del missing["params"]["decoder"]["layer_1"]["norm3"]
+    with pytest.raises(ValueError, match="missing"):
+        torch_state_from_jax(missing, pcfg.model)
+
+    extra = copy.deepcopy(variables)
+    extra["params"]["decoder"]["layer_2"] = extra["params"]["decoder"]["layer_1"]
+    with pytest.raises(ValueError, match="unused leaf"):
+        torch_state_from_jax(extra, pcfg.model)
+
+    bad_shape = copy.deepcopy(variables)
+    bad_shape["params"]["pe"]["alpha"] = np.ones((2,), np.float32)
+    with pytest.raises(ValueError, match="unused leaf"):
+        torch_state_from_jax(bad_shape, pcfg.model)
+
+
+def test_convert_layouts():
+    """Dense kernels (in, out) -> (out, in); Conv kernels (k, in, out) ->
+    (out, in, k); BatchNorm statistics to running buffers as they are."""
+    jcfg, pcfg = configs()
+    variables = jax_model_and_variables(jcfg)[1]
+    state = torch_state_from_jax(variables, pcfg.model)
+    p, s = variables["params"], variables["batch_stats"]
+    dense = p["decoder"]["layer_0"]["ffn"]["Dense_0"]["kernel"]
+    np.testing.assert_array_equal(state["decoder.layer_0.ffn.Dense_0.weight"].numpy(), dense.T)
+    conv = p["postnet"]["ConvBN_0"]["Conv_0"]["kernel"]
+    np.testing.assert_array_equal(state["postnet.ConvBN_0.Conv_0.weight"].numpy(),
+                                  conv.transpose(2, 1, 0))
+    np.testing.assert_array_equal(state["enc_prenet.ConvBN_1.BatchNorm_0.running_var"].numpy(),
+                                  s["enc_prenet"]["ConvBN_1"]["BatchNorm_0"]["var"])
+    assert state["pe.alpha"].shape == (1,)

@@ -1,0 +1,3 @@
+from transformertts_tpu_torch.infer.decode import make_decode_fn  # noqa: F401
+from transformertts_tpu_torch.infer.api import Synthesizer  # noqa: F401
+from transformertts_tpu_torch.infer.serving import DynamicBatcher, make_http_server  # noqa: F401

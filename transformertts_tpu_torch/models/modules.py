@@ -1,0 +1,237 @@
+"""Building-block modules: Linear/LayerNorm/BatchNorm holders, LinearNorm,
+ConvBN, prenets, postnet, scaled PE (``transformertts_tpu/models/modules.py``).
+
+Inference semantics only (eval mode: no dropout, BatchNorm on its running
+statistics).  Numerics follow flax's: parameters are fp32 and are cast to
+the compute ``dtype`` at use; a dense layer rounds its matmul to ``dtype``
+before adding the bias, as ``flax.linen.Dense`` does.  Submodules carry the
+flax names (``Dense_0``, ``ConvBN_2``, ...), so ``convert.py`` maps a flax
+parameter path onto a state-dict key by joining it with dots.
+
+Convolutions take the JAX package's feature-last (B, T, C) layout at the
+module boundary and transpose to torch's (B, C, T) inside.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from transformertts_tpu_torch.models.initializers import normal_, xavier_normal_
+
+
+def _param(*shape, device=None) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape, device=device))
+
+
+class Linear(nn.Module):
+    """Weight (out, in) and bias, without torch's own (global-RNG) init."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, device=None):
+        super().__init__()
+        self.weight = _param(out_features, in_features, device=device)
+        self.bias = _param(out_features, device=device) if bias else None
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """flax ``Dense(dtype=...)``: matmul in ``dtype``, then + bias in ``dtype``."""
+        y = x.to(dtype) @ self.weight.to(dtype).t()
+        return y + self.bias.to(dtype) if self.bias is not None else y
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with fp32 statistics and output in ``dtype`` (eps 1e-5)."""
+
+    def __init__(self, d: int, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.weight = _param(d, device=device)
+        self.bias = _param(d, device=device)
+        self.dtype = dtype
+
+    def reset_parameters(self, generator=None) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, 1e-5)
+        return y.to(self.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Inference-mode BatchNorm over the last axis, on running statistics.
+
+    ``running_var`` holds flax's ``batch_stats/var`` as flax stores it (the
+    biased variance); it is used as it is.  Arithmetic as flax's
+    ``_normalize``: promoted to fp32, cast to ``dtype`` at the end.
+    """
+
+    def __init__(self, d: int, dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.weight = _param(d, device=device)
+        self.bias = _param(d, device=device)
+        self.register_buffer("running_mean", torch.empty(d, device=device))
+        self.register_buffer("running_var", torch.empty(d, device=device))
+        self.dtype = dtype
+
+    def reset_parameters(self, generator=None) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        nn.init.zeros_(self.running_mean)
+        nn.init.ones_(self.running_var)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + 1e-5) * self.weight
+        y = (x.float() - self.running_mean) * mul + self.bias
+        return y.to(self.dtype)
+
+
+class LinearNorm(nn.Module):
+    """Dense with torch xavier_normal(gain(activation)) init, zero bias."""
+
+    def __init__(
+        self, in_features: int, features: int, use_bias: bool = True,
+        activation: str = "relu", dtype: torch.dtype = torch.float32, device=None,
+    ):
+        super().__init__()
+        self.Dense_0 = Linear(in_features, features, use_bias, device=device)
+        self.activation = activation
+        self.dtype = dtype
+
+    def reset_parameters(self, generator) -> None:
+        xavier_normal_(self.Dense_0.weight, self.activation, generator)
+        if self.Dense_0.bias is not None:
+            nn.init.zeros_(self.Dense_0.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Dense_0(x, self.dtype)
+
+
+class Conv(nn.Module):
+    """Same-padded Conv1d on (B, T, C); weight (out, in, k)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int, device=None):
+        super().__init__()
+        self.weight = _param(features, in_features, kernel_size, device=device)
+        self.bias = _param(features, device=device)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        pad = (self.weight.shape[2] - 1) // 2
+        y = F.conv1d(x.to(dtype).transpose(1, 2), self.weight.to(dtype), padding=pad)
+        return y.transpose(1, 2) + self.bias.to(dtype)
+
+
+class ConvBN(nn.Module):
+    """Same-padded Conv1d + BatchNorm, feature-last. No activation inside."""
+
+    def __init__(
+        self, in_features: int, features: int, kernel_size: int,
+        activation: str = "relu", dtype: torch.dtype = torch.float32, device=None,
+    ):
+        super().__init__()
+        self.Conv_0 = Conv(in_features, features, kernel_size, device=device)
+        self.BatchNorm_0 = BatchNorm(features, dtype, device=device)
+        self.activation = activation
+        self.dtype = dtype
+
+    def reset_parameters(self, generator) -> None:
+        xavier_normal_(self.Conv_0.weight, self.activation, generator)
+        nn.init.zeros_(self.Conv_0.bias)
+        self.BatchNorm_0.reset_parameters()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.BatchNorm_0(self.Conv_0(x, self.dtype))
+
+
+class EncoderPreNet(nn.Module):
+    """N x ConvBN + final LinearNorm (ref: model/model.py:13-45); no ReLU."""
+
+    def __init__(self, n_layers, features, kernel_size, dtype=torch.float32, device=None):
+        super().__init__()
+        self.n_layers = n_layers
+        for i in range(n_layers):
+            setattr(self, f"ConvBN_{i}", ConvBN(
+                features, features, kernel_size, "relu", dtype, device=device))
+        self.LinearNorm_0 = LinearNorm(features, features, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers):
+            x = getattr(self, f"ConvBN_{i}")(x)
+        return self.LinearNorm_0(x)
+
+
+class DecoderPreNet(nn.Module):
+    """2 x [LinearNorm -> ReLU] (ref: model/model.py:48-67); dropout off."""
+
+    def __init__(self, n_mels, d_model, dtype=torch.float32, device=None):
+        super().__init__()
+        self.LinearNorm_0 = LinearNorm(n_mels, d_model, dtype=dtype, device=device)
+        self.LinearNorm_1 = LinearNorm(d_model, d_model, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = torch.relu(self.LinearNorm_0(x))
+        return torch.relu(self.LinearNorm_1(x))
+
+
+def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
+    """Standard sinusoidal PE table (ref: model/model.py:80-85)."""
+    position = np.arange(max_len, dtype=np.float64)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float64) * (-math.log(10000.0) / d_model))
+    pe = np.zeros((max_len, d_model), dtype=np.float64)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe.astype(np.float32)
+
+
+class ScaledPositionalEncoding(nn.Module):
+    """x + alpha * PE[offset:offset+T]; ONE learnable scalar alpha, shared by
+    the encoder and the decoder (reference quirk, model/model.py:288,297)."""
+
+    def __init__(self, d_model: int, max_len: int = 5000, device=None):
+        super().__init__()
+        self.alpha = _param(1, device=device)
+        self.register_buffer(
+            "pe", torch.from_numpy(sinusoid_table(max_len, d_model)).to(device),
+            persistent=False,
+        )
+
+    def reset_parameters(self, generator=None) -> None:
+        nn.init.ones_(self.alpha)
+
+    def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+        table = self.pe[offset: offset + x.shape[-2]]
+        return x + (self.alpha * table[None]).to(x.dtype)
+
+
+class PostNet(nn.Module):
+    """5-layer conv postnet (ref: model/model.py:100-135); Tanh after every
+    block but the last; the residual add happens in the caller."""
+
+    def __init__(self, n_layers, n_mels, d_model, kernel_size, dtype=torch.float32, device=None):
+        super().__init__()
+        self.n_layers = n_layers
+        widths = [n_mels] + [d_model] * (n_layers - 1) + [n_mels]
+        for i in range(n_layers):
+            setattr(self, f"ConvBN_{i}", ConvBN(
+                widths[i], widths[i + 1], kernel_size, "tanh", dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers - 1):
+            x = torch.tanh(getattr(self, f"ConvBN_{i}")(x))
+        return getattr(self, f"ConvBN_{self.n_layers - 1}")(x)
+
+
+class Embed(nn.Module):
+    """Token embedding, N(0, 1) init (torch nn.Embedding); fp32 output."""
+
+    def __init__(self, n: int, d: int, device=None):
+        super().__init__()
+        self.weight = _param(n, d, device=device)
+
+    def reset_parameters(self, generator) -> None:
+        normal_(self.weight, generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight)
