@@ -85,3 +85,49 @@ def test_decode_rejects_unported_options():
         _, cfg = configs(**runtime)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_decode_fn(model, cfg, max_len=8, device="cpu")
+
+
+@pytest.mark.parametrize("threshold", [2.0, 0.5])
+@pytest.mark.parametrize("window", [0, 2])
+def test_kernel_loop_chunks_rows(window, threshold):
+    """With ``decode_megakernel_max_batch = 1`` the kernel loop decodes a
+    B = 2 batch as two one-row chunks, each to its own stop: every row
+    matches the JAX loop up to its own length, and ``n_steps`` counts the
+    steps of both chunks."""
+    ref = _jax_decode(2, window, 1, threshold)
+    jcfg, pcfg = configs(decode_attn_window=window, decode_megakernel_max_batch=1)
+    model = port_model(pcfg, jax_model_and_variables(jcfg)[1])
+    fn = make_decode_fn(model, pcfg, max_len=FRAMES, stop_threshold=threshold,
+                        use_kernel=True, device="cpu")
+    out = fn(*_inputs(2))
+    assert out["n_frames"] == int(ref["n_frames"])
+    lengths = ref["n_frames_per_row"]
+    np.testing.assert_array_equal(out["n_frames_per_row"].numpy(), lengths)
+    for row, n in enumerate(lengths):
+        for k in ("pred_melspec", "pred_stop"):
+            assert_close(out[k][row, :n], ref[k][row, :n], TOL, f"{k}[{row}]")
+    if threshold == 2.0:  # no row stops early: the chunks decode alike
+        assert out["n_steps"] == 2 * FRAMES
+        assert_close(out["post_melspec"], ref["post_melspec"], TOL, "post_melspec")
+    assert out["n_steps"] >= out["n_frames"]
+
+
+def test_decode_gate_on_cuda(monkeypatch):
+    """On CUDA the kernel loop is the decode path: with
+    ``use_pallas_decode_step`` off the decode raises instead of serving
+    through the plain loop, unless the caller asks for the plain loop."""
+    import types
+
+    import torch
+
+    from transformertts_tpu_torch.infer import decode as decode_mod
+
+    cuda = torch.device("cuda", 0)
+    monkeypatch.setattr(decode_mod, "resolve_device", lambda device: cuda)
+    model = types.SimpleNamespace(device=cuda)
+    _, cfg = configs(use_pallas_decode_step=False)
+    with pytest.raises(ValueError, match="use_pallas_decode_step"):
+        make_decode_fn(model, cfg, max_len=8)
+    assert make_decode_fn(model, cfg, max_len=8, use_kernel=False) is not None
+    _, on = configs()
+    assert make_decode_fn(model, on, max_len=8) is not None

@@ -33,7 +33,6 @@ from transformertts_tpu_torch.models.masks import NEG_INF
 from transformertts_tpu_torch.ops.decode_step import (
     _check_cuda_args,
     decode_step,
-    decode_step_fits_h100,
     decode_step_reference,
     pack_decode_weights,
 )
@@ -104,17 +103,6 @@ def test_wrapper_writes_cache_on_cpu():
     assert torch.equal(tc[0][:, :, :, keep], before[0][:, :, :, keep])
     with pytest.raises(ValueError, match="outside the cache"):
         decode_step(N_POS, *args, *tc, packed)
-
-
-def test_fits_h100_gate():
-    _, pcfg = configs()
-    from transformertts_tpu_torch.config import Config
-
-    full = Config()
-    assert decode_step_fits_h100(full, 1500, 192, batch=8)
-    assert decode_step_fits_h100(pcfg, 64, 16, batch=1)
-    assert not decode_step_fits_h100(full, 1500, 192, batch=9)
-    assert not decode_step_fits_h100(full, 100_000, 192, batch=1)  # scores exceed smem
 
 
 def test_kernel_argument_checks():

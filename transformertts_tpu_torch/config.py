@@ -202,18 +202,13 @@ class RuntimeConfig:
     # per-leaf updates), so off by default; may help at much larger scale.
     # NOTE: changes opt_state structure — checkpoints don't carry across.
     fused_optimizer: bool = False
-    # run each batch-1 decode step as ONE Pallas program with all decoder
-    # weights + caches resident in VMEM (ops/pallas/decode_step.py) — the
-    # single-stream serving latency path.  Auto-gated: TPU backend, batch
-    # <= decode_megakernel_max_batch, VMEM fit (decode_step_fits); larger
-    # batches stay on the XLA loop (which amortizes dispatch at B >= 16).
+    # run each decode step as ONE call of the CUDA decode-step kernel
+    # (ops/decode_step.py; the key keeps the JAX package's name).  On the
+    # GPU the kernel loop is the only decode path: False raises there
+    # rather than serving through the plain PyTorch loop.
     use_pallas_decode_step: bool = True
-    # largest batch the auto gate routes to the (batched) decode megakernel.
-    # Hardware A/B (tools/ab_decode_batched.py, ab_decode_batched.json,
-    # round 3 after the flat-in-B restructure): megakernel beats the XLA
-    # loop 2.17x/2.25x/2.70x/2.90x at B=1/2/4/8 (26.8-35.9 us/frame vs
-    # 58-104), 2,587 audio-s/s at B=8.  Batches that fail the VMEM fit
-    # (decode_step_fits, batch-scaled caches) fall back to the XLA loop.
+    # rows per kernel call: a larger batch is decoded as consecutive
+    # chunks of at most this many rows (and at most the kernel's 8).
     decode_megakernel_max_batch: int = 8
     # PRNG for dropout keys: "rbg" is much cheaper on TPU than the default
     # counter-based threefry (dozens of dropout masks per step); streams

@@ -60,7 +60,7 @@ class Synthesizer:
                 stats = None
         self.stats = stats
         self._decoders: dict[tuple, object] = {}
-        self.steps_decoded = 0  # decoder positions run, summed over batches
+        self.steps_decoded = 0  # decode steps run, summed over batches and row chunks
 
     def _decode_fn(self, max_len: int, stop_threshold: Optional[float]):
         key = (max_len, stop_threshold)
@@ -120,7 +120,7 @@ class Synthesizer:
 
         decode = self._decode_fn(max_len or self.cfg.runtime.infer_max_len, stop_threshold)
         out = decode(phoneme, lens)
-        self.steps_decoded += out["n_frames"] // self.cfg.model.reduction_factor
+        self.steps_decoded += out["n_steps"]
         post = out["post_melspec"].cpu().numpy()
         per_row = out["n_frames_per_row"].cpu().numpy()
         mels = []

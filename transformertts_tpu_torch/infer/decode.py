@@ -9,7 +9,13 @@ Two loops with one result:
   the loop ends when every row has voted or at ``max_len``;
 - the kernel loop mirrors ``_megakernel_decode(_batched)``
   (``decode.py:522-685``): each step is ONE call of
-  ``ops.decode_step.decode_step``, the CUDA kernel chain on the GPU.
+  ``ops.decode_step.decode_step``, the CUDA kernel chain on the GPU.  A
+  batch larger than the kernel takes is decoded as consecutive chunks of
+  rows, each chunk to its own stop.
+
+On the GPU the kernel loop is the decode path; the plain loop runs there
+only when the caller asks for it by name (``use_kernel=False``), as a
+reference to hold the kernel loop against.
 
 Both keep the windowed monotone cross-attention (``decode_attn_window``
 W > 0): every layer's cross-attention sees only encoder positions within
@@ -30,11 +36,7 @@ from transformertts_tpu_torch.config import Config
 from transformertts_tpu_torch.device import resolve_device
 from transformertts_tpu_torch.models.masks import NEG_INF, padding_bias
 from transformertts_tpu_torch.models.modules import sinusoid_table
-from transformertts_tpu_torch.ops.decode_step import (
-    decode_step,
-    decode_step_fits_h100,
-    pack_decode_weights,
-)
+from transformertts_tpu_torch.ops.decode_step import MAX_BATCH, decode_step, pack_decode_weights
 
 
 def per_row_lengths(stops: torch.Tensor, n_frames: int, stop_threshold: float) -> torch.Tensor:
@@ -66,14 +68,17 @@ def make_decode_fn(
     """Returns ``decode(phoneme (B, Tp) int, phoneme_lens (B,) int) -> dict``
     with ``pred_melspec`` / ``post_melspec`` (B, max_len, n_mels),
     ``pred_stop`` (B, max_len), ``n_frames`` (int) and ``n_frames_per_row``
-    (B,), as the JAX function.  Frames at positions >= n_frames are zeros
-    before the postnet.
+    (B,), as the JAX function, plus ``n_steps``: the decoder steps run,
+    summed over the chunks of rows (the kernel's launches on the GPU).
+    Frames at positions >= n_frames are zeros before the postnet; so are a
+    chunk's frames past its own stop, which lie past its rows' lengths.
 
-    ``use_kernel``: None decides per call — the kernel loop when
-    ``cfg.runtime.use_pallas_decode_step`` (the key keeps its JAX name),
-    the device is CUDA, ``B <= decode_megakernel_max_batch`` and
-    ``decode_step_fits_h100``.  True forces the kernel loop (on the CPU the
-    step wrapper then runs its plain version); False keeps the plain loop.
+    ``use_kernel``: None picks the kernel loop on CUDA — it raises there
+    when ``cfg.runtime.use_pallas_decode_step`` is off, and the kernel
+    raises for shapes it cannot take — and the plain loop on the CPU.
+    True forces the kernel loop (on the CPU the step wrapper then runs its
+    plain version); False forces the plain loop.  The kernel loop decodes
+    at most ``min(decode_megakernel_max_batch, 8)`` rows per kernel call.
     """
     device = resolve_device(device)
     if model.device != device:
@@ -93,6 +98,15 @@ def make_decode_fn(
         raise NotImplementedError(
             "infer_prenet_dropout > 0 is not ported yet (ROADMAP Queue 1: prenet dropout)"
         )
+    if use_kernel is None and device.type == "cuda" and not cfg.runtime.use_pallas_decode_step:
+        raise ValueError(
+            "on CUDA the decode runs the decode-step kernel; use_pallas_decode_step=False "
+            "has no GPU path (pass use_kernel=False to run the plain reference loop)"
+        )
+    kernel = use_kernel if use_kernel is not None else device.type == "cuda"
+    chunk = min(int(cfg.runtime.decode_megakernel_max_batch), MAX_BATCH)
+    if kernel and chunk < 1:
+        raise ValueError(f"decode_megakernel_max_batch must be >= 1, got {chunk}")
     n_pos = max_len // r
     packed_cache: dict = {}
 
@@ -101,24 +115,28 @@ def make_decode_fn(
         phoneme = torch.as_tensor(phoneme, dtype=torch.long, device=device)
         lens = torch.as_tensor(phoneme_lens, dtype=torch.long, device=device)
         b, tp = phoneme.shape
-        kernel = use_kernel
-        if kernel is None:
-            kernel = (
-                cfg.runtime.use_pallas_decode_step
-                and device.type == "cuda"
-                and b <= cfg.runtime.decode_megakernel_max_batch
-                and decode_step_fits_h100(cfg, n_pos, tp, batch=b)
-            )
         memory = model.encode(phoneme, lens if mask_encoder_source else None)
         cross_kv = model.build_cross_cache(memory)  # L x ((B, Tp, H, dh) x 2)
         cross_bias = padding_bias(lens, tp)  # (B, 1, 1, Tp)
-        loop = _kernel_loop if kernel else _plain_loop
-        if kernel and "packed" not in packed_cache:
-            packed_cache["packed"] = pack_decode_weights(model, model.dtype)
-        frames, stops, t = loop(
-            model, cfg, packed_cache.get("packed"), cross_kv, cross_bias,
-            n_pos, max_len, stop_threshold,
-        )
+        if kernel:
+            if "packed" not in packed_cache:
+                packed_cache["packed"] = pack_decode_weights(model, model.dtype)
+            parts = [
+                _kernel_loop(
+                    model, cfg, packed_cache["packed"],
+                    [(k[i:i + chunk], v[i:i + chunk]) for k, v in cross_kv],
+                    cross_bias[i:i + chunk], n_pos, max_len, stop_threshold,
+                )
+                for i in range(0, b, chunk)
+            ]
+            frames = torch.cat([p[0] for p in parts])
+            stops = torch.cat([p[1] for p in parts])
+            t = max(p[2] for p in parts)
+            n_steps = sum(p[2] for p in parts)
+        else:
+            frames, stops, t = _plain_loop(
+                model, cfg, cross_kv, cross_bias, n_pos, max_len, stop_threshold)
+            n_steps = t
         n_frames = t * r
         pred = frames[:, 1:, :]
         post = model.apply_postnet(pred).float()
@@ -128,6 +146,7 @@ def make_decode_fn(
             "pred_stop": stops,
             "n_frames": n_frames,
             "n_frames_per_row": per_row_lengths(stops, n_frames, stop_threshold),
+            "n_steps": n_steps,
         }
 
     return decode
@@ -141,7 +160,7 @@ def _state(cfg, b, max_len, dev):
     return frames, stops, stopped
 
 
-def _plain_loop(model, cfg, _packed, cross_kv, cross_bias, n_pos, max_len, stop_threshold):
+def _plain_loop(model, cfg, cross_kv, cross_bias, n_pos, max_len, stop_threshold):
     """The XLA loop of the JAX package, step by step in PyTorch ops."""
     m = cfg.model
     r, n_heads = m.reduction_factor, m.decoder_n_head

@@ -2,7 +2,8 @@
 
 Concurrent requests are coalesced into one padded batch, so the decode
 runs at batch sizes up to ``max_batch`` (8 by default: the CUDA
-decode-step kernel takes B <= 8) instead of B=1 per request.
+decode-step kernel takes B <= 8, and the decode splits a larger batch into
+chunks of 8 rows) instead of B=1 per request.
 
 - One worker thread owns the device and runs one batch at a time.
 - Batch formation: take the oldest request, then drain the queue until

@@ -578,6 +578,22 @@ int tts_decode_step(int is_bf16, int B, int L, int H, int dh, int F, int n_mels,
                     void* scratch, void* stream) {
   if (B < 1 || B > kMaxBatch || dh > kAttnThreads || t < 0 || t >= n_pos)
     return static_cast<int>(cudaErrorInvalidValue);
+  // Dynamic shared memory of the largest block: the GEMVs hold their (B, K)
+  // inputs, the attention one score per key.  Checked against n_pos, not t,
+  // so a decode that cannot reach its last position is refused at t = 0.
+  {
+    const size_t D = static_cast<size_t>(H) * dh;
+    size_t widest = D > static_cast<size_t>(F) ? D : static_cast<size_t>(F);
+    if (static_cast<size_t>(n_mels) > widest) widest = n_mels;
+    const size_t keys = n_pos > tp ? n_pos : tp;
+    const size_t gemv_bytes = sizeof(float) * B * widest;
+    const size_t attn_bytes = sizeof(float) * (dh + kAttnThreads * 8 + keys);
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (gemv_bytes > static_cast<size_t>(optin) || attn_bytes > static_cast<size_t>(optin))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto s = static_cast<cudaStream_t>(stream);
   auto ws = static_cast<const void* const*>(w);
   auto f = [](const void* p) { return static_cast<const float*>(p); };

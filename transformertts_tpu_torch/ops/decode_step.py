@@ -62,8 +62,6 @@ _PACK_ORDER = (
     "head_w", "head_b",
 )
 MAX_BATCH = 8  # the CUDA source instantiates B = 1..8
-_ATTN_THREADS = 128  # threads of one attention block (decode_step.cu)
-_SMEM_MAX = 232448  # bytes of shared memory one block may use on Hopper
 
 
 @torch.no_grad()
@@ -112,31 +110,6 @@ def pack_decode_weights(model, dtype: torch.dtype = torch.bfloat16) -> dict:
         "head_w": torch.cat([w(h) for h in heads]).contiguous(),
         "head_b": torch.cat([b(h) for h in heads]).contiguous(),
     }
-
-
-def decode_step_fits_h100(cfg, n_pos: int, tp: int, batch: int = 1) -> bool:
-    """Whether the CUDA kernel takes these shapes on a Hopper card.
-
-    The limits are the kernel's own: B <= 8 (template instances); widths
-    that 16-byte vectors tile (every matrix row and cache row a whole
-    number of them, and a cache row a power-of-two number of them up to a
-    warp); and the per-block shared memory of the GEMV (the (B, K) input
-    rows) and of the attention (one score per key).  Weights and caches
-    stay in device memory, so their size is no limit (the TPU gate
-    ``decode_step_fits`` modelled VMEM instead).
-    """
-    m = cfg.model
-    d, f = m.d_model, m.decoder_d_ffn
-    dh = d // m.decoder_n_head
-    gemv_smem = 4 * batch * max(d, f, m.n_mels)
-    attn_smem = 4 * (dh + 8 * _ATTN_THREADS + max(n_pos, tp))
-    groups = dh // 4  # 16-byte vectors per cache row in fp32 (twice bf16's)
-    return (
-        1 <= batch <= MAX_BATCH
-        and all(k % 8 == 0 for k in (d, f, m.n_mels, dh))
-        and groups & (groups - 1) == 0 and groups <= 32
-        and max(gemv_smem, attn_smem) <= _SMEM_MAX
-    )
 
 
 def _layer_norm(x32, g, b, eps=1e-5):
@@ -247,7 +220,8 @@ def _packed_shapes(n_layers: int, d: int, d_ffn: int, n_mels: int, d_out: int) -
 
 def _check_cuda_args(frame, pe_row, cross_bias, self_k, self_v, cross_k, cross_v, packed):
     """Raise unless every tensor is what the kernel reads: dtype, shape,
-    contiguity, widths its 16-byte vectors tile, and the caches' device."""
+    contiguity, widths its 16-byte vectors tile, and the caches' device.
+    The C entry point checks the rest (shared memory per block)."""
     dtype = packed["pw1"].dtype
     n_layers, n_heads, b, n_pos, dh = self_k.shape
     tp = cross_k.shape[3]
@@ -351,7 +325,11 @@ def decode_step(
         scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"decode_step kernel failed to launch: CUDA error {rc}")
+        raise RuntimeError(
+            f"decode_step kernel refused or failed to launch (CUDA error {rc}) for B={b}, "
+            f"L={n_layers}, H={n_heads}, dh={dh}, d_ffn={d_ffn}, n_pos={n_pos}, "
+            f"Tp={cross_k.shape[3]}"
+        )
     decode_step.launches += 1
     if b > 1:
         decode_step.launches_batched += 1
