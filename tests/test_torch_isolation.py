@@ -100,3 +100,15 @@ def test_convert_layouts():
     np.testing.assert_array_equal(state["enc_prenet.ConvBN_1.BatchNorm_0.running_var"].numpy(),
                                   s["enc_prenet"]["ConvBN_1"]["BatchNorm_0"]["var"])
     assert state["pe.alpha"].shape == (1,)
+
+
+@pytest.mark.parametrize("module", ["ops.flash_attention", "ops.fused_ln", "ops.dropout_mask",
+                                    "train.train_step", "models.factory"])
+def test_each_module_imports_first(module):
+    """No import cycle: any module of the training slice can be the first
+    one a fresh interpreter imports (``models`` imports ``ops``, so ``ops``
+    must not import ``models`` at import time)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import transformertts_tpu_torch.{module}"], cwd=ROOT,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]

@@ -1,0 +1,42 @@
+"""One home for deriving TransformerTTS runtime kwargs from a Config
+(``transformertts_tpu/models/factory.py``).
+
+The JAX package gates its fused LayerNorm on ``d_model % 128`` (a TPU lane
+rule); the port has no such gate: the CUDA kernel's wrapper raises for the
+widths it cannot take.  On the GPU the fused ops are the CUDA kernels, and
+turning them off in the config has no GPU path: it raises, unless the caller
+asks for the plain versions by name with ``plain_ops=True``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from transformertts_tpu_torch.device import resolve_device
+
+
+def runtime_model_kwargs(cfg, device: str | torch.device | None = None,
+                         plain_ops: bool = False) -> dict:
+    """kwargs for ``TransformerTTS(cfg.model, **runtime_model_kwargs(cfg))``;
+    ``device`` None means the GPU."""
+    r = cfg.runtime
+    device = resolve_device(device)
+    if r.use_pallas_fused_ffn:
+        raise NotImplementedError(
+            "use_pallas_fused_ffn: the fused FFN kernel is not ported yet "
+            "(ROADMAP Queue 2: fused_ffn)")
+    if device.type == "cuda" and not plain_ops:
+        off = [name for name in ("use_pallas_attention", "use_pallas_fused_ln")
+               if not getattr(r, name)]
+        if off:
+            raise ValueError(
+                f"on CUDA training runs the attention and LayerNorm kernels; {off} = False "
+                "has no GPU path (pass plain_ops=True to run the plain reference versions)")
+    return dict(
+        dtype=torch.bfloat16 if r.compute_dtype == "bfloat16" else torch.float32,
+        device=device,
+        use_flash=r.use_pallas_attention,
+        use_fused_ln=r.use_pallas_fused_ln,
+        fuse_qkv=r.fuse_qkv_projections,
+        plain_ops=plain_ops,
+    )

@@ -1,10 +1,14 @@
 """Building-block modules: Linear/LayerNorm/BatchNorm holders, LinearNorm,
 ConvBN, prenets, postnet, scaled PE (``transformertts_tpu/models/modules.py``).
 
-Inference semantics only (eval mode: no dropout, BatchNorm on its running
-statistics).  Numerics follow flax's: parameters are fp32 and are cast to
-the compute ``dtype`` at use; a dense layer rounds its matmul to ``dtype``
-before adding the bias, as ``flax.linen.Dense`` does.  Submodules carry the
+Every module that behaves differently in training takes ``train`` (default
+False: no dropout, BatchNorm on its running statistics) and, for its
+dropout, a ``DropoutRng``: explicit generators, never the global RNG.  The
+dropout here is plain tensor code, as it is XLA code in the JAX package; the
+dropout inside the attention and LayerNorm kernels is ``ops/dropout_mask.py``.
+Numerics follow flax's: parameters are fp32 and are cast to the compute
+``dtype`` at use; a dense layer rounds its matmul to ``dtype`` before adding
+the bias, as ``flax.linen.Dense`` does.  Submodules carry the
 flax names (``Dense_0``, ``ConvBN_2``, ...), so ``convert.py`` maps a flax
 parameter path onto a state-dict key by joining it with dots.
 
@@ -15,6 +19,7 @@ module boundary and transpose to torch's (B, C, T) inside.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -22,10 +27,37 @@ import torch.nn.functional as F
 from torch import nn
 
 from transformertts_tpu_torch.models.initializers import normal_, xavier_normal_
+from transformertts_tpu_torch.ops.dropout_mask import seed_from_generator
 
 
 def _param(*shape, device=None) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, device=device))
+
+
+class DropoutRng:
+    """The random streams of one train-mode forward, both made from ``seed``:
+    ``seeds`` (a CPU generator) gives each kernel call site its int32 mask
+    seed without a device readback, ``masks`` (a generator on ``device``)
+    draws the elementwise masks of the plain dropout."""
+
+    def __init__(self, seed: int, device: str | torch.device = "cpu"):
+        self.seeds = torch.Generator().manual_seed(int(seed))
+        self.masks = torch.Generator(device=device).manual_seed(int(seed))
+
+    def kernel_seed(self, rate: float) -> int:
+        """A fresh seed for one kernel call (0 when its dropout is off)."""
+        return seed_from_generator(rate, self.seeds)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool, rng: Optional[DropoutRng]) -> torch.Tensor:
+    """flax ``Dropout``: ``where(keep, x / (1 - rate), 0)`` with keep drawn
+    from ``rng.masks``; the identity when not training or at rate 0."""
+    if not train or rate <= 0.0:
+        return x
+    if rng is None:
+        raise ValueError("train-mode dropout needs a DropoutRng")
+    keep = torch.rand(x.shape, generator=rng.masks, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class Linear(nn.Module):
@@ -61,12 +93,19 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference-mode BatchNorm over the last axis, on running statistics.
+    """BatchNorm over the last axis with flax's semantics (momentum 0.9,
+    eps 1e-5).
 
-    ``running_var`` holds flax's ``batch_stats/var`` as flax stores it (the
-    biased variance); it is used as it is.  Arithmetic as flax's
-    ``_normalize``: promoted to fp32, cast to ``dtype`` at the end.
+    Eval: the running statistics.  Train: the batch's statistics over every
+    leading position (padding included), in fp32, the variance biased and
+    computed as ``E[x^2] - E[x]^2`` clamped at 0; the SAME biased variance
+    goes into ``running_var`` as ``0.9 * running + 0.1 * batch`` (flax's
+    rule; ``torch.nn.BatchNorm1d`` would store the unbiased one).  The
+    buffers are updated in place.  Arithmetic as flax's ``_normalize``:
+    promoted to fp32, cast to ``dtype`` at the end.
     """
+
+    momentum = 0.9
 
     def __init__(self, d: int, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
@@ -82,9 +121,19 @@ class BatchNorm(nn.Module):
         nn.init.zeros_(self.running_mean)
         nn.init.ones_(self.running_var)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + 1e-5) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x32 = x.float()
+        if train:
+            flat = x32.reshape(-1, x32.shape[-1])
+            mean = flat.mean(dim=0)
+            var = torch.clamp((flat * flat).mean(dim=0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + 1e-5) * self.weight
+        y = (x32 - mean) * mul + self.bias
         return y.to(self.dtype)
 
 
@@ -141,38 +190,43 @@ class ConvBN(nn.Module):
         nn.init.zeros_(self.Conv_0.bias)
         self.BatchNorm_0.reset_parameters()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.BatchNorm_0(self.Conv_0(x, self.dtype))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.BatchNorm_0(self.Conv_0(x, self.dtype), train)
 
 
 class EncoderPreNet(nn.Module):
-    """N x ConvBN + final LinearNorm (ref: model/model.py:13-45); no ReLU."""
+    """N x [ConvBN + Dropout] + final LinearNorm (ref: model/model.py:13-45);
+    no ReLU."""
 
-    def __init__(self, n_layers, features, kernel_size, dtype=torch.float32, device=None):
+    def __init__(self, n_layers, features, kernel_size, dropout=0.5, dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.n_layers = n_layers
+        self.dropout = dropout
         for i in range(n_layers):
             setattr(self, f"ConvBN_{i}", ConvBN(
                 features, features, kernel_size, "relu", dtype, device=device))
         self.LinearNorm_0 = LinearNorm(features, features, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, rng=None) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = getattr(self, f"ConvBN_{i}")(x)
+            x = dropout(getattr(self, f"ConvBN_{i}")(x, train), self.dropout, train, rng)
         return self.LinearNorm_0(x)
 
 
 class DecoderPreNet(nn.Module):
-    """2 x [LinearNorm -> ReLU] (ref: model/model.py:48-67); dropout off."""
+    """2 x [LinearNorm -> ReLU -> Dropout] (ref: model/model.py:48-67);
+    dropout only in training."""
 
-    def __init__(self, n_mels, d_model, dtype=torch.float32, device=None):
+    def __init__(self, n_mels, d_model, dropout=0.5, dtype=torch.float32, device=None):
         super().__init__()
+        self.dropout = dropout
         self.LinearNorm_0 = LinearNorm(n_mels, d_model, dtype=dtype, device=device)
         self.LinearNorm_1 = LinearNorm(d_model, d_model, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.LinearNorm_0(x))
-        return torch.relu(self.LinearNorm_1(x))
+    def forward(self, x: torch.Tensor, train: bool = False, rng=None) -> torch.Tensor:
+        x = dropout(torch.relu(self.LinearNorm_0(x)), self.dropout, train, rng)
+        return dropout(torch.relu(self.LinearNorm_1(x)), self.dropout, train, rng)
 
 
 def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
@@ -186,11 +240,13 @@ def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
 
 
 class ScaledPositionalEncoding(nn.Module):
-    """x + alpha * PE[offset:offset+T]; ONE learnable scalar alpha, shared by
-    the encoder and the decoder (reference quirk, model/model.py:288,297)."""
+    """x + alpha * PE[offset:offset+T], then dropout; ONE learnable scalar
+    alpha, shared by the encoder and the decoder (reference quirk,
+    model/model.py:288,297)."""
 
-    def __init__(self, d_model: int, max_len: int = 5000, device=None):
+    def __init__(self, d_model: int, max_len: int = 5000, dropout: float = 0.1, device=None):
         super().__init__()
+        self.dropout = dropout
         self.alpha = _param(1, device=device)
         self.register_buffer(
             "pe", torch.from_numpy(sinusoid_table(max_len, d_model)).to(device),
@@ -200,27 +256,32 @@ class ScaledPositionalEncoding(nn.Module):
     def reset_parameters(self, generator=None) -> None:
         nn.init.ones_(self.alpha)
 
-    def forward(self, x: torch.Tensor, offset: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, offset: int = 0, train: bool = False,
+                rng=None) -> torch.Tensor:
         table = self.pe[offset: offset + x.shape[-2]]
-        return x + (self.alpha * table[None]).to(x.dtype)
+        return dropout(x + (self.alpha * table[None]).to(x.dtype), self.dropout, train, rng)
 
 
 class PostNet(nn.Module):
     """5-layer conv postnet (ref: model/model.py:100-135); Tanh after every
-    block but the last; the residual add happens in the caller."""
+    block but the last, dropout after every block; the residual add happens
+    in the caller."""
 
-    def __init__(self, n_layers, n_mels, d_model, kernel_size, dtype=torch.float32, device=None):
+    def __init__(self, n_layers, n_mels, d_model, kernel_size, dropout=0.5,
+                 dtype=torch.float32, device=None):
         super().__init__()
         self.n_layers = n_layers
+        self.dropout = dropout
         widths = [n_mels] + [d_model] * (n_layers - 1) + [n_mels]
         for i in range(n_layers):
             setattr(self, f"ConvBN_{i}", ConvBN(
                 widths[i], widths[i + 1], kernel_size, "tanh", dtype, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, rng=None) -> torch.Tensor:
         for i in range(self.n_layers - 1):
-            x = torch.tanh(getattr(self, f"ConvBN_{i}")(x))
-        return getattr(self, f"ConvBN_{self.n_layers - 1}")(x)
+            x = dropout(torch.tanh(getattr(self, f"ConvBN_{i}")(x, train)), self.dropout, train, rng)
+        return dropout(getattr(self, f"ConvBN_{self.n_layers - 1}")(x, train), self.dropout,
+                       train, rng)
 
 
 class Embed(nn.Module):

@@ -1,11 +1,16 @@
 """Post-LN Transformer encoder/decoder stacks (``transformertts_tpu/models/transformer.py``).
 
-  encoder layer:  x = LN1(x + SelfAttn(x));  x = LN2(x + FFN(x))
-  decoder layer:  x = LN1(x + SelfAttn(x, causal+pad))
-                  x = LN2(x + CrossAttn(x, memory, mem-pad))  [weights kept]
-                  x = LN3(x + FFN(x))
+  encoder layer:  x = LN1(x + Drop(SelfAttn(x)))
+                  x = LN2(x + Drop(W2 Drop(relu(W1 x))))
+  decoder layer:  x = LN1(x + Drop(SelfAttn(x, causal+pad)))
+                  x = LN2(x + Drop(CrossAttn(x, memory, mem-pad)))  [weights kept]
+                  x = LN3(x + Drop(FFN(x)))
 
-Inference semantics (dropout off).  LayerNorm eps 1e-5, fp32 statistics.
+LayerNorm eps 1e-5, fp32 statistics.  With ``use_fused_ln`` every
+``LN(x + Drop(h))`` is one call of the fused kernel
+(``ops/fused_ln.py``); without it, plain dropout and the LayerNorm module.
+Dropout runs only with ``train=True`` and draws from the ``DropoutRng`` the
+caller passes.
 """
 
 from __future__ import annotations
@@ -15,14 +20,31 @@ from torch import nn
 
 from transformertts_tpu_torch.models.attention import MultiHeadAttention
 from transformertts_tpu_torch.models.initializers import torch_linear_
-from transformertts_tpu_torch.models.modules import LayerNorm, Linear
+from transformertts_tpu_torch.models.modules import LayerNorm, Linear, dropout
+from transformertts_tpu_torch.ops.fused_ln import residual_dropout_layernorm
+
+
+def _residual_norm(layer, norm: LayerNorm, x, h, train: bool, rng):
+    """``norm(x + drop(h))``, as one fused kernel call when the layer says so.
+    The LayerNorm parameters stay on the ``norm`` module either way."""
+    rate = layer.dropout if train else 0.0
+    if layer.use_fused_ln:
+        if rate > 0.0 and rng is None:
+            raise ValueError("train-mode dropout needs a DropoutRng")
+        return residual_dropout_layernorm(
+            x, h, norm.weight, norm.bias, dropout=rate,
+            seed=rng.kernel_seed(rate) if rate > 0.0 else 0, plain=layer.plain_ops,
+        )
+    return norm(x + dropout(h, rate, train, rng))
 
 
 class FeedForward(nn.Module):
-    def __init__(self, d_model: int, d_ffn: int, dtype=torch.float32, device=None):
+    def __init__(self, d_model: int, d_ffn: int, dropout: float = 0.1, dtype=torch.float32,
+                 device=None):
         super().__init__()
         self.Dense_0 = Linear(d_model, d_ffn, device=device)
         self.Dense_1 = Linear(d_ffn, d_model, device=device)
+        self.dropout = dropout
         self.dtype = dtype
 
     def reset_parameters(self, generator) -> None:
@@ -31,59 +53,77 @@ class FeedForward(nn.Module):
             torch_linear_(dense.weight, generator)
             torch_linear_(dense.bias, generator, fan_in=fan_in)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Dense_1(torch.relu(self.Dense_0(x, self.dtype)), self.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False, rng=None) -> torch.Tensor:
+        h = dropout(torch.relu(self.Dense_0(x, self.dtype)), self.dropout, train, rng)
+        return self.Dense_1(h, self.dtype)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model, n_heads, d_ffn, dtype=torch.float32, device=None):
+    def __init__(self, d_model, n_heads, d_ffn, dropout=0.1, dtype=torch.float32,
+                 use_flash=False, use_fused_ln=False, fuse_qkv=False, plain_ops=False,
+                 device=None):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, n_heads, dtype, device=device)
-        self.ffn = FeedForward(d_model, d_ffn, dtype, device=device)
+        self.dropout = dropout
+        self.use_fused_ln = use_fused_ln
+        self.plain_ops = plain_ops
+        attn = (d_model, n_heads, dropout, dtype, use_flash, fuse_qkv, plain_ops)
+        self.self_attn = MultiHeadAttention(*attn, device=device)
+        self.ffn = FeedForward(d_model, d_ffn, dropout, dtype, device=device)
         self.norm1 = LayerNorm(d_model, dtype, device=device)
         self.norm2 = LayerNorm(d_model, dtype, device=device)
 
-    def forward(self, x, key_bias=None):
-        sa, _ = self.self_attn(x, x, key_bias=key_bias)
-        x = self.norm1(x + sa)
-        return self.norm2(x + self.ffn(x))
+    def forward(self, x, key_bias=None, train: bool = False, rng=None):
+        sa, _ = self.self_attn(x, x, key_bias=key_bias, train=train, rng=rng)
+        x = _residual_norm(self, self.norm1, x, sa, train, rng)
+        return _residual_norm(self, self.norm2, x, self.ffn(x, train, rng), train, rng)
 
 
 class Encoder(nn.Module):
-    def __init__(self, n_layers, d_model, n_heads, d_ffn, dtype=torch.float32, device=None):
+    def __init__(self, n_layers, d_model, n_heads, d_ffn, dropout=0.1, dtype=torch.float32,
+                 use_flash=False, use_fused_ln=False, fuse_qkv=False, plain_ops=False,
+                 device=None):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
             setattr(self, f"layer_{i}", EncoderLayer(
-                d_model, n_heads, d_ffn, dtype, device=device))
+                d_model, n_heads, d_ffn, dropout, dtype, use_flash, use_fused_ln, fuse_qkv,
+                plain_ops, device=device))
 
-    def forward(self, x, key_bias=None):
+    def forward(self, x, key_bias=None, train: bool = False, rng=None):
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x, key_bias)
+            x = getattr(self, f"layer_{i}")(x, key_bias, train, rng)
         return x
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model, n_heads, d_ffn, dtype=torch.float32, device=None):
+    def __init__(self, d_model, n_heads, d_ffn, dropout=0.1, dtype=torch.float32,
+                 use_flash=False, use_fused_ln=False, fuse_qkv=False, plain_ops=False,
+                 device=None):
         super().__init__()
-        self.self_attn = MultiHeadAttention(d_model, n_heads, dtype, device=device)
-        self.cross_attn = MultiHeadAttention(d_model, n_heads, dtype, device=device)
-        self.ffn = FeedForward(d_model, d_ffn, dtype, device=device)
+        self.dropout = dropout
+        self.use_fused_ln = use_fused_ln
+        self.plain_ops = plain_ops
+        attn = (d_model, n_heads, dropout, dtype, use_flash, fuse_qkv, plain_ops)
+        self.self_attn = MultiHeadAttention(*attn, device=device)
+        self.cross_attn = MultiHeadAttention(*attn, device=device)
+        self.ffn = FeedForward(d_model, d_ffn, dropout, dtype, device=device)
         self.norm1 = LayerNorm(d_model, dtype, device=device)
         self.norm2 = LayerNorm(d_model, dtype, device=device)
         self.norm3 = LayerNorm(d_model, dtype, device=device)
 
     def forward(self, x, memory, tgt_key_bias=None, mem_key_bias=None,
-                return_alignments: bool = True):
-        sa, _ = self.self_attn(x, x, key_bias=tgt_key_bias, causal=True)
-        x = self.norm1(x + sa)
+                return_alignments: bool = True, train: bool = False, rng=None):
+        sa, _ = self.self_attn(x, x, key_bias=tgt_key_bias, causal=True, train=train, rng=rng)
+        x = _residual_norm(self, self.norm1, x, sa, train, rng)
         ca, align = self.cross_attn(
-            x, memory, return_weights=return_alignments, key_bias=mem_key_bias
+            x, memory, return_weights=return_alignments, key_bias=mem_key_bias,
+            train=train, rng=rng,
         )
-        x = self.norm2(x + ca)
-        return self.norm3(x + self.ffn(x)), align
+        x = _residual_norm(self, self.norm2, x, ca, train, rng)
+        x = _residual_norm(self, self.norm3, x, self.ffn(x, train, rng), train, rng)
+        return x, align
 
-    # --- KV-cached single-step path (infer/decode.py) ---
+    # --- KV-cached single-step path (infer/decode.py); no dropout: inference ---
 
     def cached_step(self, x, self_k, self_v, cross_k, cross_v, self_bias, cross_bias):
         """One decode step with precomputed K/V."""
@@ -108,22 +148,25 @@ class DecoderLayer(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, n_layers, d_model, n_heads, d_ffn, dtype=torch.float32, device=None):
+    def __init__(self, n_layers, d_model, n_heads, d_ffn, dropout=0.1, dtype=torch.float32,
+                 use_flash=False, use_fused_ln=False, fuse_qkv=False, plain_ops=False,
+                 device=None):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
             setattr(self, f"layer_{i}", DecoderLayer(
-                d_model, n_heads, d_ffn, dtype, device=device))
+                d_model, n_heads, d_ffn, dropout, dtype, use_flash, use_fused_ln, fuse_qkv,
+                plain_ops, device=device))
 
     @property
     def layers(self) -> list[DecoderLayer]:
         return [getattr(self, f"layer_{i}") for i in range(self.n_layers)]
 
     def forward(self, x, memory, tgt_key_bias=None, mem_key_bias=None,
-                return_alignments: bool = True):
+                return_alignments: bool = True, train: bool = False, rng=None):
         alignments = []
         for layer in self.layers:
-            x, align = layer(x, memory, tgt_key_bias, mem_key_bias, return_alignments)
+            x, align = layer(x, memory, tgt_key_bias, mem_key_bias, return_alignments, train, rng)
             if return_alignments:
                 alignments.append(align)
         # (L, B, H, T_mel, T_phon)

@@ -1,9 +1,10 @@
 """The TransformerTTS model (``transformertts_tpu/models/tts.py``; ref:
-model/model.py:138-394), inference semantics.
+model/model.py:138-394).
 
-``forward`` is the teacher-forced eval pass (the JAX module's
-``apply(..., train=False)``); the hooks below it serve the KV-cached decode
-in ``infer/decode.py``.
+``forward`` is the teacher-forced pass: evaluation by default, training
+(dropout on, BatchNorm on the batch's statistics and updating its running
+ones) with ``train=True`` and a ``DropoutRng``.  The hooks below it serve the
+KV-cached decode in ``infer/decode.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from transformertts_tpu_torch.device import resolve_device
 from transformertts_tpu_torch.models.masks import key_padding_bias
 from transformertts_tpu_torch.models.modules import (
     DecoderPreNet,
+    DropoutRng,
     Embed,
     EncoderPreNet,
     LinearNorm,
@@ -47,6 +49,14 @@ class TransformerTTS(nn.Module):
     on the CPU from ``generator`` (seed 0 when None) and then moved, so a
     seed gives the same weights on every device.  ``device="meta"`` builds
     the shapes only.
+
+    ``use_flash`` / ``use_fused_ln`` route attention and every
+    ``LN(x + Drop(h))`` through the fused ops (``ops/flash_attention.py``,
+    ``ops/fused_ln.py``: the CUDA kernels on the GPU), ``fuse_qkv`` runs the
+    in-projections as one matmul; ``models/factory.py`` derives them from a
+    ``Config``.  ``plain_ops=True`` makes the fused ops run their plain
+    PyTorch versions whatever the device: the reference a GPU run holds the
+    kernels against.  The fused FFN kernel is not ported yet.
     """
 
     def __init__(
@@ -55,8 +65,16 @@ class TransformerTTS(nn.Module):
         dtype: torch.dtype = torch.float32,
         device: str | torch.device | None = None,
         generator: Optional[torch.Generator] = None,
+        use_flash: bool = False,
+        use_fused_ln: bool = False,
+        use_fused_ffn: bool = False,
+        fuse_qkv: bool = False,
+        plain_ops: bool = False,
     ):
         super().__init__()
+        if use_fused_ffn:
+            raise NotImplementedError(
+                "the fused FFN kernel is not ported yet (ROADMAP Queue 2: fused_ffn)")
         device = resolve_device(device)
         build = device if device.type == "meta" else torch.device("cpu")
         self.cfg = cfg
@@ -65,21 +83,23 @@ class TransformerTTS(nn.Module):
         self.emb = Embed(c.n_phon, c.d_model, device=build)
         self.enc_prenet = EncoderPreNet(
             c.encoder_prenet_n_layers, c.d_model, c.encoder_prenet_kernel_size,
-            dtype, device=build,
+            c.encoder_prenet_dropout, dtype, device=build,
         )
-        self.dec_prenet = DecoderPreNet(c.n_mels, c.d_model, dtype, device=build)
-        self.pe = ScaledPositionalEncoding(c.d_model, c.max_len, device=build)
+        self.dec_prenet = DecoderPreNet(
+            c.n_mels, c.d_model, c.decoder_prenet_dropout, dtype, device=build)
+        self.pe = ScaledPositionalEncoding(c.d_model, c.max_len, c.pe_dropout, device=build)
+        fused = (dtype, use_flash, use_fused_ln, fuse_qkv, plain_ops)
         self.encoder = Encoder(
             c.encoder_n_layers, c.d_model, c.encoder_n_head, c.encoder_d_ffn,
-            dtype, device=build,
+            c.encoder_dropout, *fused, device=build,
         )
         self.decoder = Decoder(
             c.decoder_n_layers, c.d_model, c.decoder_n_head, c.decoder_d_ffn,
-            dtype, device=build,
+            c.decoder_dropout, *fused, device=build,
         )
         self.postnet = PostNet(
             c.postnet_n_layers, c.n_mels, c.d_model, c.postnet_kernel_size,
-            dtype, device=build,
+            c.postnet_dropout, dtype, device=build,
         )
         self.mel_linear = LinearNorm(c.d_model, c.n_mels * r, dtype=dtype, device=build)
         self.stop_linear = LinearNorm(c.d_model, r, dtype=dtype, device=build)
@@ -96,16 +116,18 @@ class TransformerTTS(nn.Module):
     def device(self) -> torch.device:
         return self.emb.weight.device
 
-    def encode(self, phoneme: torch.Tensor, phoneme_lens: Optional[torch.Tensor]):
+    def encode(self, phoneme: torch.Tensor, phoneme_lens: Optional[torch.Tensor],
+               train: bool = False, rng: Optional[DropoutRng] = None):
         src_key_bias = (
             key_padding_bias(phoneme_lens, phoneme.shape[1])
             if phoneme_lens is not None else None
         )
         x = self.emb(phoneme).to(self.dtype)
-        x = self.pe(self.enc_prenet(x))
-        return self.encoder(x, src_key_bias)
+        x = self.pe(self.enc_prenet(x, train, rng), 0, train, rng)
+        return self.encoder(x, src_key_bias, train, rng)
 
-    def decode(self, memory, tgt_in, phoneme_lens, mel_lens, return_alignments=True):
+    def decode(self, memory, tgt_in, phoneme_lens, mel_lens, return_alignments=True,
+               train: bool = False, rng: Optional[DropoutRng] = None):
         t_pos = tgt_in.shape[1]
         tgt_key_bias = (
             key_padding_bias(group_lens(mel_lens, self.cfg.reduction_factor), t_pos)
@@ -115,8 +137,8 @@ class TransformerTTS(nn.Module):
             key_padding_bias(phoneme_lens, memory.shape[1])
             if phoneme_lens is not None else None
         )
-        x = self.pe(self.dec_prenet(tgt_in.to(self.dtype)))
-        return self.decoder(x, memory, tgt_key_bias, mem_key_bias, return_alignments)
+        x = self.pe(self.dec_prenet(tgt_in.to(self.dtype), train, rng), 0, train, rng)
+        return self.decoder(x, memory, tgt_key_bias, mem_key_bias, return_alignments, train, rng)
 
     def forward(
         self,
@@ -126,16 +148,21 @@ class TransformerTTS(nn.Module):
         melspec_lens: torch.Tensor,
         return_alignments: bool = True,
         compute_postnet: bool = True,
+        train: bool = False,
+        rng: Optional[DropoutRng] = None,
     ) -> dict:
-        """Teacher-forced eval forward (ref: model/model.py:260-320)."""
+        """Teacher-forced forward (ref: model/model.py:260-320).
+
+        ``compute_postnet=False`` skips the postnet (the first,
+        gradient-free scheduled-sampling pass only needs ``pred_melspec``)."""
         r = self.cfg.reduction_factor
         b, t_mel = melspec.shape[0], melspec.shape[1]
         if t_mel % r:
             raise ValueError(f"mel length {t_mel} not a multiple of reduction_factor {r}")
         tgt_in = shift_right(melspec, r)
-        memory = self.encode(phoneme, phoneme_lens)
+        memory = self.encode(phoneme, phoneme_lens, train, rng)
         tgt_out, alignments = self.decode(
-            memory, tgt_in, phoneme_lens, melspec_lens, return_alignments
+            memory, tgt_in, phoneme_lens, melspec_lens, return_alignments, train, rng
         )
         pred_melspec = self.mel_linear(tgt_out).reshape(b, t_mel, self.cfg.n_mels)
         pred_stop = self.stop_linear(tgt_out).reshape(b, t_mel)
@@ -144,7 +171,7 @@ class TransformerTTS(nn.Module):
             "pred_stop": pred_stop.float(),
         }
         if compute_postnet:
-            out["post_melspec"] = (self.postnet(pred_melspec) + pred_melspec).float()
+            out["post_melspec"] = (self.postnet(pred_melspec, train, rng) + pred_melspec).float()
         if return_alignments:
             out["alignments"] = alignments.float()
         return out
