@@ -18,7 +18,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    gradient, at the training path's shapes (B 16, 4 heads of 64; (128, 128),
    causal (768, 768), (768, 128); 12,288 and 2,048 rows of 256) and at odd
    ones, fp32 and bf16, dropout 0 and 0.1, ragged key bias; each backward
-   twice, for equal bits;
+   twice, for equal bits.  The fused FFN kernels, forward and all five
+   gradients, at (N, D, F) = (12,288, 256, 1,024) and (2,048, 256, 1,024) and
+   at odd sizes (an N no mask block divides, F no multiple of a slice, every
+   output width the kernels are built for, a width where bf16 and fp32 key
+   the mask on different block heights), fp32 and bf16, dropout 0 and 0.1,
+   each backward twice for equal bits.  The log-mel kernel at one clip
+   (``center=True``, a length that is no multiple of the hop), at a batch of
+   32 rows of 163,840 samples (``center=False``, as ``preprocess`` sends
+   them) and at lengths that rule out 16-byte loads, against its plain
+   version and against ``mel_spectrogram_np``;
 4. decode: the full decode through the kernel loop against the plain loop,
    fp32 weights, B = 2 with ragged lengths, 64 forced frames, W = 0 and 2;
 5. serve: the serving path, ``make_http_server`` -> ``DynamicBatcher`` ->
@@ -31,17 +40,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and scheduled sampling on, once through the kernels and once through
    their plain versions from the same generator seeds (so both drop the
    same elements): the loss and every parameter's gradient are compared;
+   then a second micro-batch the same way with
+   ``runtime.use_pallas_fused_ffn`` on;
 7. train: the training path, ``create_train_state`` + ``make_train_step``
    at ``Config()`` (bf16, 4 micro-batches of 16 rows, 768 mel frames, 128
    phonemes, double forward, dropout on) for 3 optimizer steps on seeded
    synthetic batches, then one ``make_eval_step``; the kernels' launch
    counts are zeroed before and read after, and must be what the path
    implies (per step 72 / 36 flash and 120 / 60 LayerNorm forwards /
-   backwards);
-8. time: every kernel beside its plain version, its bound and (where one
-   PyTorch call computes the same function) that call, decode frames/s
-   through ``Synthesizer.synthesize`` and the training step's ms and
-   audio-seconds per second, with the card's name and power limit.
+   backwards), fused FFN off as by default;
+8. preprocess: the preprocessing path.  A seeded corpus of 160 mono 16-bit
+   wavs of 2-9 s at 22,050 Hz (moving sines and noise; ids in both splits)
+   with a ``metadata.csv`` is written into a temporary directory, the
+   port's ``preprocess`` runs on it with ``runtime.use_pallas_mel`` on the
+   card, and the npz keys, ``stats.json``, every clip's frame count and
+   every mel (against ``mel_spectrogram_np`` under the same statistics) are
+   checked; the log-mel kernel's launch count is zeroed before and must be
+   twice the number of 32-clip chunks after;
+9. train-ffn: the training path with ``runtime.use_pallas_fused_ffn`` on.
+   The first optimizer step takes a batch that ``BucketedLoader`` over
+   ``LJSpeechDataset`` (through ``prefetch``) reads from what the
+   preprocess phase wrote, then 3 checked and 4 timed steps on the
+   synthetic batches of the train phase, then one evaluation step; per
+   optimizer step 48 / 24 FFN forwards / backwards beside the 72 / 36
+   flash and 120 / 60 LayerNorm ones;
+10. time: every kernel beside its plain version, its bound and (where
+    PyTorch has a call or a short chain of calls for the same function)
+    that, decode frames/s through ``Synthesizer.synthesize`` and both
+    training configurations' ms per step and audio-seconds per second, with
+    the card's name and power limit.
+
+The train phase keeps its 3 checked + 4 timed steps while the whole run stays
+near two minutes; it may drop to 1 + 2 if later phases push the run past that.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi gives them, and ``{"ok": true, "device": {...}}``.
@@ -55,9 +85,11 @@ import io
 import json
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
+import wave
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -65,7 +97,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, published
-ALL_PHASES = ("build", "mask", "kernel", "decode", "serve", "train-parity", "train", "time")
+ALL_PHASES = ("build", "mask", "kernel", "decode", "serve", "train-parity", "train",
+              "preprocess", "train-ffn", "time")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max|kernel - plain| / max(1, max|plain|)
 # kernel loop vs plain loop, fp32, 64 fed-back frames: as the CPU test of the
 # port against the JAX loop; the H100 showed at most 1.2e-6 relative
@@ -428,6 +461,147 @@ def phase_train_kernels(device) -> dict:
     log("[kernel] every backward gave the same bits on a second run")
     return worst
 
+FFN_ROWS = {"decoder": 16 * 768, "encoder": 16 * 128}  # rows of the path's two FFN shapes
+TRAIN_F = 1024
+AUDIO = dict(sample_rate=22050, n_fft=1024, hop_length=256, win_length=1024, fmin=0.0,
+             fmax=8000.0, n_mels=80)  # Config().audio
+MEL_BATCH, MEL_BUCKET_LEN = 32, 163840  # preprocess: 32 clips, zero-extended to 5 x 32,768
+MEL_TOL_PLAIN = 1e-3  # max|kernel - plain| on the log-mel: the same products, other order
+MEL_TOL_NP = (2e-2, 2e-3)  # max and mean |kernel - numpy FFT|: fp32 DFT sums of 1,024 terms
+
+
+def ffn_inputs(n, d, f, dtype, device, seed):
+    """x (N, D), W1 (F, D), b1, W2 (D, F), b2, dy.  x comes in eighths and W1,
+    b1 in 64ths of small integers: the first product's sums are then exact in
+    fp32 in any order, so kernel and plain version take the same relu
+    decisions and what is compared is their arithmetic, not a coin flip at
+    hp = 0 (one flipped element moves a gradient row by far more than any
+    rounding).  W2, b2 and dy are plain normal numbers."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = np.clip(np.round(rng.standard_normal((n, d)) * 8), -24, 24) / 8
+    w1 = np.clip(np.round(rng.standard_normal((f, d)) * 4), -12, 12) / 64
+    b1 = np.round(rng.standard_normal(f) * 6) / 64
+    w2, b2 = rng.standard_normal((d, f)) * 0.06, rng.standard_normal(d) * 0.1
+    dy = rng.standard_normal((n, d))
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    return t(x).to(dtype), t(w1), t(b1), t(w2), t(b2), t(dy).to(dtype)
+
+
+def phase_ffn_kernels(device) -> dict:
+    """Rows 7-8 against their plain versions; returns the worst abs errors."""
+    import torch
+
+    from transformertts_tpu_torch.ops.fused_ffn import fused_ffn, pick_rows
+
+    worst: dict = {}
+    cases = [(name, n, TRAIN_D, TRAIN_F) for name, n in FFN_ROWS.items()]
+    # an N that no mask block divides with an F that is no multiple of a slice;
+    # one width for each output width the kernels are built for (64, 128, 256,
+    # and 192 riding in 256); a d_ffn where bf16 and fp32 pick other mask heights
+    cases += [("odd", 1001, TRAIN_D, 1000), ("narrow", 333, 64, 136), ("two", 300, 128, 520),
+              ("three", 520, 192, 264), ("tall", 192, TRAIN_D, 3072)]
+    if pick_rows(192, TRAIN_D, 3072, 2) == pick_rows(192, TRAIN_D, 3072, 4):
+        raise AssertionError("the 'tall' case no longer separates the dtypes' mask heights")
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        for name, n, d, f in cases:
+            for p in (0.0, 0.1):
+                *inputs, dy = ffn_inputs(n, d, f, dtype, device, seed=n + f)
+                outs = []
+                for plain in (False, True, False):
+                    outs.append(run_with_grads(
+                        lambda *a: fused_ffn(*a, dropout=p, seed=4242 + n, plain=plain),
+                        inputs, dy))
+                    torch.cuda.synchronize()
+                kern, plain_out, again = outs
+                check_pair(f"fused_ffn {dtype_name:8s} {name} N={n} D={d} F={f} p={p}",
+                           ("y", "dx", "dw1", "db1", "dw2", "db2"), kern, plain_out, dtype_name,
+                           worst, "ffn")
+                if not all(torch.equal(a, c) for a, c in zip(kern, again)):
+                    raise AssertionError(f"fused_ffn {name}: two runs of the kernels differ in bits")
+    log("[kernel] every fused FFN backward gave the same bits on a second run")
+    return worst
+
+
+def clip_signal(rng, n: int) -> np.ndarray:
+    """n samples of two moving sines and noise, within [-1, 1]."""
+    t = np.arange(n) / AUDIO["sample_rate"]
+    f0, f1 = rng.uniform(100.0, 400.0), rng.uniform(800.0, 3000.0)
+    y = (0.3 * np.sin(2 * np.pi * (f0 * t + 40.0 * np.sin(2 * np.pi * 0.7 * t)))
+         + 0.2 * np.sin(2 * np.pi * (f1 * t + 0.5 * 300.0 * t * t))
+         + 0.05 * rng.standard_normal(n))
+    return y.astype(np.float32)
+
+
+def padded_batch(clips, bucket: int) -> np.ndarray:
+    """Clips reflect-padded one by one and zero-extended to ``bucket``
+    samples, as ``preprocess`` sends them to the kernel."""
+    pad = AUDIO["n_fft"] // 2
+    batch = np.zeros((len(clips), bucket), np.float32)
+    for j, y in enumerate(clips):
+        batch[j, : len(y) + 2 * pad] = np.pad(y, pad, mode="reflect")
+    return batch
+
+
+def check_mel(tag, out, plain, refs, worst) -> None:
+    """The kernel's (B, n_mels, frames) against its plain version and, over
+    each clip's true frames, against the numpy FFT reference."""
+    import torch
+
+    if out.shape != plain.shape or not torch.isfinite(out).all():
+        raise AssertionError(f"log_mel {tag}: shape {tuple(out.shape)} or values are off")
+    err = float((out - plain).abs().max())
+    worst["plain"] = max(worst.get("plain", 0.0), err)
+    if not err <= MEL_TOL_PLAIN:
+        raise AssertionError(f"kernel != plain: log_mel {tag}: abs err {err:.3g}")
+    host = out.cpu().numpy()
+    np_max = np_mean = 0.0
+    for j, ref in enumerate(refs):
+        diff = np.abs(host[j, :, : ref.shape[1]] - ref)
+        np_max, np_mean = max(np_max, float(diff.max())), max(np_mean, float(diff.mean()))
+    worst["numpy"] = max(worst.get("numpy", 0.0), np_max)
+    if not (np_max <= MEL_TOL_NP[0] and np_mean <= MEL_TOL_NP[1]):
+        raise AssertionError(f"log_mel {tag} != numpy FFT: max {np_max:.3g}, mean {np_mean:.3g}")
+    log(f"[kernel] log_mel {tag}: {tuple(out.shape)}, vs plain {err:.2e}, vs numpy FFT over "
+        f"{len(refs)} clips max {np_max:.2e} mean {np_mean:.2e}")
+
+
+def phase_mel_kernel(device) -> dict:
+    """Row 9 against its plain version and the numpy FFT; worst abs errors."""
+    import torch
+
+    from transformertts_tpu_torch.dsp import mel_spectrogram_np
+    from transformertts_tpu_torch.ops.stft import log_mel
+
+    worst: dict = {}
+    rng = np.random.default_rng(9)
+    hop = AUDIO["hop_length"]
+    # one clip, center=True, 5 s: 110,250 samples, no multiple of the hop
+    y = clip_signal(rng, 110250)
+    t = torch.from_numpy(y).to(device)
+    out = log_mel(t, **AUDIO)
+    if out.shape != (AUDIO["n_mels"], 1 + len(y) // hop):
+        raise AssertionError(f"log_mel: {tuple(out.shape)} for {len(y)} samples")
+    check_mel("one clip, center", out[None], log_mel(t, plain=True, **AUDIO)[None],
+              [mel_spectrogram_np(y, **AUDIO)], worst)
+    # the batch preprocess sends: 32 clips of 2-7.3 s in one 163,840-sample bucket
+    clips = [clip_signal(rng, int(n)) for n in rng.integers(44100, MEL_BUCKET_LEN - 1024, MEL_BATCH)]
+    t = torch.from_numpy(padded_batch(clips, MEL_BUCKET_LEN)).to(device)
+    out = log_mel(t, center=False, **AUDIO)
+    if out.shape != (MEL_BATCH, AUDIO["n_mels"], 1 + (MEL_BUCKET_LEN - 1024) // hop):
+        raise AssertionError(f"log_mel: {tuple(out.shape)} for the batch")
+    check_mel(f"batch of {MEL_BATCH}, center=False", out, log_mel(t, center=False, plain=True, **AUDIO),
+              [mel_spectrogram_np(c, **AUDIO) for c in clips], worst)
+    # rows whose starts rule out 16-byte loads (odd padded length), center=True
+    clips = [clip_signal(rng, 40001) for _ in range(3)]
+    t = torch.from_numpy(np.stack(clips)).to(device)
+    check_mel("3 clips of 40,001, center", log_mel(t, **AUDIO), log_mel(t, plain=True, **AUDIO),
+              [mel_spectrogram_np(c, **AUDIO) for c in clips], worst)
+    torch.cuda.synchronize()
+    return worst
+
 
 def phase_decode(cfg, device) -> None:
     import dataclasses
@@ -581,6 +755,7 @@ TRAIN_STEPS = 3  # checked optimizer steps (the timed ones come after)
 # launches of one train-mode forward and of its backward: 3 encoder + 6
 # decoder attention calls, 6 encoder + 9 decoder LN(x + Drop(h)) calls
 ATTN_CALLS, LN_CALLS = 9, 15
+FFN_CALLS = 6  # with runtime.use_pallas_fused_ffn: one fused call per layer, 3 + 3
 # train-parity, fp32: kernels and plain versions do the same arithmetic on
 # the same kept elements in another summation order, through ~30 layers
 # forward and back.  Losses: relative.  A gradient: max abs error against the
@@ -603,24 +778,35 @@ def synthetic_batch(rng, k: int, b: int) -> dict:
 
 def train_counters() -> dict:
     from transformertts_tpu_torch.ops.flash_attention import flash_attention
+    from transformertts_tpu_torch.ops.fused_ffn import fused_ffn
     from transformertts_tpu_torch.ops.fused_ln import residual_dropout_layernorm
 
     return {"flash_fwd": flash_attention.launches_fwd, "flash_bwd": flash_attention.launches_bwd,
             "ln_fwd": residual_dropout_layernorm.launches_fwd,
-            "ln_bwd": residual_dropout_layernorm.launches_bwd}
+            "ln_bwd": residual_dropout_layernorm.launches_bwd,
+            "ffn_fwd": fused_ffn.launches_fwd, "ffn_bwd": fused_ffn.launches_bwd}
 
 
 def zero_train_counters() -> None:
     from transformertts_tpu_torch.ops.flash_attention import flash_attention
+    from transformertts_tpu_torch.ops.fused_ffn import fused_ffn
     from transformertts_tpu_torch.ops.fused_ln import residual_dropout_layernorm
 
     flash_attention.launches_fwd = flash_attention.launches_bwd = 0
     residual_dropout_layernorm.launches_fwd = residual_dropout_layernorm.launches_bwd = 0
+    fused_ffn.launches_fwd = fused_ffn.launches_bwd = 0
 
 
-def expected_train_launches(passes_fwd: int, passes_bwd: int) -> dict:
+def expected_train_launches(passes_fwd: int, passes_bwd: int, ffn: bool) -> dict:
     return {"flash_fwd": ATTN_CALLS * passes_fwd, "flash_bwd": ATTN_CALLS * passes_bwd,
-            "ln_fwd": LN_CALLS * passes_fwd, "ln_bwd": LN_CALLS * passes_bwd}
+            "ln_fwd": LN_CALLS * passes_fwd, "ln_bwd": LN_CALLS * passes_bwd,
+            "ffn_fwd": FFN_CALLS * passes_fwd * ffn, "ffn_bwd": FFN_CALLS * passes_bwd * ffn}
+
+
+def with_fused_ffn(cfg):
+    import dataclasses
+
+    return cfg.replace(runtime=dataclasses.replace(cfg.runtime, use_pallas_fused_ffn=True))
 
 
 def train_model(cfg, device, seed: int, plain_ops: bool = False):
@@ -636,9 +822,10 @@ def train_model(cfg, device, seed: int, plain_ops: bool = False):
     return model
 
 
-def phase_train_parity(cfg, device, batch_rows: int = TRAIN_B) -> None:
+def phase_train_parity(cfg, device, batch_rows: int = TRAIN_B, batch_seed: int = 11) -> None:
     """One fp32 micro-batch through the kernels and through their plain
-    versions, same seeds: losses and every parameter's gradient."""
+    versions, same seeds: losses and every parameter's gradient.  ``cfg``
+    decides whether the feed-forward blocks are the fused op."""
     import dataclasses
 
     import torch
@@ -653,7 +840,8 @@ def phase_train_parity(cfg, device, batch_rows: int = TRAIN_B) -> None:
             self.grads = {k: g.detach().clone() for k, g in grads.items()}
 
     c32 = cfg.replace(runtime=dataclasses.replace(cfg.runtime, compute_dtype="float32"))
-    batch = synthetic_batch(np.random.default_rng(11), 1, batch_rows)
+    ffn = cfg.runtime.use_pallas_fused_ffn
+    batch = synthetic_batch(np.random.default_rng(batch_seed), 1, batch_rows)
     runs = []
     for plain in (False, True):
         model = train_model(c32, device, seed=3, plain_ops=plain)
@@ -665,7 +853,7 @@ def phase_train_parity(cfg, device, batch_rows: int = TRAIN_B) -> None:
         if device.type == "cuda":
             torch.cuda.synchronize()
         counts = train_counters()
-        want = expected_train_launches(0, 0) if plain else expected_train_launches(2, 1)
+        want = expected_train_launches(0, 0, ffn) if plain else expected_train_launches(2, 1, ffn)
         if device.type == "cuda" and counts != want:
             raise AssertionError(f"train-parity plain={plain}: launches {counts}, expected {want}")
         runs.append(({k: float(v) for k, v in metrics.items()}, opt.grads))
@@ -684,7 +872,8 @@ def phase_train_parity(cfg, device, batch_rows: int = TRAIN_B) -> None:
         if not ratio <= PARITY_GRAD_TOL:
             raise AssertionError(f"train-parity: gradient of {name} off by {ratio:.3g} of its "
                                  f"largest entry (abs {err:.3g})")
-    log(f"[train-parity] fp32 B={batch_rows} dropout on, p_tf 0.5: loss kernel {km['total']:.6f} "
+    log(f"[train-parity] fp32 B={batch_rows} fused FFN {'on' if ffn else 'off'}, dropout on, "
+        f"p_tf 0.5: loss kernel {km['total']:.6f} "
         f"plain {pm['total']:.6f}, grad_norm {km['grad_norm']:.6f} / {pm['grad_norm']:.6f}, "
         f"{len(pg)} gradients within {PARITY_GRAD_TOL:g} of their largest entry "
         f"(worst {worst:.2e}, {worst_name})")
@@ -718,9 +907,12 @@ def profile_step(run_step, step_ms: float, card: str, top: int = 14) -> None:
         log(f"[profile] {us / 1e3:8.2f} ms {100 * us / 1e3 / busy_ms:5.1f} % {count:6d} x {name[:90]}")
 
 
-def phase_train(cfg, device, card: str, timed_steps: int = 4, profile: bool = False) -> dict:
+def phase_train(cfg, device, card: str, timed_steps: int = 4, profile: bool = False,
+                first_batch: dict | None = None) -> dict:
     """The training path; returns the launch counts of its checked steps and
-    the timed steps' ms per step."""
+    the timed steps' ms per step.  ``cfg`` decides whether the feed-forward
+    blocks are the fused op; ``first_batch``, when given, is a loader batch
+    that one more checked optimizer step takes before the synthetic ones."""
     import math
 
     import torch
@@ -731,7 +923,11 @@ def phase_train(cfg, device, card: str, timed_steps: int = 4, profile: bool = Fa
         make_train_step,
     )
 
+    from transformertts_tpu_torch.data.prefetch import batch_to_device
+
     k, b = cfg.training.grad_acc_steps, cfg.training.batch_size
+    ffn = cfg.runtime.use_pallas_fused_ffn
+    tag = "train-ffn" if ffn else "train"
     model = train_model(cfg, device, seed=7)
     state = create_train_state(model, cfg)
     step = make_train_step(model, cfg)
@@ -741,39 +937,47 @@ def phase_train(cfg, device, card: str, timed_steps: int = 4, profile: bool = Fa
     gen = torch.Generator().manual_seed(1)
     on_card = device.type == "cuda"
 
+    checked = [batches[i % 2] for i in range(TRAIN_STEPS)]
+    if first_batch is not None:
+        if first_batch["melspec"].shape[:2] != (k, b):
+            raise AssertionError(f"loader batch {first_batch['melspec'].shape}, wanted ({k}, {b}, ..)")
+        checked.insert(0, batch_to_device(first_batch, device))
     zero_train_counters()
-    for i in range(TRAIN_STEPS):
-        state, metrics = step(state, batches[i % 2], 0.8, gen)
+    for i, batch in enumerate(checked):
+        state, metrics = step(state, batch, 0.8, gen)
         m = {name: float(v) for name, v in metrics.items()}
         if not (math.isfinite(m["total"]) and math.isfinite(m["grad_norm"])) or m["skipped"]:
-            raise AssertionError(f"train step {i}: {m}")
-        log(f"[train] step {i}: loss {m['total']:.4f} (pred {m['pred_mel']:.4f}, post "
+            raise AssertionError(f"{tag} step {i}: {m}")
+        log(f"[{tag}] step {i} on {tuple(batch['melspec'].shape)} mels: loss {m['total']:.4f} (pred {m['pred_mel']:.4f}, post "
             f"{m['post_mel']:.4f}, stop {m['stop']:.4f}), grad_norm {m['grad_norm']:.4f}")
     counts = train_counters()
-    want = expected_train_launches(2 * k * TRAIN_STEPS, k * TRAIN_STEPS)
+    n_checked = len(checked)
+    want = expected_train_launches(2 * k * n_checked, k * n_checked, ffn)
     if on_card and counts != want:
-        raise AssertionError(f"train: launches {counts}, the path implies {want}")
-    if state.step != TRAIN_STEPS or state.opt_state["count"] != TRAIN_STEPS:
+        raise AssertionError(f"{tag}: launches {counts}, the path implies {want}")
+    if state.step != n_checked or state.opt_state["count"] != n_checked:
         raise AssertionError("the optimizer did not take every step")
     after = model.state_dict()
     same_w = [n for n, t in before.items() if t.ndim >= 2 and torch.equal(t, after[n])]
     same_bn = [n for n, t in before.items() if "running_" in n and torch.equal(t, after[n])]
     if same_w or same_bn:
-        raise AssertionError(f"unchanged after {TRAIN_STEPS} steps: {same_w + same_bn}")
+        raise AssertionError(f"unchanged after {n_checked} steps: {same_w + same_bn}")
 
     # evaluation: the cross-attention returns its weights there (plain path by
-    # design, as in the JAX package), so 6 flash and 15 LN forwards
+    # design, as in the JAX package), so 6 flash and 15 LN forwards (and the 6
+    # fused FFN forwards at dropout 0 when the flag is on)
     zero_train_counters()
     ev = make_eval_step(model, cfg)(state, {name: x[0] for name, x in batches[0].items()})
     ev = {name: float(v) for name, v in ev.items()}
     if not all(math.isfinite(v) for v in ev.values()):
         raise AssertionError(f"eval step not finite: {ev}")
-    want_eval = {"flash_fwd": 6, "flash_bwd": 0, "ln_fwd": LN_CALLS, "ln_bwd": 0}
+    want_eval = {"flash_fwd": 6, "flash_bwd": 0, "ln_fwd": LN_CALLS, "ln_bwd": 0,
+                 "ffn_fwd": FFN_CALLS * ffn, "ffn_bwd": 0}
     if on_card and train_counters() != want_eval:
         raise AssertionError(f"eval: launches {train_counters()}, expected {want_eval}")
-    log(f"[train] eval step: loss {ev['total']:.4f}, mel_l1 {ev['mel_l1']:.4f}, mcd "
+    log(f"[{tag}] eval step: loss {ev['total']:.4f}, mel_l1 {ev['mel_l1']:.4f}, mcd "
         f"{ev['mcd']:.3f}, diagonality {ev['diagonality']:.4f}")
-    log(f"[train] kernel launches over {TRAIN_STEPS} optimizer steps of {k} micro-batches: {counts}")
+    log(f"[{tag}] kernel launches over {n_checked} optimizer steps of {k} micro-batches: {counts}")
 
     step_ms = float("nan")
     if on_card and timed_steps:
@@ -786,13 +990,124 @@ def phase_train(cfg, device, card: str, timed_steps: int = 4, profile: bool = Fa
         frames = sum(int(batches[i % 2]["melspec_lens"].sum()) for i in range(timed_steps))
         audio_s = frames * cfg.audio.hop_length / cfg.audio.sample_rate
         step_ms = dt / timed_steps * 1e3
-        log(f"[time] train step (bf16, {k} x {b} rows, mel {MEL_BUCKET}, phonemes {PHON_BUCKET}, "
+        log(f"[time] {tag} step (fused FFN {'on' if ffn else 'off'}, bf16, {k} x {b} rows, mel {MEL_BUCKET}, phonemes {PHON_BUCKET}, "
             f"double forward, dropout on): {step_ms:.1f} ms/step over {timed_steps} steps, "
             f"{audio_s / dt:.0f} audio-s/s ({audio_s / timed_steps:.0f} audio-s per step), peak "
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     if on_card and profile and timed_steps:
         profile_step(lambda: step(state, batches[0], 0.8, gen), step_ms, card)
     return {"launches": counts, "step_ms": step_ms}
+
+
+N_CLIPS, N_VAL_CLIPS = 160, 16
+
+
+def write_corpus(root, seed: int = 0) -> dict:
+    """A seeded LJSpeech-shaped corpus under ``root``: ``wavs/<id>.wav``
+    (mono, 16 bit, 22,050 Hz, 2-9 s) and ``metadata.csv``; the first ids fall
+    in the validation split.  Returns {id: samples}."""
+    rng = np.random.default_rng(seed)
+    (root / "wavs").mkdir(parents=True)
+    lengths, lines = {}, []
+    for i in range(N_CLIPS):
+        audio_id = f"LJ00{1 + i % 3}-{i:04d}" if i < N_VAL_CLIPS else f"LJ0{10 + i % 40}-{i:04d}"
+        n = int(rng.integers(2 * AUDIO["sample_rate"], 9 * AUDIO["sample_rate"]))
+        y = clip_signal(rng, n)
+        with wave.open(str(root / "wavs" / f"{audio_id}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(AUDIO["sample_rate"])
+            w.writeframes((np.clip(y, -1, 1) * 32767).astype("<i2").tobytes())
+        lengths[audio_id] = n
+        text = TEXTS[i % len(TEXTS)]
+        lines.append(f"{audio_id}|{text}|{text}")
+    (root / "metadata.csv").write_text("\n".join(lines), encoding="utf-8")
+    return lengths
+
+
+def phase_preprocess(cfg, device, root) -> dict:
+    """The preprocessing path on the card; returns the log-mel kernel's
+    launch count and the directory it wrote."""
+    import dataclasses
+
+    from transformertts_tpu_torch.data import load_stats
+    from transformertts_tpu_torch.data.audio_io import load_wav
+    from transformertts_tpu_torch.data.preprocess import _DEVICE_MEL_BATCH, preprocess
+    from transformertts_tpu_torch.dsp import mel_spectrogram_np, normalize_mel
+    from transformertts_tpu_torch.ops.stft import log_mel
+
+    t0 = time.perf_counter()
+    lengths = write_corpus(root / "LJSpeech-1.1")
+    t_write = time.perf_counter() - t0
+    out = root / "preprocessed"
+    pcfg = cfg.replace(
+        path=dataclasses.replace(cfg.path, data=str(root / "LJSpeech-1.1"), preprocessed=str(out)),
+        runtime=dataclasses.replace(cfg.runtime, use_pallas_mel=True))
+    log_mel.launches = 0
+    t0 = time.perf_counter()
+    preprocess(pcfg, device=device)
+    t_prep = time.perf_counter() - t0
+    launches = log_mel.launches
+    chunks = -(-N_CLIPS // _DEVICE_MEL_BATCH)
+    # the statistics pass and the saving pass both extract
+    if device.type == "cuda" and launches != 2 * chunks:
+        raise AssertionError(f"preprocess: {launches} log-mel launches, expected {2 * chunks}")
+    files = sorted(out.glob("*.npz"))
+    if [p.stem for p in files] != sorted(lengths):
+        raise AssertionError(f"preprocess wrote {len(files)} npz files for {N_CLIPS} clips")
+    stats = load_stats(out)
+    if not (np.isfinite(stats["mean"]) and stats["std"] > 0):
+        raise AssertionError(f"bad stats.json: {stats}")
+    hop, worst_max, worst_mean, frames = AUDIO["hop_length"], 0.0, 0.0, 0
+    for path in files:
+        with np.load(path, allow_pickle=True) as z:
+            if set(z.files) != {"melspec", "transcript", "phoneme", "sequence"}:
+                raise AssertionError(f"{path.name}: keys {z.files}")
+            mel, seq = z["melspec"], z["sequence"]
+        n = lengths[path.stem]
+        if mel.shape != (AUDIO["n_mels"], 1 + n // hop) or mel.dtype != np.float32:
+            raise AssertionError(f"{path.name}: mel {mel.shape} for {n} samples")
+        if seq.dtype != np.int32 or len(seq) == 0 or not np.isfinite(mel).all():
+            raise AssertionError(f"{path.name}: bad sequence or mel values")
+        y, _ = load_wav(root / "LJSpeech-1.1" / "wavs" / f"{path.stem}.wav", AUDIO["sample_rate"])
+        ref = normalize_mel(mel_spectrogram_np(y, **AUDIO), stats["mean"], stats["std"])
+        diff = np.abs(mel - ref) * (stats["std"] + 1e-8)  # back on the log-mel's own scale
+        worst_max, worst_mean = max(worst_max, float(diff.max())), max(worst_mean, float(diff.mean()))
+        frames += mel.shape[1]
+    if not (worst_max <= MEL_TOL_NP[0] and worst_mean <= MEL_TOL_NP[1]):
+        raise AssertionError(f"preprocess != numpy FFT: max {worst_max:.3g}, mean {worst_mean:.3g}")
+    audio_s = sum(lengths.values()) / AUDIO["sample_rate"]
+    log(f"[preprocess] {N_CLIPS} clips, {audio_s:.0f} audio-s, {frames} frames: corpus written in "
+        f"{t_write:.1f} s, preprocess (two passes, g2p, npz) {t_prep:.1f} s = "
+        f"{audio_s / t_prep:.0f} audio-s/s; {launches} log-mel launches for {chunks} chunks of "
+        f"{_DEVICE_MEL_BATCH}; stats mean {stats['mean']:.4f} std {stats['std']:.4f}; vs numpy FFT "
+        f"max {worst_max:.2e} mean {worst_mean:.2e}")
+    return {"launches": launches, "dir": out}
+
+
+def loader_batch(cfg, prep_dir) -> dict:
+    """One (K, B, ...) batch of the port's bucketed loader over what the
+    preprocess phase wrote, read through ``prefetch``."""
+    from transformertts_tpu_torch.data import BucketedLoader, LJSpeechDataset
+    from transformertts_tpu_torch.data.prefetch import prefetch
+
+    ds = LJSpeechDataset(prep_dir, "train")
+    val = LJSpeechDataset(prep_dir, "val")
+    if (len(ds), len(val)) != (N_CLIPS - N_VAL_CLIPS, N_VAL_CLIPS):
+        raise AssertionError(f"split {len(ds)} / {len(val)}")
+    loader = BucketedLoader(
+        ds, cfg.training.batch_size, cfg.runtime.phoneme_buckets, cfg.runtime.mel_buckets,
+        n_mels=cfg.model.n_mels, grad_acc_steps=cfg.training.grad_acc_steps, shuffle=True,
+        drop_last=False, seed=cfg.training.seed)
+    # the fullest batch of the epoch: 144 clips spread over many buckets, so
+    # most groups are partial (repeat-padded rows, masked by a length of 0)
+    n_real = lambda b: int((b["melspec_lens"] > 0).sum())  # noqa: E731
+    batch = max(prefetch(loader.epoch(0)), key=n_real)
+    real = n_real(batch)
+    log(f"[train-ffn] loader: {len(ds)} train clips in {len(loader.buckets)} buckets, "
+        f"{loader.batches_per_epoch()} batches per epoch; fullest batch phonemes "
+        f"{batch['phoneme'].shape}, mels {batch['melspec'].shape}, {real} real rows")
+    return batch
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -909,6 +1224,88 @@ def phase_time_train(device, card: str) -> dict:
     return rows
 
 
+def phase_time_ffn_mel(device, card: str) -> dict:
+    """Rows 7-9 at their paths' shapes: the FFN kernels in bf16 at dropout
+    0.1 beside ``F.linear -> relu -> F.linear`` (dropout 0, bf16 weights; its
+    backward through autograd), the log-mel kernel at the batch preprocess
+    sends.  Kernel and library as device time per call (CUDA-graph replay),
+    the plain versions between events around eager calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from transformertts_tpu_torch.dsp import mel_filterbank
+    from transformertts_tpu_torch.ops import fused_ffn as ffn
+    from transformertts_tpu_torch.ops import stft
+
+    dtype, p, es, d, f = torch.bfloat16, 0.1, 2, TRAIN_D, TRAIN_F
+    rows = {}
+
+    def report(kernel, shape, ms, plain, bound, by, lib, note):
+        rows[(kernel, shape)] = (ms, plain, bound, by, lib)
+        lib_txt = "none" if lib is None else f"{lib * 1e3:.1f} us"
+        log(f"[time] {kernel} {shape} {note}: kernel {ms * 1e3:.1f} us, plain "
+            f"{plain * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}), library {lib_txt} [{card}]")
+
+    for name, n in FFN_ROWS.items():
+        x, w1, b1, w2, b2, dy = ffn_inputs(n, d, f, dtype, device, seed=n)
+        rows_m = ffn.pick_rows(n, d, f, es)
+        args = (99, p, rows_m)
+        lw1, lb1, lw2, lb2 = (t.to(dtype).requires_grad_(True) for t in (w1, b1, w2, b2))
+        lx = x.detach().requires_grad_(True)
+
+        def lib_fwd(x_=lx):
+            return F.linear(torch.relu(F.linear(x_, lw1, lb1)), lw2, lb2)
+
+        with torch.no_grad():
+            lib_f = device_ms(lambda: lib_fwd(x))
+        lib_b = device_ms(
+            lambda ly: torch.autograd.grad(ly, (lx, lw1, lb1, lw2, lb2), dy, retain_graph=True),
+            setup=lib_fwd)
+        w_bytes = 2 * d * f * 4  # the fp32 parameters as they lie
+        f_bound, f_by = bound_ms(2 * n * d * es + w_bytes + (f + d) * 4, 4 * n * d * f,
+                                 PEAK_BF16_FLOPS)
+        b_bound, b_by = bound_ms(3 * n * d * es + w_bytes + f * 4 + (2 * d * f + f + d) * 4,
+                                 10 * n * d * f, PEAK_BF16_FLOPS)
+        shape = f"N={n} D={d} F={f} bf16 p={p}"
+        report("ffn_fwd", name,
+               device_ms(lambda: ffn.fused_ffn_forward(x, w1, b1, w2, b2, *args), n=10, reps=5),
+               time_ms(lambda: ffn.fused_ffn_reference(x, w1, b1, w2, b2, *args), 5, 2),
+               f_bound, f_by, lib_f, shape)
+        report("ffn_bwd", name,
+               device_ms(lambda: ffn.fused_ffn_backward(x, w1, b1, w2, dy, *args), n=5, reps=5),
+               time_ms(lambda: ffn.fused_ffn_backward_reference(x, w1, b1, w2, dy, *args), 5, 2),
+               b_bound, b_by, lib_b, shape)
+
+    # row 9: the batch preprocess sends (32 clips in one 163,840-sample bucket)
+    rng = np.random.default_rng(9)
+    clips = [clip_signal(rng, int(n)) for n in rng.integers(44100, MEL_BUCKET_LEN - 1024, MEL_BATCH)]
+    y = torch.from_numpy(padded_batch(clips, MEL_BUCKET_LEN)).to(device)
+    a = AUDIO
+    consts = stft._constants(a["sample_rate"], a["n_fft"], a["win_length"], a["n_mels"],
+                             a["fmin"], a["fmax"], device)
+    n_fft, hop, n_bins = a["n_fft"], a["hop_length"], 1 + a["n_fft"] // 2
+    n_frames = 1 + (MEL_BUCKET_LEN - n_fft) // hop
+    frames = MEL_BATCH * n_frames
+    basis = mel_filterbank(a["sample_rate"], n_fft, a["n_mels"], a["fmin"], a["fmax"])
+    nbytes = (y.numel() + sum(c.numel() for c in consts) + frames * a["n_mels"]) * 4
+    # two DFT products, the magnitudes, and the filterbank's non-zero weights
+    flops = frames * (4 * n_fft * n_bins + 3 * n_bins + 2 * int(np.count_nonzero(basis)))
+    bound, by = bound_ms(nbytes, flops, PEAK_FP32_FLOPS)
+    report("log_mel", "batch",
+           device_ms(lambda: stft.log_mel_forward(y, n_frames, *consts, hop), n=4, reps=3),
+           time_ms(lambda: stft.log_mel_reference(y, n_frames, *consts, hop), 3, 1),
+           bound, by, None, f"B={MEL_BATCH} n={MEL_BUCKET_LEN} center=False fp32, {frames} frames")
+    # no single PyTorch call computes the log-mel; this chain of library calls
+    # (cuFFT, a matrix product, two elementwise ops) is printed for scale only
+    window, melt = consts[0], consts[3]
+    chain = device_ms(lambda: torch.log(torch.clamp(
+        torch.stft(y, n_fft, hop, n_fft, window, center=False, return_complex=True).abs()
+        .transpose(1, 2) @ melt, min=stft.CLIP)), n=4, reps=3)
+    log(f"[time] log_mel batch: the chain torch.stft().abs() -> matmul -> clamp -> log takes "
+        f"{chain * 1e3:.1f} us [{card}]")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -921,6 +1318,8 @@ def main(argv=None) -> int:
     phases = set(args.phases.split(","))
     if phases - set(ALL_PHASES):
         ap.error(f"unknown phases {sorted(phases - set(ALL_PHASES))}")
+    if "train-ffn" in phases and "preprocess" not in phases:
+        ap.error("train-ffn reads what the preprocess phase wrote: name both")
 
     import torch
 
@@ -928,6 +1327,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this run needs one GPU", file=sys.stderr)
         return 1
     import dataclasses
+    from pathlib import Path
 
     from transformertts_tpu_torch.config import Config
     from transformertts_tpu_torch.infer import Synthesizer
@@ -947,6 +1347,9 @@ def main(argv=None) -> int:
         phase_mask(device)
     worst = phase_kernel(cfg, device) if "kernel" in phases else {}
     train_worst = phase_train_kernels(device) if "kernel" in phases else {}
+    if "kernel" in phases:
+        train_worst.update(phase_ffn_kernels(device))
+    mel_worst = phase_mel_kernel(device) if "kernel" in phases else {}
     if "decode" in phases:
         phase_decode(cfg, device)
     launches, rows = {}, {}
@@ -962,11 +1365,24 @@ def main(argv=None) -> int:
         del synth, gen_model
     if "train-parity" in phases:
         phase_train_parity(cfg, device)
-    train = {}
+        phase_train_parity(with_fused_ffn(cfg), device, batch_seed=12)
+    train, train_ffn, prep = {}, {}, {}
+    timed = 4 if "time" in phases else 0
     if "train" in phases:
-        train = phase_train(cfg, device, card, timed_steps=4 if "time" in phases else 0,
-                            profile=args.profile)
+        train = phase_train(cfg, device, card, timed_steps=timed, profile=args.profile)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        if "preprocess" in phases:
+            prep = phase_preprocess(cfg, device, Path(tmp))
+        if "train-ffn" in phases:
+            train_ffn = phase_train(
+                with_fused_ffn(cfg), device, card, timed_steps=timed, profile=args.profile,
+                first_batch=loader_batch(cfg, prep["dir"]))
+    if train and train_ffn and timed:
+        log(f"[time] train step, fused FFN off / on: {train['step_ms']:.1f} / "
+            f"{train_ffn['step_ms']:.1f} ms [{card}]")
     train_rows = phase_time_train(device, card) if "time" in phases else {}
+    if "time" in phases:
+        train_rows.update(phase_time_ffn_mel(device, card))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
     if phases != set(ALL_PHASES):
@@ -986,7 +1402,7 @@ def main(argv=None) -> int:
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
         })
-    # rows 3-6: the record's numbers are those of the largest shape on the
+    # rows 3-9: the record's numbers are those of the largest shape on the
     # path; "shapes" holds every shape of the path
     for kernel, source, site, count, err, main_shape, what in (
             ("flash_fwd", "flash_attention.cu", "flash_attention.py:167", "flash_fwd",
@@ -996,12 +1412,23 @@ def main(argv=None) -> int:
             ("ln_fwd", "fused_ln.cu", "fused_ln.py:142", "ln_fwd", ("ln", "fwd"), "decoder",
              "N=12288 D=256, bf16, p=0.1"),
             ("ln_bwd", "fused_ln.cu", "fused_ln.py:178", "ln_bwd", ("ln", "bwd"), "decoder",
-             "N=12288 D=256, bf16, p=0.1")):
+             "N=12288 D=256, bf16, p=0.1"),
+            ("ffn_fwd", "fused_ffn.cu", "fused_ffn.py:184", "ffn_fwd", ("ffn", "fwd"), "decoder",
+             "N=12288 D=256 F=1024, bf16, p=0.1"),
+            ("ffn_bwd", "fused_ffn.cu", "fused_ffn.py:236", "ffn_bwd", ("ffn", "bwd"), "decoder",
+             "N=12288 D=256 F=1024, bf16, p=0.1"),
+            ("log_mel", "log_mel.cu", "stft.py:104", None, None, "batch",
+             "B=32 n=163840 center=False, fp32")):
         ms, plain, bound, by, lib = train_rows[(kernel, main_shape)]
+        if kernel == "log_mel":  # launched on the preprocessing path
+            n_launches, max_err = prep["launches"], max(mel_worst.values())
+        else:  # rows 3-6 on the training path, rows 7-8 on its fused-FFN configuration
+            n_launches = (train_ffn if kernel.startswith("ffn") else train)["launches"][count]
+            max_err = train_worst[err]
         kernels.append({
             "name": f"{kernel} ({what})", "route": "cuda", "source": src + source,
-            "replaces": pallas + site, "launches": train["launches"][count],
-            "max_abs_err": train_worst[err], "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "replaces": pallas + site, "launches": n_launches,
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": lib,
             "shapes": {shape: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), r))
                        for (kern, shape), r in train_rows.items() if kern == kernel},

@@ -39,7 +39,9 @@ def test_no_jax_imports(path):
 
 def test_sources_found():
     names = {p.name for p in SOURCES}
-    assert {"decode_step.py", "api.py", "serving.py", "chip_smoke.py", "g2p.py"} <= names
+    assert {"decode_step.py", "api.py", "serving.py", "chip_smoke.py", "g2p.py", "fused_ffn.py",
+            "stft.py", "mel.py", "preprocess.py", "dataset.py", "prefetch.py",
+            "audio_io.py"} <= names
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):
@@ -103,9 +105,11 @@ def test_convert_layouts():
 
 
 @pytest.mark.parametrize("module", ["ops.flash_attention", "ops.fused_ln", "ops.dropout_mask",
-                                    "train.train_step", "models.factory"])
+                                    "train.train_step", "models.factory", "ops.fused_ffn",
+                                    "ops.stft", "dsp.mel", "data.preprocess", "data.dataset",
+                                    "data.prefetch"])
 def test_each_module_imports_first(module):
-    """No import cycle: any module of the training slice can be the first
+    """No import cycle: any module of the training and data slices can be the first
     one a fresh interpreter imports (``models`` imports ``ops``, so ``ops``
     must not import ``models`` at import time)."""
     proc = subprocess.run(

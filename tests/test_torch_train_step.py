@@ -307,9 +307,21 @@ def test_dropout_on_runs_and_is_reproducible_from_its_generator_seed():
 
 
 def test_fused_ffn_is_not_ported_yet():
+    """It is ported now (the name is kept): the flag builds a model whose
+    feed-forward blocks go through ``ops.fused_ffn``, the factory passes it
+    on, and with dropout off the step computes what the plain blocks do."""
     _, pcfg = _configs()
-    with pytest.raises(NotImplementedError, match="fused FFN"):
-        TransformerTTS(pcfg.model, device="cpu", use_fused_ffn=True)
     ffn_cfg = pcfg.replace(runtime=dataclasses.replace(pcfg.runtime, use_pallas_fused_ffn=True))
-    with pytest.raises(NotImplementedError, match="fused FFN"):
-        runtime_model_kwargs(ffn_cfg, device="cpu")
+    assert runtime_model_kwargs(ffn_cfg, device="cpu")["use_fused_ffn"] is True
+    assert runtime_model_kwargs(pcfg, device="cpu")["use_fused_ffn"] is False
+    variables = _variables(1, 0)
+    losses = []
+    for cfg in (pcfg, ffn_cfg):
+        model = _port_model(cfg, variables)
+        assert model.encoder.layer_0.ffn.use_fused is cfg.runtime.use_pallas_fused_ffn
+        state = ts.create_train_state(model, cfg)
+        _, metrics = ts.make_train_step(model, cfg)(state, _batch(seed=6), 1.0,
+                                                    torch.Generator().manual_seed(0))
+        losses.append({k: float(v) for k, v in metrics.items()})
+    for name in ("total", "grad_norm"):
+        assert abs(losses[0][name] - losses[1][name]) <= 1e-5 * abs(losses[0][name])

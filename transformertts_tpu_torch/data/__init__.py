@@ -1,1 +1,6 @@
-from transformertts_tpu_torch.data.dataset import load_stats, pick_bucket  # noqa: F401
+from transformertts_tpu_torch.data.dataset import (  # noqa: F401
+    BucketedLoader,
+    LJSpeechDataset,
+    load_stats,
+    pick_bucket,
+)

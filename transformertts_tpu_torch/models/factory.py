@@ -1,11 +1,13 @@
 """One home for deriving TransformerTTS runtime kwargs from a Config
 (``transformertts_tpu/models/factory.py``).
 
-The JAX package gates its fused LayerNorm on ``d_model % 128`` (a TPU lane
-rule); the port has no such gate: the CUDA kernel's wrapper raises for the
-widths it cannot take.  On the GPU the fused ops are the CUDA kernels, and
-turning them off in the config has no GPU path: it raises, unless the caller
-asks for the plain versions by name with ``plain_ops=True``.
+The JAX package gates its fused LayerNorm and fused FFN on ``d_model % 128``
+and on the FFN's memory estimate (TPU lane and memory rules); the port has
+no such gates: each CUDA kernel's wrapper raises for the widths it cannot
+take.  ``use_pallas_fused_ffn`` is off by default, as in the JAX package.
+On the GPU the fused ops are the CUDA kernels, and turning attention or the
+fused LayerNorm off in the config has no GPU path: it raises, unless the
+caller asks for the plain versions by name with ``plain_ops=True``.
 """
 
 from __future__ import annotations
@@ -21,10 +23,6 @@ def runtime_model_kwargs(cfg, device: str | torch.device | None = None,
     ``device`` None means the GPU."""
     r = cfg.runtime
     device = resolve_device(device)
-    if r.use_pallas_fused_ffn:
-        raise NotImplementedError(
-            "use_pallas_fused_ffn: the fused FFN kernel is not ported yet "
-            "(ROADMAP Queue 2: fused_ffn)")
     if device.type == "cuda" and not plain_ops:
         off = [name for name in ("use_pallas_attention", "use_pallas_fused_ln")
                if not getattr(r, name)]
@@ -37,6 +35,7 @@ def runtime_model_kwargs(cfg, device: str | torch.device | None = None,
         device=device,
         use_flash=r.use_pallas_attention,
         use_fused_ln=r.use_pallas_fused_ln,
+        use_fused_ffn=r.use_pallas_fused_ffn,
         fuse_qkv=r.fuse_qkv_projections,
         plain_ops=plain_ops,
     )

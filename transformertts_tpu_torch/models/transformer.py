@@ -9,6 +9,9 @@
 LayerNorm eps 1e-5, fp32 statistics.  With ``use_fused_ln`` every
 ``LN(x + Drop(h))`` is one call of the fused kernel
 (``ops/fused_ln.py``); without it, plain dropout and the LayerNorm module.
+With ``use_fused_ffn`` every feed-forward block is one call of the fused FFN
+kernel (``ops/fused_ffn.py``) on the ``Dense_0`` / ``Dense_1`` parameters as
+they lie; without it, two linears around relu and plain dropout.
 Dropout runs only with ``train=True`` and draws from the ``DropoutRng`` the
 caller passes.
 """
@@ -21,6 +24,7 @@ from torch import nn
 from transformertts_tpu_torch.models.attention import MultiHeadAttention
 from transformertts_tpu_torch.models.initializers import torch_linear_
 from transformertts_tpu_torch.models.modules import LayerNorm, Linear, dropout
+from transformertts_tpu_torch.ops.fused_ffn import fused_ffn
 from transformertts_tpu_torch.ops.fused_ln import residual_dropout_layernorm
 
 
@@ -40,12 +44,14 @@ def _residual_norm(layer, norm: LayerNorm, x, h, train: bool, rng):
 
 class FeedForward(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, dropout: float = 0.1, dtype=torch.float32,
-                 device=None):
+                 use_fused: bool = False, plain_ops: bool = False, device=None):
         super().__init__()
         self.Dense_0 = Linear(d_model, d_ffn, device=device)
         self.Dense_1 = Linear(d_ffn, d_model, device=device)
         self.dropout = dropout
         self.dtype = dtype
+        self.use_fused = use_fused  # fused FFN kernel (runtime.use_pallas_fused_ffn)
+        self.plain_ops = plain_ops
 
     def reset_parameters(self, generator) -> None:
         for dense in (self.Dense_0, self.Dense_1):
@@ -54,6 +60,14 @@ class FeedForward(nn.Module):
             torch_linear_(dense.bias, generator, fan_in=fan_in)
 
     def forward(self, x: torch.Tensor, train: bool = False, rng=None) -> torch.Tensor:
+        if self.use_fused:
+            rate = self.dropout if train else 0.0
+            if rate > 0.0 and rng is None:
+                raise ValueError("train-mode dropout needs a DropoutRng")
+            return fused_ffn(
+                x.to(self.dtype), self.Dense_0.weight, self.Dense_0.bias, self.Dense_1.weight,
+                self.Dense_1.bias, dropout=rate,
+                seed=rng.kernel_seed(rate) if rate > 0.0 else 0, plain=self.plain_ops)
         h = dropout(torch.relu(self.Dense_0(x, self.dtype)), self.dropout, train, rng)
         return self.Dense_1(h, self.dtype)
 
@@ -61,14 +75,15 @@ class FeedForward(nn.Module):
 class EncoderLayer(nn.Module):
     def __init__(self, d_model, n_heads, d_ffn, dropout=0.1, dtype=torch.float32,
                  use_flash=False, use_fused_ln=False, fuse_qkv=False, plain_ops=False,
-                 device=None):
+                 use_fused_ffn=False, device=None):
         super().__init__()
         self.dropout = dropout
         self.use_fused_ln = use_fused_ln
         self.plain_ops = plain_ops
         attn = (d_model, n_heads, dropout, dtype, use_flash, fuse_qkv, plain_ops)
         self.self_attn = MultiHeadAttention(*attn, device=device)
-        self.ffn = FeedForward(d_model, d_ffn, dropout, dtype, device=device)
+        self.ffn = FeedForward(d_model, d_ffn, dropout, dtype, use_fused_ffn, plain_ops,
+                               device=device)
         self.norm1 = LayerNorm(d_model, dtype, device=device)
         self.norm2 = LayerNorm(d_model, dtype, device=device)
 
@@ -81,13 +96,13 @@ class EncoderLayer(nn.Module):
 class Encoder(nn.Module):
     def __init__(self, n_layers, d_model, n_heads, d_ffn, dropout=0.1, dtype=torch.float32,
                  use_flash=False, use_fused_ln=False, fuse_qkv=False, plain_ops=False,
-                 device=None):
+                 use_fused_ffn=False, device=None):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
             setattr(self, f"layer_{i}", EncoderLayer(
                 d_model, n_heads, d_ffn, dropout, dtype, use_flash, use_fused_ln, fuse_qkv,
-                plain_ops, device=device))
+                plain_ops, use_fused_ffn, device=device))
 
     def forward(self, x, key_bias=None, train: bool = False, rng=None):
         for i in range(self.n_layers):
@@ -98,7 +113,7 @@ class Encoder(nn.Module):
 class DecoderLayer(nn.Module):
     def __init__(self, d_model, n_heads, d_ffn, dropout=0.1, dtype=torch.float32,
                  use_flash=False, use_fused_ln=False, fuse_qkv=False, plain_ops=False,
-                 device=None):
+                 use_fused_ffn=False, device=None):
         super().__init__()
         self.dropout = dropout
         self.use_fused_ln = use_fused_ln
@@ -106,7 +121,8 @@ class DecoderLayer(nn.Module):
         attn = (d_model, n_heads, dropout, dtype, use_flash, fuse_qkv, plain_ops)
         self.self_attn = MultiHeadAttention(*attn, device=device)
         self.cross_attn = MultiHeadAttention(*attn, device=device)
-        self.ffn = FeedForward(d_model, d_ffn, dropout, dtype, device=device)
+        self.ffn = FeedForward(d_model, d_ffn, dropout, dtype, use_fused_ffn, plain_ops,
+                               device=device)
         self.norm1 = LayerNorm(d_model, dtype, device=device)
         self.norm2 = LayerNorm(d_model, dtype, device=device)
         self.norm3 = LayerNorm(d_model, dtype, device=device)
@@ -150,13 +166,13 @@ class DecoderLayer(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, n_layers, d_model, n_heads, d_ffn, dropout=0.1, dtype=torch.float32,
                  use_flash=False, use_fused_ln=False, fuse_qkv=False, plain_ops=False,
-                 device=None):
+                 use_fused_ffn=False, device=None):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
             setattr(self, f"layer_{i}", DecoderLayer(
                 d_model, n_heads, d_ffn, dropout, dtype, use_flash, use_fused_ln, fuse_qkv,
-                plain_ops, device=device))
+                plain_ops, use_fused_ffn, device=device))
 
     @property
     def layers(self) -> list[DecoderLayer]:

@@ -50,13 +50,14 @@ class TransformerTTS(nn.Module):
     seed gives the same weights on every device.  ``device="meta"`` builds
     the shapes only.
 
-    ``use_flash`` / ``use_fused_ln`` route attention and every
-    ``LN(x + Drop(h))`` through the fused ops (``ops/flash_attention.py``,
-    ``ops/fused_ln.py``: the CUDA kernels on the GPU), ``fuse_qkv`` runs the
+    ``use_flash`` / ``use_fused_ln`` / ``use_fused_ffn`` route attention,
+    every ``LN(x + Drop(h))`` and every feed-forward block through the fused
+    ops (``ops/flash_attention.py``, ``ops/fused_ln.py``,
+    ``ops/fused_ffn.py``: the CUDA kernels on the GPU), ``fuse_qkv`` runs the
     in-projections as one matmul; ``models/factory.py`` derives them from a
     ``Config``.  ``plain_ops=True`` makes the fused ops run their plain
     PyTorch versions whatever the device: the reference a GPU run holds the
-    kernels against.  The fused FFN kernel is not ported yet.
+    kernels against.
     """
 
     def __init__(
@@ -72,9 +73,6 @@ class TransformerTTS(nn.Module):
         plain_ops: bool = False,
     ):
         super().__init__()
-        if use_fused_ffn:
-            raise NotImplementedError(
-                "the fused FFN kernel is not ported yet (ROADMAP Queue 2: fused_ffn)")
         device = resolve_device(device)
         build = device if device.type == "meta" else torch.device("cpu")
         self.cfg = cfg
@@ -88,7 +86,7 @@ class TransformerTTS(nn.Module):
         self.dec_prenet = DecoderPreNet(
             c.n_mels, c.d_model, c.decoder_prenet_dropout, dtype, device=build)
         self.pe = ScaledPositionalEncoding(c.d_model, c.max_len, c.pe_dropout, device=build)
-        fused = (dtype, use_flash, use_fused_ln, fuse_qkv, plain_ops)
+        fused = (dtype, use_flash, use_fused_ln, fuse_qkv, plain_ops, use_fused_ffn)
         self.encoder = Encoder(
             c.encoder_n_layers, c.d_model, c.encoder_n_head, c.encoder_d_ffn,
             c.encoder_dropout, *fused, device=build,
