@@ -20,9 +20,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ones, fp32 and bf16, dropout 0 and 0.1, ragged key bias; each backward
    twice, for equal bits.  The fused FFN kernels, forward and all five
    gradients, at (N, D, F) = (12,288, 256, 1,024) and (2,048, 256, 1,024) and
-   at odd sizes (an N no mask block divides, F no multiple of a slice, every
-   output width the kernels are built for, a width where bf16 and fp32 key
-   the mask on different block heights), fp32 and bf16, dropout 0 and 0.1,
+   at odd sizes (an N no mask block divides, F no multiple of a slice, a
+   d_model narrower than a block's 256 output columns, the two wider models
+   of ``configs/`` at (512, 2,048) and (1,024, 4,096), a width where bf16 and
+   fp32 key the mask on different block heights), fp32 and bf16, dropout 0 and 0.1,
    each backward twice for equal bits.  The log-mel kernel at one clip
    (``center=True``, a length that is no multiple of the hop), at a batch of
    32 rows of 163,840 samples (``center=False``, as ``preprocess`` sends
@@ -83,6 +84,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -496,23 +498,28 @@ def phase_ffn_kernels(device) -> dict:
     from transformertts_tpu_torch.ops.fused_ffn import fused_ffn, pick_rows
 
     worst: dict = {}
-    cases = [(name, n, TRAIN_D, TRAIN_F) for name, n in FFN_ROWS.items()]
+    cases = [(name, n, TRAIN_D, TRAIN_F, None) for name, n in FFN_ROWS.items()]
     # an N that no mask block divides with an F that is no multiple of a slice;
-    # one width for each output width the kernels are built for (64, 128, 256,
-    # and 192 riding in 256); a d_ffn where bf16 and fp32 pick other mask heights
-    cases += [("odd", 1001, TRAIN_D, 1000), ("narrow", 333, 64, 136), ("two", 300, 128, 520),
-              ("three", 520, 192, 264), ("tall", 192, TRAIN_D, 3072)]
+    # a d_model that rides in a block's 256 output columns; a d_ffn where bf16
+    # and fp32 pick other mask heights; and the two wider models of configs/,
+    # which take 2 and 4 groups of 256 output columns (paper.yaml has a mask
+    # geometry in bf16 only and large_tp.yaml none, so the height is given)
+    cases += [("odd", 1001, TRAIN_D, 1000, None), ("narrow", 520, 192, 264, None),
+              ("tall", 192, TRAIN_D, 3072, None),
+              ("paper", 1000, 512, 2048, pick_rows(1000, 512, 2048, 2)),
+              ("large", 264, 1024, 4096, 8)]
     if pick_rows(192, TRAIN_D, 3072, 2) == pick_rows(192, TRAIN_D, 3072, 4):
         raise AssertionError("the 'tall' case no longer separates the dtypes' mask heights")
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for name, n, d, f in cases:
+        for name, n, d, f, mask_rows in cases:
             for p in (0.0, 0.1):
                 *inputs, dy = ffn_inputs(n, d, f, dtype, device, seed=n + f)
                 outs = []
                 for plain in (False, True, False):
                     outs.append(run_with_grads(
-                        lambda *a: fused_ffn(*a, dropout=p, seed=4242 + n, plain=plain),
+                        lambda *a: fused_ffn(*a, dropout=p, seed=4242 + n, mask_rows=mask_rows,
+                                             plain=plain),
                         inputs, dy))
                     torch.cuda.synchronize()
                 kern, plain_out, again = outs
@@ -1287,10 +1294,21 @@ def phase_time_ffn_mel(device, card: str) -> dict:
     n_frames = 1 + (MEL_BUCKET_LEN - n_fft) // hop
     frames = MEL_BATCH * n_frames
     basis = mel_filterbank(a["sample_rate"], n_fft, a["n_mels"], a["fmin"], a["fmax"])
-    nbytes = (y.numel() + sum(c.numel() for c in consts) + frames * a["n_mels"]) * 4
-    # two DFT products, the magnitudes, and the filterbank's non-zero weights
-    flops = frames * (4 * n_fft * n_bins + 3 * n_bins + 2 * int(np.count_nonzero(basis)))
+    # what the function needs, not what this kernel does: the signal, the
+    # window and the filterbank read once and the log-mels written once (the
+    # DFT matrices are this kernel's own device, no input of the function);
+    # per frame the window, a real FFT (2.5 n log2 n operations, the usual
+    # count, where the kernel's two dense products do 4 n_fft n_bins), the
+    # magnitudes, and the filterbank's non-zero weights
+    nbytes = (y.numel() + n_fft + basis.size + frames * a["n_mels"]) * 4
+    flops = frames * (n_fft + 2.5 * n_fft * math.log2(n_fft) + 3 * n_bins
+                      + 2 * int(np.count_nonzero(basis)))
+    dense_flops = frames * (4 * n_fft * n_bins + 3 * n_bins
+                            + 2 * int(np.count_nonzero(basis)))
     bound, by = bound_ms(nbytes, flops, PEAK_FP32_FLOPS)
+    log(f"[time] log_mel batch: {nbytes / 1e6:.1f} MB and {flops / 1e9:.2f} GFLOP by an FFT; "
+        f"the kernel's dense DFT products do {dense_flops / 1e9:.1f} GFLOP, "
+        f"{dense_flops / PEAK_FP32_FLOPS * 1e6:.0f} us at the fp32 peak")
     report("log_mel", "batch",
            device_ms(lambda: stft.log_mel_forward(y, n_frames, *consts, hop), n=4, reps=3),
            time_ms(lambda: stft.log_mel_reference(y, n_frames, *consts, hop), 3, 1),

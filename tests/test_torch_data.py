@@ -150,8 +150,8 @@ def test_device_path_skips_unreadable_wavs_but_raises_kernel_errors(corpus, tmp_
 def test_preprocess_defaults_to_the_gpu(corpus, tmp_path, monkeypatch):
     root, _ = corpus
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = load_config(None, [f"path.data={root}", f"path.preprocessed={tmp_path / 'c'}",
-                             "runtime.use_pallas_mel=true"])
+    cfg = load_config(None, [f"path.data={root}", f"path.preprocessed={tmp_path / 'c'}"])
+    assert cfg.runtime.use_pallas_mel  # the port's default, unlike the JAX package's
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pp.preprocess(cfg)
 

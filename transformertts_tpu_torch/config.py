@@ -175,10 +175,12 @@ class RuntimeConfig:
 
     compute_dtype: str = "bfloat16"  # activations/matmuls; params stay float32
     use_pallas_attention: bool = True  # flash-attention Pallas kernel path
-    # batched on-device mel extraction in preprocessing (fused Pallas
-    # STFT->mel kernel on TPU, XLA rFFT elsewhere); False = per-clip host
-    # numpy (the reference's shape, preprocess.py:96-100)
-    use_pallas_mel: bool = False
+    # batched on-device mel extraction in preprocessing through the CUDA
+    # log-mel kernel (ops/stft.py; the key keeps the JAX package's name).  On
+    # by default, unlike there: the port's entry points run on the GPU unless
+    # the caller says otherwise.  False = per-clip numpy on the host
+    # (the reference's shape, preprocess.py:96-100)
+    use_pallas_mel: bool = True
     # fused residual+dropout+LayerNorm kernel for the transformer sublayers
     # (ops/pallas/fused_ln.py); auto-disabled unless d_model % 128 == 0.
     # measured: 9556 -> 10272 audio-s/s on one v5e (same-session windows)

@@ -12,11 +12,12 @@ Global scalar mel stats are streamed over the corpus first and written to
 non-empty; a wav that cannot be read, or an utterance that cannot be saved,
 warns and the run goes on.
 
-With ``runtime.use_pallas_mel`` the log-mels come in batches from the fused
-kernel (``ops/stft.py``) on ``device`` (default: the GPU; it raises without
-one); without it, from ``mel_spectrogram_np`` on the host.  An error of the
-kernel or of its build is raised, never skipped: the JAX package's
-per-chunk tolerance is not carried over.
+With ``runtime.use_pallas_mel`` (the port's default) the log-mels come in
+batches from the fused kernel (``ops/stft.py``) on ``device`` (default: the
+GPU; it raises without one); with the flag set to false, from
+``mel_spectrogram_np`` on the host, as the JAX package does by default.  An
+error of the kernel or of its build is raised, never skipped: the JAX
+package's per-chunk tolerance is not carried over.
 """
 
 from __future__ import annotations
@@ -175,8 +176,8 @@ def process_and_save(audio_id, transcript, g2p, cfg, out_dir: Path, mean, std,
 
 
 def preprocess(cfg: Config, device=None) -> None:
-    """``device`` is where the batched extraction runs when
-    ``runtime.use_pallas_mel`` is on: None means the GPU."""
+    """``device`` is where the batched extraction runs (``runtime.use_pallas_mel``,
+    on by default): None means the GPU."""
     out_dir = Path(cfg.path.preprocessed)
     out_dir.mkdir(parents=True, exist_ok=True)
     if any(out_dir.iterdir()):
@@ -216,8 +217,8 @@ def main(argv=None):
     ap.add_argument("--set", action="append", default=[], dest="overrides",
                     help="dotted config override, e.g. path.data=/data/LJSpeech-1.1")
     ap.add_argument("--device", default=None,
-                    help="device of the batched extraction with runtime.use_pallas_mel "
-                         "(default: the GPU)")
+                    help="device of the batched extraction (default: the GPU; "
+                         "runtime.use_pallas_mel=false extracts with numpy on the host)")
     args = ap.parse_args(argv)
     preprocess(load_config(args.config, args.overrides), device=args.device)
 

@@ -27,9 +27,12 @@
 // slice's hp is a 64 x 64 tile (every thread a 4 x 4 sub-tile, operands
 // staged in chunks of 32 along d_model), it becomes hd in registers, goes to
 // shared memory rounded to T, and its product with the slice of W2 is added
-// to the block's (64, D) fp32 output, which stays in registers (4 x D / 16
-// values a thread; the kernels are built for 64, 128 and 256 output columns,
-// and a narrower D rides in the next wider one).  wgmma and TMA are later work.
+// to the block's (64, 256) fp32 output, which stays in registers (4 x 16 values
+// a thread).  A block owns 256 output columns: a narrower D rides in them, and
+// a wider D (512, 1,024) takes one block per group of 256 columns
+// (blockIdx.y; blockIdx.z in the weight-gradient kernel), each of which
+// recomputes the slice's intermediate from all of d_model.  wgmma and TMA are
+// later work.
 //
 // Backward, sums over all rows without atomics: blocks run in no order, so
 // the work is cut by who owns the result.  One kernel gridded over row tiles
@@ -69,7 +72,9 @@ constexpr int kFc = 16;          // slice columns staged at a time for the secon
 constexpr int kFb = 32;          // d_ffn columns of a slice (weight-gradient kernel)
 constexpr int kLdF = kFb + 4;    // row length of a 32-wide tile
 constexpr int kRc = 16;          // rows staged at a time for the weight-gradient products
-constexpr int kMaxD = 256;       // widest d_model: 4 x 64 output columns a thread
+constexpr int kJ = 4;            // 64-column groups of a thread's output: 4 x 4 values each
+constexpr int kDp = 64 * kJ;     // output columns of a block
+constexpr int kLdD = kDp + 4;    // row length of a kDp-wide tile in shared memory
 constexpr int kTargetBlocks = 264;  // weight-gradient grid: 2 blocks on each of 132 SMs
 
 struct Mask {
@@ -149,11 +154,9 @@ __device__ __forceinline__ void dot_chunk(const float* a, const float* b, int ty
 }
 
 // acc[i][4 g + j] += sum_c p[c][4 ty + i] * b[c][64 g + 4 tx + j] over n values
-// of c: p (n, kLd) by column of the tile, b (n, 64 kJ + 4) by row.
-template <int kJ>
+// of c: p (n, kLd) by column of the tile, b (n, kLdD) by row.
 __device__ __forceinline__ void wide_chunk(const float* p, const float* b, int n, int ty, int tx,
                                            float (&acc)[4][4 * kJ]) {
-  constexpr int kLdD = 64 * kJ + 4;
 #pragma unroll 4
   for (int c = 0; c < n; ++c) {
     const float4 pv = *reinterpret_cast<const float4*>(p + c * kLd + ty * 4);
@@ -208,11 +211,12 @@ template <> __device__ __forceinline__ void store4<bf16>(bf16* p, const float* v
   *reinterpret_cast<uint2*>(p) = u;
 }
 
-// The block's (64, D) fp32 result, plus bias when given, to out (N, D) of T.
-template <typename T, int kJ>
+// The block's (64, kDp) fp32 result, plus bias when given, to the first
+// n_cols columns at out, whose rows are ld apart.
+template <typename T>
 __device__ __forceinline__ void store_rows(T* out, const float (&acc)[4][4 * kJ],
-                                           const float* bias, int N, int D, int row0, int ty,
-                                           int tx) {
+                                           const float* bias, int N, int n_cols, int ld,
+                                           int row0, int ty, int tx) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty * 4 + i;
@@ -220,33 +224,31 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[4][4 * kJ]
 #pragma unroll
     for (int g = 0; g < kJ; ++g) {
       const int col = g * 64 + tx * 4;
-      if (col >= D) continue;
+      if (col >= n_cols) continue;
       float v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) v[j] = acc[i][g * 4 + j] + (bias ? bias[col + j] : 0.f);
-      store4<T>(out + static_cast<size_t>(row) * D + col, v);
+      store4<T>(out + static_cast<size_t>(row) * ld + col, v);
     }
   }
 }
 
 // ------------------------------------------------------------------ forward
 
-template <int kJ> constexpr size_t fwd_smem() {
-  return sizeof(float) * (2 * kKc * kLd + kFs * kLd + kFc * (64 * kJ + 4));
-}
+constexpr size_t kFwdSmem = sizeof(float) * (2 * kKc * kLd + kFs * kLd + kFc * kLdD);
 
-template <typename T, int kJ>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ffn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                const float* __restrict__ b1, const float* __restrict__ w2,
                const float* __restrict__ b2, T* __restrict__ y, int N, int D, int F, Mask mk) {
-  constexpr int kDp = 64 * kJ, kLdD = kDp + 4;
   extern __shared__ __align__(16) float smem[];
   float* Xc = smem;              // (kKc, kLd): x by column of the tile
   float* W1c = Xc + kKc * kLd;   // (kKc, kLd): W1 slice, one d_model index per row
   float* Ht = W1c + kKc * kLd;   // (kFs, kLd): hd rounded to T, one d_ffn index per row
   float* W2c = Ht + kFs * kLd;   // (kFc, kLdD): W2 slice, one d_ffn index per row
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.x * kRows, d0 = blockIdx.y * kDp;
+  const float* w2g = w2 + static_cast<size_t>(d0) * F;  // the group's rows of W2
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
   float acc[4][4 * kJ];
@@ -280,27 +282,25 @@ ffn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w1,
     }
     for (int fc = 0; fc < kFs; fc += kFc) {
       __syncthreads();  // Ht is written; the previous chunk's reads are done
-      stage_transposed<float, T, kDp, kFc, kLdD>(W2c, w2, D, F, 0, f0 + fc);
+      stage_transposed<float, T, kDp, kFc, kLdD>(W2c, w2g, D - d0, F, 0, f0 + fc);
       __syncthreads();
-      wide_chunk<kJ>(Ht + fc * kLd, W2c, kFc, ty, tx, acc);
+      wide_chunk(Ht + fc * kLd, W2c, kFc, ty, tx, acc);
     }
   }
-  store_rows<T, kJ>(y, acc, b2, N, D, row0, ty, tx);
+  store_rows<T>(y + d0, acc, b2 + d0, N, D - d0, D, row0, ty, tx);
 }
 
 // ----------------------------------------------------------------- backward
 
-template <int kJ> constexpr size_t dx_smem() {
-  return sizeof(float) * (4 * kKc * kLd + kFs * kLd + kFc * (64 * kJ + 4));
-}
+constexpr size_t kDxSmem = sizeof(float) * (4 * kKc * kLd + kFs * kLd + kFc * kLdD);
 
-// dx of one row tile: dh slice by slice, then its product with the W1 slice.
-template <typename T, int kJ>
+// Columns d0 .. of dx for one row tile: dh slice by slice, then its product
+// with the W1 slice.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ffn_dx_kernel(const T* __restrict__ x, const float* __restrict__ w1,
               const float* __restrict__ b1, const float* __restrict__ w2,
               const T* __restrict__ dy, T* __restrict__ dx, int N, int D, int F, Mask mk) {
-  constexpr int kDp = 64 * kJ, kLdD = kDp + 4;
   extern __shared__ __align__(16) float smem[];
   float* Xc = smem;               // (kKc, kLd): x by column of the tile
   float* Yc = Xc + kKc * kLd;     // (kKc, kLd): dy by column of the tile
@@ -308,7 +308,7 @@ ffn_dx_kernel(const T* __restrict__ x, const float* __restrict__ w1,
   float* W2c = W1c + kKc * kLd;   // (kKc, kLd): W2 slice, one d_model index per row
   float* Gt = W2c + kKc * kLd;    // (kFs, kLd): dh rounded to T, one d_ffn index per row
   float* W1r = Gt + kFs * kLd;    // (kFc, kLdD): W1 slice rows as they lie
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.x * kRows, d0 = blockIdx.y * kDp;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
   float acc[4][4 * kJ];
@@ -347,30 +347,28 @@ ffn_dx_kernel(const T* __restrict__ x, const float* __restrict__ w1,
     }
     for (int fc = 0; fc < kFs; fc += kFc) {
       __syncthreads();
-      stage_rows<float, T, kFc, kDp, kLdD>(W1r, w1, F, D, f0 + fc, 0);
+      stage_rows<float, T, kFc, kDp, kLdD>(W1r, w1, F, D, f0 + fc, d0);
       __syncthreads();
-      wide_chunk<kJ>(Gt + fc * kLd, W1r, kFc, ty, tx, acc);
+      wide_chunk(Gt + fc * kLd, W1r, kFc, ty, tx, acc);
     }
   }
-  store_rows<T, kJ>(dx, acc, nullptr, N, D, row0, ty, tx);
+  store_rows<T>(dx + d0, acc, nullptr, N, D - d0, D, row0, ty, tx);
 }
 
-template <int kJ> constexpr size_t dw_smem() {
-  return sizeof(float) *
-         (2 * kKc * kLd + 2 * kKc * kLdF + 2 * kRows * kLdF + 2 * kRc * (64 * kJ + 4) + 16 * kFb);
-}
+constexpr size_t kDwSmem =
+    sizeof(float) * (2 * kKc * kLd + 2 * kKc * kLdF + 2 * kRows * kLdF + 2 * kRc * kLdD + 16 * kFb);
 
 // The partial sums of one chunk of rows for one slice of kFb d_ffn columns.
 // pflat holds one record of F D + F + D floats per chunk, dW1 (F, D) | db1
 // (F) | db2 (D); pw2 (chunks, F, D) the transpose of dW2.  blockIdx.x is the
-// slice, blockIdx.y the chunk of `chunk_rows` rows (a multiple of 64).
-template <typename T, int kJ>
+// slice, blockIdx.y the chunk of `chunk_rows` rows (a multiple of 64),
+// blockIdx.z the group of kDp d_model columns of dW1, dW2 and db2 it owns.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ffn_dw_kernel(const T* __restrict__ x, const float* __restrict__ w1,
               const float* __restrict__ b1, const float* __restrict__ w2,
               const T* __restrict__ dy, float* __restrict__ pflat, float* __restrict__ pw2,
               int N, int D, int F, int chunk_rows, Mask mk) {
-  constexpr int kDp = 64 * kJ, kLdD = kDp + 4;
   extern __shared__ __align__(16) float smem[];
   float* Xc = smem;                // (kKc, kLd): x by column of the tile
   float* Yc = Xc + kKc * kLd;      // (kKc, kLd): dy by column of the tile
@@ -382,19 +380,19 @@ ffn_dw_kernel(const T* __restrict__ x, const float* __restrict__ w1,
   float* Yr = Xr + kRc * kLdD;     // (kRc, kLdD): rows of dy as they lie
   float* red = Yr + kRc * kLdD;    // (16, kFb): db1 of the 16 thread rows
   const int f0 = blockIdx.x * kFb;
-  const int chunk = blockIdx.y;
+  const int chunk = blockIdx.y, d0 = blockIdx.z * kDp;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int row_end = min(N, (chunk + 1) * chunk_rows);
 
   // products 3 and 4: this thread owns d_ffn columns f0 + 2 ty + {0, 1} and
-  // d_model columns 64 g + 4 tx + {0..3}
+  // d_model columns d0 + 64 g + 4 tx + {0..3}
   float dw1[2][4 * kJ], dw2[2][4 * kJ];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 4 * kJ; ++j) dw1[i][j] = dw2[i][j] = 0.f;
   float sb1[2] = {0.f, 0.f};  // db1 of columns f0 + 2 tx + {0, 1} over this thread's rows
-  float sb2 = 0.f;            // db2 of column threadIdx.x (first slice only)
+  float sb2 = 0.f;            // db2 of column d0 + threadIdx.x (first slice only)
 
   for (int row0 = chunk * chunk_rows; row0 < row_end; row0 += kRows) {
     // products 1 and 2: rows 4 ty + {0..3}, d_ffn columns f0 + 2 tx + {0, 1}
@@ -429,8 +427,8 @@ ffn_dw_kernel(const T* __restrict__ x, const float* __restrict__ w1,
     }
     for (int rc = 0; rc < kRows; rc += kRc) {
       __syncthreads();  // Hd, Dh are written; the previous chunk's reads are done
-      stage_rows<T, T, kRc, kDp, kLdD>(Xr, x, N, D, row0 + rc, 0);
-      stage_rows<T, T, kRc, kDp, kLdD>(Yr, dy, N, D, row0 + rc, 0);
+      stage_rows<T, T, kRc, kDp, kLdD>(Xr, x, N, D, row0 + rc, d0);
+      stage_rows<T, T, kRc, kDp, kLdD>(Yr, dy, N, D, row0 + rc, d0);
       __syncthreads();
 #pragma unroll 4
       for (int r = 0; r < kRc; ++r) {
@@ -451,7 +449,7 @@ ffn_dw_kernel(const T* __restrict__ x, const float* __restrict__ w1,
             }
         }
       }
-      if (blockIdx.x == 0 && threadIdx.x < D) {
+      if (blockIdx.x == 0 && d0 + threadIdx.x < D) {
 #pragma unroll
         for (int r = 0; r < kRc; ++r) sb2 += Yr[r * kLdD + threadIdx.x];
       }
@@ -467,7 +465,7 @@ ffn_dw_kernel(const T* __restrict__ x, const float* __restrict__ w1,
     if (f >= F) continue;
 #pragma unroll
     for (int g = 0; g < kJ; ++g) {
-      const int col = g * 64 + tx * 4;
+      const int col = d0 + g * 64 + tx * 4;
       if (col >= D) continue;
       const size_t at = static_cast<size_t>(f) * D + col;
       *reinterpret_cast<float4*>(rec + at) =
@@ -476,16 +474,17 @@ ffn_dw_kernel(const T* __restrict__ x, const float* __restrict__ w1,
           make_float4(dw2[i][g * 4], dw2[i][g * 4 + 1], dw2[i][g * 4 + 2], dw2[i][g * 4 + 3]);
     }
   }
-  // db1: the 16 thread rows' sums, added in thread-row order
+  // db1: the 16 thread rows' sums, added in thread-row order (every column
+  // group holds the same sums; the first writes them)
   red[ty * kFb + tx * 2] = sb1[0];
   red[ty * kFb + tx * 2 + 1] = sb1[1];
   __syncthreads();
-  if (threadIdx.x < kFb && f0 + threadIdx.x < F) {
+  if (blockIdx.z == 0 && threadIdx.x < kFb && f0 + threadIdx.x < F) {
     float s = 0.f;
     for (int t = 0; t < 16; ++t) s += red[t * kFb + threadIdx.x];
     rec[fd + f0 + threadIdx.x] = s;
   }
-  if (blockIdx.x == 0 && threadIdx.x < D) rec[fd + F + threadIdx.x] = sb2;
+  if (blockIdx.x == 0 && d0 + threadIdx.x < D) rec[fd + F + d0 + threadIdx.x] = sb2;
 }
 
 // out[i] = sum over chunks of part[chunk][i], in chunk order.
@@ -536,33 +535,35 @@ void chunking(int N, int F, int& chunks, int& chunk_rows) {
   chunk_rows = tiles_per_chunk * kRows;
 }
 
-template <typename T, int kJ>
+template <typename T>
 int launch_fwd(const void* x, const float* w1, const float* b1, const float* w2, const float* b2,
                void* y, int N, int D, int F, Mask mk, cudaStream_t s) {
-  cudaError_t err = allow_smem(ffn_fwd_kernel<T, kJ>, fwd_smem<kJ>());
+  cudaError_t err = allow_smem(ffn_fwd_kernel<T>, kFwdSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ffn_fwd_kernel<T, kJ><<<(N + kRows - 1) / kRows, kThreads, fwd_smem<kJ>(), s>>>(
+  const dim3 grid((N + kRows - 1) / kRows, (D + kDp - 1) / kDp);
+  ffn_fwd_kernel<T><<<grid, kThreads, kFwdSmem, s>>>(
       static_cast<const T*>(x), w1, b1, w2, b2, static_cast<T*>(y), N, D, F, mk);
   return static_cast<int>(cudaGetLastError());
 }
 
 // grads: dW1 (F, D) | db1 (F) | db2 (D) | dW2 (D, F); part: per chunk one
 // record dW1 | db1 | db2, then per chunk the transpose of dW2.
-template <typename T, int kJ>
+template <typename T>
 int launch_bwd(const void* x, const float* w1, const float* b1, const float* w2, const void* dy,
                void* dx, float* grads, float* part, int N, int D, int F, Mask mk,
                cudaStream_t s) {
-  cudaError_t err = allow_smem(ffn_dx_kernel<T, kJ>, dx_smem<kJ>());
-  if (err == cudaSuccess) err = allow_smem(ffn_dw_kernel<T, kJ>, dw_smem<kJ>());
+  cudaError_t err = allow_smem(ffn_dx_kernel<T>, kDxSmem);
+  if (err == cudaSuccess) err = allow_smem(ffn_dw_kernel<T>, kDwSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int chunks, chunk_rows;
   chunking(N, F, chunks, chunk_rows);
   const size_t flat = static_cast<size_t>(F) * D + F + D;
   float* pw2 = part + static_cast<size_t>(chunks) * flat;
-  ffn_dx_kernel<T, kJ><<<(N + kRows - 1) / kRows, kThreads, dx_smem<kJ>(), s>>>(
+  const unsigned groups = (D + kDp - 1) / kDp;
+  ffn_dx_kernel<T><<<dim3((N + kRows - 1) / kRows, groups), kThreads, kDxSmem, s>>>(
       static_cast<const T*>(x), w1, b1, w2, static_cast<const T*>(dy), static_cast<T*>(dx), N, D,
       F, mk);
-  ffn_dw_kernel<T, kJ><<<dim3((F + kFb - 1) / kFb, chunks), kThreads, dw_smem<kJ>(), s>>>(
+  ffn_dw_kernel<T><<<dim3((F + kFb - 1) / kFb, chunks, groups), kThreads, kDwSmem, s>>>(
       static_cast<const T*>(x), w1, b1, w2, static_cast<const T*>(dy), part, pw2, N, D, F,
       chunk_rows, mk);
   ffn_reduce_kernel<<<static_cast<unsigned>((flat + 255) / 256), 256, 0, s>>>(
@@ -573,7 +574,7 @@ int launch_bwd(const void* x, const float* w1, const float* b1, const float* w2,
 }
 
 bool shape_ok(int N, int D, int F, int mask_rows) {
-  return N >= 1 && D >= 8 && D % 8 == 0 && D <= kMaxD && F >= 4 && F % 4 == 0 && mask_rows >= 1;
+  return N >= 1 && D >= 8 && D % 8 == 0 && F >= 4 && F % 4 == 0 && mask_rows >= 1;
 }
 
 }  // namespace
@@ -590,7 +591,7 @@ int tts_fused_ffn_bwd_chunks(int N, int F) {
 
 // x, y: (N, D) T, contiguous; w1 (F, D), b1 (F), w2 (D, F), b2 (D) fp32, the
 // PyTorch parameters as they lie.  T is bf16 when is_bf16, else fp32.  D is a
-// multiple of 8 up to 256, F a multiple of 4.  With dropout_on, keep_div =
+// multiple of 8, F a multiple of 4.  With dropout_on, keep_div =
 // 1 - p and threshold = uint32(p * 2^32).
 int tts_fused_ffn_fwd(int is_bf16, int N, int D, int F, const void* x, const void* w1,
                       const void* b1, const void* w2, const void* b2, void* y, int dropout_on,
@@ -603,13 +604,8 @@ int tts_fused_ffn_fwd(int is_bf16, int N, int D, int F, const void* x, const voi
   auto c1 = static_cast<const float*>(b1);
   auto a2 = static_cast<const float*>(w2);
   auto c2 = static_cast<const float*>(b2);
-  const int groups = (D + 63) / 64;  // 64-column groups of the output: 1, 2 or (for 3) 4
-#define TTS_FFN_FWD(T)                                                        \
-  (groups == 1   ? launch_fwd<T, 1>(x, a1, c1, a2, c2, y, N, D, F, mk, s)     \
-   : groups == 2 ? launch_fwd<T, 2>(x, a1, c1, a2, c2, y, N, D, F, mk, s)     \
-                 : launch_fwd<T, 4>(x, a1, c1, a2, c2, y, N, D, F, mk, s))
-  return is_bf16 ? TTS_FFN_FWD(bf16) : TTS_FFN_FWD(float);
-#undef TTS_FFN_FWD
+  return is_bf16 ? launch_fwd<bf16>(x, a1, c1, a2, c2, y, N, D, F, mk, s)
+                 : launch_fwd<float>(x, a1, c1, a2, c2, y, N, D, F, mk, s);
 }
 
 // dy, dx: (N, D) T.  grads: F D + F + D + D F floats, in this order dW1
@@ -627,13 +623,8 @@ int tts_fused_ffn_bwd(int is_bf16, int N, int D, int F, const void* x, const voi
   auto a2 = static_cast<const float*>(w2);
   auto g = static_cast<float*>(grads);
   auto pt = static_cast<float*>(part);
-  const int groups = (D + 63) / 64;  // 64-column groups of the output: 1, 2 or (for 3) 4
-#define TTS_FFN_BWD(T)                                                        \
-  (groups == 1   ? launch_bwd<T, 1>(x, a1, c1, a2, dy, dx, g, pt, N, D, F, mk, s) \
-   : groups == 2 ? launch_bwd<T, 2>(x, a1, c1, a2, dy, dx, g, pt, N, D, F, mk, s) \
-                 : launch_bwd<T, 4>(x, a1, c1, a2, dy, dx, g, pt, N, D, F, mk, s))
-  return is_bf16 ? TTS_FFN_BWD(bf16) : TTS_FFN_BWD(float);
-#undef TTS_FFN_BWD
+  return is_bf16 ? launch_bwd<bf16>(x, a1, c1, a2, dy, dx, g, pt, N, D, F, mk, s)
+                 : launch_bwd<float>(x, a1, c1, a2, dy, dx, g, pt, N, D, F, mk, s);
 }
 
 }  // extern "C"

@@ -49,7 +49,6 @@ import torch
 from transformertts_tpu_torch.ops.dropout_mask import keep_from_index, threshold_of
 
 _MASK_BUDGET = 13 * 1024 * 1024  # the TPU kernel's memory budget: shapes the mask only
-MAX_D = 256  # widest d_model the CUDA kernels take
 
 
 def _bwd_vmem(rows: int, d: int, f: int, itemsize: int) -> int:
@@ -135,9 +134,9 @@ def _check_cuda_args(x, w1, b1, w2, b2=None, dy=None):
         raise TypeError(f"fused FFN kernel takes float32 or bfloat16, got {x.dtype}")
     n, d = x.shape
     f = w1.shape[0]
-    if d % 8 or d > MAX_D or f % 4:
-        raise ValueError(f"fused FFN kernel takes d_model a multiple of 8 up to {MAX_D} and "
-                         f"d_ffn a multiple of 4, got {d} and {f}")
+    if d % 8 or f % 4:
+        raise ValueError(f"fused FFN kernel takes d_model a multiple of 8 and d_ffn a multiple "
+                         f"of 4, got {d} and {f}")
     wanted = [("x", x, x.dtype, (n, d)), ("w1", w1, torch.float32, (f, d)),
               ("b1", b1, torch.float32, (f,)), ("w2", w2, torch.float32, (d, f))]
     if b2 is not None:
