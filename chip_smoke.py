@@ -6,7 +6,9 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. build: the CUDA kernels of ``transformertts_tpu_torch/ops/csrc`` with
-   nvcc, one process per source, all at once;
+   nvcc, one process per source, all at once; for the flash library each
+   kernel's registers and spills, its dynamic shared memory at (768, 768),
+   and the HGMMA (wgmma) instructions in its SASS (where cuobjdump exists);
 2. mask: the device ``keep_mask`` against its plain version, bit for bit;
 3. kernel: every kernel against its plain PyTorch version on the card.
    The decode-step kernel (``decode_step_reference``) at the full width of
@@ -17,8 +19,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    attention and residual+dropout+LayerNorm kernels, forward and every
    gradient, at the training path's shapes (B 16, 4 heads of 64; (128, 128),
    causal (768, 768), (768, 128); 12,288 and 2,048 rows of 256) and at odd
-   ones, fp32 and bf16, dropout 0 and 0.1, ragged key bias; each backward
-   twice, for equal bits.  The fused FFN kernels, forward and all five
+   ones, fp32 and bf16, dropout 0 and 0.1, ragged key bias; flash also with
+   mask q-blocks of 96 rows at (768, 768), with whole 64-key tiles padded in
+   some batch rows, and with one batch row whose keys are all padded; each
+   backward twice, for equal bits.  The fused FFN kernels, forward and all five
    gradients, at (N, D, F) = (12,288, 256, 1,024) and (2,048, 256, 1,024) and
    at odd sizes (an N no mask block divides, F no multiple of a slice, a
    d_model narrower than a block's 256 output columns, the two wider models
@@ -67,7 +71,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    flash and 120 / 60 LayerNorm ones;
 10. time: every kernel beside its plain version, its bound and (where
     PyTorch has a call or a short chain of calls for the same function)
-    that, decode frames/s through ``Synthesizer.synthesize`` and both
+    that (flash also at dropout 0, and the host's time per eager call),
+    decode frames/s through ``Synthesizer.synthesize`` and both
     training configurations' ms per step and audio-seconds per second, with
     the card's name and power limit.
 
@@ -216,6 +221,21 @@ def time_ms(fn, n: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
+def host_us(fn, n: int = 50) -> float:
+    """Host microseconds per call of ``fn`` issued back to back, the device
+    drained before and after (what a caller's thread spends to enqueue it)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
 def device_ms(fn, n: int = 20, reps: int = 10, setup=None) -> float:
     """Device time per call: ``n`` calls captured in one CUDA graph and the
     graph replayed ``reps`` times between two events, so the host's launch
@@ -259,6 +279,72 @@ def phase_build() -> None:
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         log(f"[build] {path.name}: {len(regs)} kernels, max {max(regs, default=0)} "
             f"registers/thread, spill lines: {spills[:3] or 'none'}")
+    flash_report(libs["flash_attention"])
+
+
+def ptxas_kernels(text: str) -> list[tuple[str, int, str]]:
+    """(kernel, registers, spill line) of each entry function in an
+    ``nvcc -Xptxas -v`` report."""
+    rows, name, spill = [], "", ""
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            rows.append((name, int(ln.split("Used ")[1].split()[0]), spill))
+            name = ""
+    return rows
+
+
+def demangle(names: list[str]) -> list[str]:
+    """Short readable kernel names (``flash_fwd_tc<64>``) where c++filt exists."""
+    import re
+    import shutil
+
+    if shutil.which("c++filt") is None:
+        return names
+    out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                         check=True, timeout=60).stdout.splitlines()
+    found = [re.search(r"::(\w+(?:<[^()]*>)?)\(", o) for o in out]
+    return [f.group(1) if f else o for f, o in zip(found, out)]
+
+
+def flash_report(path) -> None:
+    """The flash library's kernels: registers, spills, dynamic shared memory
+    at the decoder's causal (768, 768) shape, and HGMMA (wgmma) instructions
+    in the SASS where cuobjdump is present."""
+    import ctypes
+    import os
+    import shutil
+
+    from transformertts_tpu_torch.ops import flash_attention as fa
+
+    rows = ptxas_kernels(path.with_suffix(".log").read_text())
+    for short, (_, regs, spill) in zip(demangle([r[0] for r in rows]), rows):
+        log(f"[build] flash_attention: {short}: {regs} registers/thread; {spill}")
+    for is_bf16, dtype in ((1, "bf16"), (0, "fp32")):
+        smem = (ctypes.c_longlong * 3)()
+        if fa._lib().tts_flash_shared_bytes(is_bf16, TRAIN_DH, 768, 768, smem) != 0:
+            raise AssertionError("tts_flash_shared_bytes refused D = 64")
+        log(f"[build] flash_attention {dtype} D={TRAIN_DH} (768, 768): dynamic shared memory "
+            f"per block forward {smem[0]}, dQ {smem[1]}, dK/dV {smem[2]} bytes")
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        log("[build] flash_attention: cuobjdump not available")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            counts[name] = 0
+        elif name is not None and "HGMMA" in ln:
+            counts[name] += 1
+    per = ", ".join(f"{short} {n}" for short, n in zip(demangle(list(counts)), counts.values()))
+    log(f"[build] flash_attention: {sum(counts.values())} HGMMA instructions in the SASS ({per})")
 
 
 def phase_kernel(cfg, device) -> dict:
@@ -324,12 +410,20 @@ LN_ROWS = {"decoder": 16 * 768, "encoder": 16 * 128}
 TRAIN_B, TRAIN_H, TRAIN_DH, TRAIN_D = 16, 4, 64, 256
 
 
+def key_bias(lens, tk: int):
+    """(B, Tk) fp32 additive key bias: 0 on each row's first lens[i] keys, -1e9 after."""
+    import torch
+
+    from transformertts_tpu_torch.models.masks import NEG_INF
+
+    return torch.from_numpy(np.where(np.arange(tk)[None, :] < np.asarray(lens)[:, None], 0.0,
+                                     NEG_INF).astype(np.float32))
+
+
 def attn_inputs(b, h, tq, tk, dh, dtype, device, seed):
     """Seeded q, k, v as one fused (B, T, 3 H dh) projection would leave them
     (strided views when Tq == Tk), dO, and a ragged key bias."""
     import torch
-
-    from transformertts_tpu_torch.models.masks import NEG_INF
 
     rng = np.random.default_rng(seed)
     if tq == tk:
@@ -342,9 +436,7 @@ def attn_inputs(b, h, tq, tk, dh, dtype, device, seed):
     dout = torch.from_numpy(rng.standard_normal((b, tq, h, dh), np.float32)).to(device, dtype)
     lens = rng.integers(max(tk // 2, 1), tk + 1, b)
     lens[0] = tk
-    bias = torch.from_numpy(
-        np.where(np.arange(tk)[None, :] < lens[:, None], 0.0, NEG_INF).astype(np.float32))
-    return q, k, v, dout, bias.to(device)
+    return q, k, v, dout, key_bias(lens, tk).to(device)
 
 
 def ln_inputs(n, d, dtype, device, seed):
@@ -416,27 +508,40 @@ def phase_train_kernels(device) -> dict:
     from transformertts_tpu_torch.ops.fused_ln import residual_dropout_layernorm
 
     worst: dict = {}
-    attn_cases = [(name, TRAIN_B, TRAIN_H, *shape, TRAIN_DH) for name, shape in ATTN_SHAPES.items()]
-    attn_cases += [("enc_self_causal", TRAIN_B, TRAIN_H, 128, 128, True, TRAIN_DH),
-                   ("dec_self_full", TRAIN_B, TRAIN_H, 768, 768, False, TRAIN_DH),
-                   ("odd", 2, 2, 5, 37, False, TRAIN_DH),
-                   ("odd_causal", 2, 2, 37, 37, True, TRAIN_DH),
-                   ("odd_dh32", 2, 3, 70, 100, False, 32)]  # the other head dim the kernel takes
+    # (name, B, H, Tq, Tk, causal, D, mask q-block height, key lengths): None
+    # takes the TPU kernel's q-block and attn_inputs' random lengths
+    attn_cases = [(name, TRAIN_B, TRAIN_H, *shape, TRAIN_DH, None, None)
+                  for name, shape in ATTN_SHAPES.items()]
+    attn_cases += [("enc_self_causal", TRAIN_B, TRAIN_H, 128, 128, True, TRAIN_DH, None, None),
+                   ("dec_self_full", TRAIN_B, TRAIN_H, 768, 768, False, TRAIN_DH, None, None),
+                   ("odd", 2, 2, 5, 37, False, TRAIN_DH, None, None),
+                   ("odd_causal", 2, 2, 37, 37, True, TRAIN_DH, None, None),
+                   # the other head dim the kernel takes
+                   ("odd_dh32", 2, 3, 70, 100, False, 32, None, None),
+                   # several mask q-blocks, of a height that is no multiple of the
+                   # kernel's 64-row tile (the path's shapes take one q-block)
+                   ("dec_self_bq96", TRAIN_B, TRAIN_H, 768, 768, True, TRAIN_DH, 96, None),
+                   # whole 64-key tiles padded in two batch rows: the kernels skip them
+                   ("padded_tiles", 3, TRAIN_H, 768, 768, True, TRAIN_DH, None, (768, 300, 64)),
+                   # one batch row with every key padded: uniform weights, nothing skipped
+                   ("all_padded_row", 3, 2, 130, 200, False, TRAIN_DH, None, (200, 0, 77))]
     ln_cases = [(name, n, TRAIN_D) for name, n in LN_ROWS.items()]
     # ragged row counts, and one width for each register layout of the kernel
     ln_cases += [("odd", 1000, TRAIN_D), ("narrow", 100, 64), ("wide", 520, 512),
                  ("widest", 264, 1024)]
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        for name, b, h, tq, tk, causal, dh in attn_cases:
+        for name, b, h, tq, tk, causal, dh, block_q, lens in attn_cases:
             for p in (0.0, 0.1):
                 q, k, v, dout, bias = attn_inputs(b, h, tq, tk, dh, dtype, device, seed=tq + tk)
+                if lens is not None:
+                    bias = key_bias(lens, tk).to(device)
                 outs = []
                 for plain in (False, True, False):
                     outs.append(run_with_grads(
                         lambda q_, k_, v_: flash_attention(
                             q_, k_, v_, bias, causal=causal, dropout=p, seed=20231 + tq,
-                            plain=plain), (q, k, v), dout))
+                            block_q=block_q, plain=plain), (q, k, v), dout))
                     torch.cuda.synchronize()
                 kern, plain_out, again = outs
                 check_pair(f"flash {dtype_name:8s} {name} B={b} ({tq},{tk}) D={dh} "
@@ -910,6 +1015,10 @@ def profile_step(run_step, step_ms: float, card: str, top: int = 14) -> None:
     log(f"[profile] one train step under the profiler: device busy {busy_ms:.1f} ms in "
         f"{sum(v[1] for v in by_name.values())} kernels and copies, {100 * busy_ms / step_ms:.1f} % "
         f"of the {step_ms:.1f} ms a step takes without the profiler [{card}]")
+    flash = [v for name, v in by_name.items() if "flash_" in name]
+    log(f"[profile] flash attention kernels: {sum(v[0] for v in flash) / 1e3:.2f} ms in "
+        f"{sum(v[1] for v in flash)} kernels, {100 * sum(v[0] for v in flash) / 1e3 / busy_ms:.1f} % "
+        f"of the device's busy time")
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"[profile] {us / 1e3:8.2f} ms {100 * us / 1e3 / busy_ms:5.1f} % {count:6d} x {name[:90]}")
 
@@ -1151,6 +1260,13 @@ def phase_time_train(device, card: str) -> dict:
         t = lambda x: x.transpose(1, 2)  # noqa: E731
         fwd = device_ms(lambda: fa.flash_forward(q, k, v, bias, 99, *args))
         bwd = device_ms(lambda: fa.flash_backward(q, k, v, bias, 99, out, dout, m, l, *args))
+        # dropout off: the share of the mask hash in the kernels' time
+        args0 = (dh ** -0.5, causal, 0.0, args[3])
+        out0, m0, l0 = fa.flash_forward(q, k, v, bias, 99, *args0)
+        fwd0 = device_ms(lambda: fa.flash_forward(q, k, v, bias, 99, *args0))
+        bwd0 = device_ms(lambda: fa.flash_backward(q, k, v, bias, 99, out0, dout, m0, l0, *args0))
+        host_f = host_us(lambda: fa.flash_forward(q, k, v, bias, 99, *args))
+        host_b = host_us(lambda: fa.flash_backward(q, k, v, bias, 99, out, dout, m, l, *args))
         plain_fwd = time_ms(lambda: fa.flash_attention_reference(
             t(q), t(k), t(v), bias, 99, *args), 5, 2)
         plain_bwd = time_ms(lambda: fa.flash_attention_backward_reference(
@@ -1179,6 +1295,10 @@ def phase_time_train(device, card: str) -> dict:
         shape = f"{name} B={b} H={h} ({tq},{tk}) D={dh} causal={int(causal)}"
         report("flash_fwd", name, fwd, plain_fwd, f_bound, f_by, lib_fwd, shape)
         report("flash_bwd", name, bwd, plain_bwd, b_bound, b_by, lib_bwd, shape)
+        log(f"[time] bf16 flash {name} at p=0: forward {fwd0 * 1e3:.1f} us, backward "
+            f"{bwd0 * 1e3:.1f} us (the mask hash: {100 * (1 - fwd0 / fwd):.0f} % / "
+            f"{100 * (1 - bwd0 / bwd):.0f} % of the p={p} times); host per eager call: "
+            f"flash_forward {host_f:.1f} us, flash_backward {host_b:.1f} us [{card}]")
 
     for name, n in LN_ROWS.items():
         # four input sets in turn (75 MB at 12,288 rows), so that a call does

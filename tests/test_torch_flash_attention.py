@@ -79,24 +79,37 @@ def test_pick_block_matches_jax(t, tk, monkeypatch):
     assert pick_block(t, tk) == jax_flash._pick_block(t, tk)
 
 
+# (causal, Tq, Tk, key lengths): "padded" leaves whole 64-key tiles padded in
+# two batch rows (keys 70.. and 1..) while the first row is live throughout,
+# the case in which the CUDA kernels skip key tiles
+ATTN_CASES = [(True, 64, 64, None), (False, 64, 64, None), (False, 48, 24, None),
+              (False, 40, 200, (200, 70, 1)), (True, 200, 200, (200, 70, 1))]
+ATTN_IDS = ["True-64-64", "False-64-64", "False-48-24", "False-40-200-padded",
+            "True-200-200-padded"]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal,tq,tk", [(True, 64, 64), (False, 64, 64), (False, 48, 24)])
-def test_matches_jax_without_dropout(dtype, causal, tq, tk, monkeypatch):
+@pytest.mark.parametrize("causal,tq,tk,lens", ATTN_CASES, ids=ATTN_IDS)
+def test_matches_jax_without_dropout(dtype, causal, tq, tk, lens, monkeypatch):
     monkeypatch.delenv("TTS_FLASH_BLOCK_Q", raising=False)
-    arrs, dout, bias = _case(2, 2, tq, tk, 64, dtype, lens=[tk, tk - 7])
+    lens = lens or (tk, tk - 7)
+    arrs, dout, bias = _case(len(lens), 2, tq, tk, 64, dtype, lens=lens)
     port, ref = _run_both(arrs, dout, bias, dtype, causal, 0.0, seed=0)
-    _compare(port, ref, dtype, f"causal={causal} ({tq},{tk})")
+    _compare(port, ref, dtype, f"causal={causal} ({tq},{tk}) lens={lens}")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("causal", [True, False])
-def test_matches_jax_with_dropout_over_several_q_blocks(dtype, causal, monkeypatch):
+@pytest.mark.parametrize("causal,lens", [(True, None), (False, None), (False, (200, 70, 1))],
+                         ids=["True", "False", "False-padded"])
+def test_matches_jax_with_dropout_over_several_q_blocks(dtype, causal, lens, monkeypatch):
     """4 q-blocks of 16 rows: the salt (bh * 8192 + q-block) and the counter
-    (local row * Tk + col) must both follow the TPU kernel's geometry."""
+    (local row * Tk + col) must both follow the TPU kernel's geometry; with
+    ``lens`` over 200 keys, of which whole 64-key tiles are padded in two rows."""
     monkeypatch.setenv("TTS_FLASH_BLOCK_Q", "16")
-    tq, tk = 64, 40 if not causal else 64
+    tq, tk = 64, (lens[0] if lens else 40) if not causal else 64
     assert jax_flash._pick_block(tq, tk) == 16
-    arrs, dout, bias = _case(2, 2, tq, tk, 64, dtype, lens=[tk, tk - 9], seed=1)
+    lens = lens or (tk, tk - 9)
+    arrs, dout, bias = _case(len(lens), 2, tq, tk, 64, dtype, lens=lens, seed=1)
     port, ref = _run_both(arrs, dout, bias, dtype, causal, 0.1, seed=987654321, block_q=16)
     _compare(port, ref, dtype, f"dropout causal={causal}")
     # with the wrong geometry the port drops other elements

@@ -2,26 +2,51 @@
 // backward, with the score matrix never in device memory, for Hopper (sm_90a).
 //
 // Replaces the TPU kernels transformertts_tpu/ops/pallas/flash_attention.py:
-// _fwd (_fwd_kernel) and _bwd (_bwd_kernel).  The plain PyTorch version, op
-// for op, is flash_attention_reference / flash_attention_backward_reference
-// in ../flash_attention.py.  Numerics as the TPU kernel: operands of the
-// storage type T (bf16 or fp32) with fp32 accumulation; 1/sqrt(D) folded
-// into Q when it is a power of two, else applied to the fp32 scores; the
-// bias added in fp32; causal REPLACES the score by -1e9; l is the row sum of
-// e = exp(s - m) before dropout; e is rounded to T unnormalised for P V;
-// 1 / (l (1 - p)) multiplies the fp32 output rows.  In the backward,
-// dO r / (1 - p), e (dP - delta) and Q r scale are rounded to T before their
-// products, and r scale multiplies the fp32 dQ rows, with r = 1 / l and
-// delta = sum(dO * O) from the stored (rounded) O.
+// _fwd (_fwd_kernel :119) and _bwd (_bwd_kernel :181).  The plain PyTorch
+// version, op for op, is flash_attention_reference /
+// flash_attention_backward_reference in ../flash_attention.py.  Numerics as
+// the TPU kernel: operands of the storage type T (bf16 or fp32) with fp32
+// accumulation; 1/sqrt(D) folded into Q when it is a power of two, else
+// applied to the fp32 scores; the bias added in fp32; causal REPLACES the
+// score by -1e9; l is the row sum of e = exp(s - m) before dropout; e is
+// rounded to T unnormalised for P V; 1 / (l (1 - p)) multiplies the fp32
+// output rows.  In the backward, dO r / (1 - p), e (dP - delta) and
+// Q r scale are rounded to T before their products, and r scale multiplies
+// the fp32 dQ rows, with r = 1 / l and delta = sum(dO * O) from the stored
+// (rounded) O.
 //
-// Bound: operations (4 Tq Tk D per (batch, head) forward, the bytes are
-// those of Q, K, V, O only).  This first version runs them as fp32 FMAs on
-// the CUDA cores, not on the tensor cores: a 64 x 64 score tile per block of
-// 256 threads, every thread a 4 x 4 sub-tile, operands staged in shared
-// memory (transposed where the product reads them by column, so that every
-// inner-loop read is one 16-byte vector), K and V taken in tiles of 64 keys
-// because one (batch, head)'s K and V at 768 keys do not fit beside the
-// rest.  wgmma and TMA are later work.
+// Bound on an H100, at the training path's shapes: bytes (Q, K, V, O once;
+// 7.64 us forward and 15.16 us backward at the decoder's causal (768, 768),
+// B 16, H 4, D 64), the operations (4 D per unmasked (query, key) pair
+// forward, 10 D backward) being lighter at the tensor cores' bf16 rate.
+// What stands between a kernel and that bound is the per-score work: the
+// exp, the masks and the dropout hash of every (query, key) pair.
+//
+// bf16 (the path's dtype) runs on the tensor cores (hopper.cuh): one
+// warpgroup of 128 threads per block owns 64 query rows (forward, dQ) or 64
+// keys (dK/dV), and every product is a wgmma with bf16 operands and fp32
+// sums: Q K^T and P V forward; S and dP in both backward kernels, then dQ,
+// dK and dV.  Operand tiles (64 rows of D = 32 or 64) lie in shared memory
+// in bf16, swizzled as the wgmma descriptor names them.  K/V tiles (forward,
+// dQ) and Q/dO tiles (dK/dV) arrive by cp.async into a ring of two stages, so
+// that tile t + 1 loads while tile t is multiplied; cp.async rather than TMA
+// because it needs no tensor map (cuTensorMapEncodeTiled, which makes one, would add
+// host time to every call of a host-bound step), reads the strided q|k|v
+// views as they are, and zero-fills the rows past Tq or Tk.  P, e_dropped and
+// ds0 go from the accumulator registers, packed to bf16, straight into the A
+// operand of the next product; V, K, Q r scale and dO r / (1 - p) are B
+// operands read through the descriptor's transpose.  The dK/dV kernel
+// computes S^T = K Q^T and dP^T = V dO^T, so that its accumulator rows are
+// keys; m, l, delta and the mask's per-query hash bases come per query tile
+// through shared memory.  Several blocks share an SM (40-70 KB of shared
+// memory each), so one block's exp and hash work overlaps another's
+// products.  Blocks run heaviest first: the last query tiles of a causal
+// forward or dQ, the first key tiles of dK/dV.
+//
+// fp32 keeps the CUDA-core kernels (flash_fwd_kernel, flash_dq_kernel,
+// flash_dkdv_kernel): the tensor cores have no fp32 product (TF32 keeps about
+// three digits).  A 64 x 64 score tile per block of 256 threads, every thread
+// a 4 x 4 sub-tile, operands staged in shared memory as floats.
 //
 // Forward: one pass over the key tiles with a running row maximum (online
 // softmax); it stores m and l (B, H, Tq) for the backward, which the TPU
@@ -35,10 +60,12 @@
 // over key tiles loops over query tiles for dK and dV.  No atomics: the
 // same bits on every run.
 //
-// Key tiles that causal masks entirely are skipped when every row of the
-// query tile already has a maximum far above -1e9 (their e is exactly 0
-// then); a row whose keys are all padded keeps the TPU kernel's uniform
-// weights over all Tk keys.
+// Skipped work: a key tile that causal masks for every row of the query
+// tile, or whose keys are all padded (bias -1e9), once every row of the query
+// tile has a maximum far above -1e9 (its e is exactly 0 then); a row whose
+// keys are all padded keeps the TPU kernel's uniform weights over all Tk
+// keys.  The bf16 kernels skip both kinds (dK/dV writes zeros for a key tile
+// that no query reaches), the fp32 ones the causal kind.
 //
 // The dropout mask is a function of the logical index (dropout_mask.cuh):
 // element (bh, row, col) takes salt = bh * 8192 + row / block_q and counter
@@ -55,6 +82,7 @@
 #include <cstdint>
 
 #include "dropout_mask.cuh"
+#include "hopper.cuh"
 #include "numeric.cuh"
 
 namespace {
@@ -291,17 +319,25 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args<T> a) {
 
 // ----------------------------------------------------------------- backward
 
-// delta (B, H, Tq) = sum_d dO * O, one warp per (batch, row, head).
-template <typename T>
-__global__ void flash_delta_kernel(const Args<T> a, int D) {
-  const int lane = threadIdx.x & 31;
-  const long long n = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const long long total = static_cast<long long>(a.B) * a.Tq * a.H;
-  if (n >= total) return;
+// delta (B, H, Tq) = sum_d dO * O: D / vec<T>() neighbouring lanes per
+// (batch, row, head), one 16-byte load of dO and of O each.
+template <typename T, int D>
+__global__ void flash_delta_kernel(const Args<T> a) {
+  constexpr int V = vec<T>(), kLanes = D / V;
+  const long long n = (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) / kLanes;
+  const int part = static_cast<int>(threadIdx.x % kLanes);
+  const bool in = n < static_cast<long long>(a.B) * a.Tq * a.H;
   float s = 0.f;
-  for (int d = lane; d < D; d += 32) s += to_f<T>(a.dout[n * D + d]) * to_f<T>(a.o[n * D + d]);
-  s = warp_sum(s);
-  if (lane == 0) {
+  if (in) {
+    float x[V], y[V];
+    load16<T>(a.dout + n * D + part * V, x);
+    load16<T>(a.o + n * D + part * V, y);
+#pragma unroll
+    for (int i = 0; i < V; ++i) s += x[i] * y[i];
+  }
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (in && part == 0) {
     const int h = static_cast<int>(n % a.H);
     const long long br = n / a.H;
     const int row = static_cast<int>(br % a.Tq), b = static_cast<int>(br / a.Tq);
@@ -503,6 +539,476 @@ __global__ void __launch_bounds__(kThreads) flash_dkdv_kernel(const Args<T> a) {
   }
 }
 
+// ------------------------------------------------------ bf16, tensor cores
+
+constexpr int kWg = 128;  // one warpgroup per block
+
+template <int D> __host__ __device__ constexpr uint32_t tile_bytes() { return kTile * 2 * D; }
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ float ld_bias(const float* bias, int col, int Tk) {
+  return col < Tk ? __ldg(bias + col) : -INFINITY;
+}
+
+// dead[t] = 1 for the key tiles t whose keys are all padded (bias -1e9 or
+// past Tk) or all past `last_row` (causal: masked for every row up to it).
+__device__ __forceinline__ void dead_key_tiles(const float* bias, int Tk, int last_row,
+                                               uint8_t* dead, int tid) {
+  const int lane = tid % 32;
+  for (int t = tid / 32; t * kTile < Tk; t += kWg / 32) {
+    const int k0 = t * kTile + lane, k1 = k0 + 32;
+    const bool pad = (k0 >= Tk || __ldg(bias + k0) <= kNegInf) &&
+                     (k1 >= Tk || __ldg(bias + k1) <= kNegInf);
+    const bool all = __all_sync(0xffffffffu, pad);
+    if (lane == 0) dead[t] = all || t * kTile > last_row;
+  }
+}
+
+// The next tile after t that is not skipped: skipping needs every row live.
+__device__ __forceinline__ int next_tile(int t, int n, bool all_live, const uint8_t* dead) {
+  for (++t; t < n && all_live && dead[t]; ++t) {
+  }
+  return t;
+}
+
+// The thread's two accumulator rows (h = 0, 1) and the column of element i
+// inside its 64-column tile (hopper.cuh).
+__device__ __forceinline__ int acc_row(int tid, int h) {
+  return 16 * (tid / 32) + (tid % 32) / 4 + 8 * h;
+}
+__device__ __forceinline__ int acc_col(int tid, int i) {
+  return 8 * (i / 4) + 2 * (tid % 4) + i % 2;
+}
+
+// (B, T, H, D) rows of (b, h) as bf16 pairs from fp32 accumulator columns
+template <int D, int N>
+__device__ __forceinline__ void store_rows(bf16* dst, long long row_stride, int row0, int n_rows,
+                                           const float (&acc)[N], const float (&mul)[2],
+                                           int tid) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + acc_row(tid, h);
+    if (row >= n_rows) continue;
+    bf16* p = dst + static_cast<long long>(row) * row_stride;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<__nv_bfloat162*>(p + acc_col(tid, i)) =
+          __floats2bfloat162_rn(acc[i] * mul[h], acc[i + 1] * mul[h]);
+    }
+  }
+}
+
+// S (64 x 64) = A B^T over depth D, both K-major tiles in shared memory;
+// issued, not committed.
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  fence_regs(s);
+  wgmma_fence();
+  const uint64_t da = make_desc<D>(a), db = make_desc<D>(b);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss_n64(s, da + 2 * kk, db + 2 * kk);
+}
+
+// acc (64 x D) += P (64 x 64, fp32 accumulator, rounded to bf16) B, B the
+// (64, D) tile at b read by its rows (MN-major); issued, not committed.
+template <int D>
+__device__ __forceinline__ void issue_accumulate(float (&acc)[D / 2], const float (&p)[32],
+                                                 uint32_t b) {
+  uint32_t a[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) acc_to_a(p, kk, a[kk]);
+  fence_regs(acc);
+  wgmma_fence();
+  const uint64_t db = make_desc<D>(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, a[kk], db + kk * (16 * 2 * D / 16));
+}
+
+template <int D>
+__device__ __forceinline__ void accumulate(float (&acc)[D / 2], const float (&p)[32], uint32_t b) {
+  issue_accumulate<D>(acc, p, b);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(acc);
+}
+
+// at most 128 registers, so that four blocks share an SM (no spills at D = 64)
+template <int D>
+__global__ void __launch_bounds__(kWg, 4) flash_fwd_tc(const Args<bf16> a) {
+  constexpr uint32_t kB = tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  const uint32_t sQ = smem_addr(base), sK = sQ + kB, sV = sK + 2 * kB;  // K, V: 2 stages
+  uint8_t* dead = base + 5 * kB;
+  const int tid = threadIdx.x, c = tid % 4;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int n_qt = (a.Tq + kTile - 1) / kTile, n_kt = (a.Tk + kTile - 1) / kTile;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kTile;  // heaviest first
+  const bf16* q = a.q + b * a.qs[0] + h * a.qs[2];
+  const bf16* k = a.k + b * a.ks[0] + h * a.ks[2];
+  const bf16* v = a.v + b * a.vs[0] + h * a.vs[2];
+  const float* bias = a.bias + static_cast<size_t>(b) * a.Tk;
+
+  load_tile_async<D>(sQ, q, a.qs[1], q0, a.Tq, tid);
+  load_tile_async<D>(sK, k, a.ks[1], 0, a.Tk, tid);
+  load_tile_async<D>(sV, v, a.vs[1], 0, a.Tk, tid);
+  cp_async_commit();
+  dead_key_tiles(bias, a.Tk, a.causal ? min(q0 + kTile, a.Tq) - 1 : a.Tk, dead, tid);
+
+  int row[2];
+  float m[2], l[2], o[D / 2];
+  uint32_t mbase[2], cnt0[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = q0 + acc_row(tid, i);
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    mbase[i] = mask_base(a.seed, static_cast<uint32_t>(bh * 8192 + row[i] / a.block_q));
+    cnt0[i] = static_cast<uint32_t>(row[i] % a.block_q) * static_cast<uint32_t>(a.Tk);
+  }
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  for (int t = 0, stage = 0;; stage ^= 1) {
+    cp_async_wait_all();
+    fence_async_shared();
+    const bool live = (row[0] >= a.Tq || m[0] > kLive) && (row[1] >= a.Tq || m[1] > kLive);
+    const bool all_live = __syncthreads_and(live);  // tile t landed; the other stage is free
+    const int nt = next_tile(t, n_kt, all_live, dead);
+    if (nt < n_kt) {
+      load_tile_async<D>(sK + (stage ^ 1) * kB, k, a.ks[1], nt * kTile, a.Tk, tid);
+      load_tile_async<D>(sV + (stage ^ 1) * kB, v, a.vs[1], nt * kTile, a.Tk, tid);
+      cp_async_commit();
+    }
+    if (!(all_live && dead[t])) {
+      const int k0 = t * kTile;
+      float s[32];
+      issue_scores<D>(s, sQ, sK + stage * kB);
+      wgmma_commit();
+      float bc[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) bc[j] = ld_bias(bias, k0 + 8 * (j / 2) + 2 * c + j % 2, a.Tk);
+      wgmma_wait_all();
+      fence_regs(s);
+
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i / 2) % 2, col = k0 + acc_col(tid, i);
+        float x = s[i] * a.scale + bc[2 * (i / 4) + i % 2];
+        if (a.causal && col > row[r]) x = kNegInf;
+        if (col >= a.Tk) x = -INFINITY;
+        s[i] = x;
+        mx[r] = fmaxf(mx[r], x);
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = __expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i / 2) % 2;
+        const float e = __expf(s[i] - m[r]);
+        sum[r] += e;
+        s[i] = (a.dropout_on &&
+                !mask_keep(mbase[r], cnt0[r] + static_cast<uint32_t>(k0 + acc_col(tid, i)),
+                           a.threshold))
+                   ? 0.f
+                   : e;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * alpha[r] + sum[r];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
+      accumulate<D>(o, s, sV + stage * kB);
+    }
+    if (nt >= n_kt) break;
+    t = nt;
+  }
+
+  const float norm[2] = {1.0f / (l[0] * a.keep_div), 1.0f / (l[1] * a.keep_div)};
+  store_rows<D>(a.out + (static_cast<size_t>(b) * a.Tq * a.H + h) * D,
+                static_cast<long long>(a.H) * D, q0, a.Tq, o, norm, tid);
+  if (c == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= a.Tq) continue;
+      a.m[static_cast<size_t>(bh) * a.Tq + row[r]] = m[r];
+      a.l[static_cast<size_t>(bh) * a.Tq + row[r]] = l[r];
+    }
+  }
+}
+
+// dQ: one block per (batch * head, query tile), looping over key tiles.
+template <int D>
+__global__ void __launch_bounds__(kWg) flash_dq_tc(const Args<bf16> a) {
+  constexpr uint32_t kB = tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  const uint32_t sQ = smem_addr(base), sO = sQ + kB, sK = sO + kB, sV = sK + 2 * kB;
+  uint8_t* dead = base + 6 * kB;
+  const int tid = threadIdx.x, c = tid % 4;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int n_qt = (a.Tq + kTile - 1) / kTile, n_kt = (a.Tk + kTile - 1) / kTile;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kTile;
+  const bf16* q = a.q + b * a.qs[0] + h * a.qs[2];
+  const bf16* k = a.k + b * a.ks[0] + h * a.ks[2];
+  const bf16* v = a.v + b * a.vs[0] + h * a.vs[2];
+  const long long ostride = static_cast<long long>(a.H) * D;
+  const bf16* dout = a.dout + (static_cast<long long>(b) * a.Tq * a.H + h) * D;
+  const float* bias = a.bias + static_cast<size_t>(b) * a.Tk;
+
+  dead_key_tiles(bias, a.Tk, a.causal ? min(q0 + kTile, a.Tq) - 1 : a.Tk, dead, tid);
+  int row[2];
+  float m[2], r[2], delta[2];
+  uint32_t mbase[2], cnt0[2];
+  bool live = true;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = q0 + acc_row(tid, i);
+    const bool in = row[i] < a.Tq;
+    const size_t at = static_cast<size_t>(bh) * a.Tq + row[i];
+    m[i] = in ? a.m[at] : 0.f;
+    r[i] = in ? 1.0f / a.l[at] : 0.f;
+    delta[i] = in ? a.delta[at] : 0.f;
+    live = live && (!in || m[i] > kLive);
+    mbase[i] = mask_base(a.seed, static_cast<uint32_t>(bh * 8192 + row[i] / a.block_q));
+    cnt0[i] = static_cast<uint32_t>(row[i] % a.block_q) * static_cast<uint32_t>(a.Tk);
+  }
+  const bool all_live = __syncthreads_and(live);
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  int t = next_tile(-1, n_kt, all_live, dead);
+  if (t < n_kt) {
+    load_tile_async<D>(sQ, q, a.qs[1], q0, a.Tq, tid);
+    load_tile_async<D>(sO, dout, ostride, q0, a.Tq, tid);
+    load_tile_async<D>(sK, k, a.ks[1], t * kTile, a.Tk, tid);
+    load_tile_async<D>(sV, v, a.vs[1], t * kTile, a.Tk, tid);
+    cp_async_commit();
+  }
+  for (int stage = 0; t < n_kt; stage ^= 1) {
+    cp_async_wait_all();
+    fence_async_shared();
+    __syncthreads();
+    const int nt = next_tile(t, n_kt, all_live, dead);
+    if (nt < n_kt) {
+      load_tile_async<D>(sK + (stage ^ 1) * kB, k, a.ks[1], nt * kTile, a.Tk, tid);
+      load_tile_async<D>(sV + (stage ^ 1) * kB, v, a.vs[1], nt * kTile, a.Tk, tid);
+      cp_async_commit();
+    }
+    const int k0 = t * kTile;
+    float s[32], dp[32];
+    issue_scores<D>(s, sQ, sK + stage * kB);
+    issue_scores<D>(dp, sO, sV + stage * kB);
+    wgmma_commit();
+    float bc[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) bc[j] = ld_bias(bias, k0 + 8 * (j / 2) + 2 * c + j % 2, a.Tk);
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int rr = (i / 2) % 2, col = k0 + acc_col(tid, i);
+      float x = s[i] * a.scale + bc[2 * (i / 4) + i % 2];
+      if (a.causal && col > row[rr]) x = kNegInf;
+      if (col >= a.Tk) x = -INFINITY;
+      float ds = 0.f;
+      if (row[rr] < a.Tq) {
+        const float e = __expf(x - m[rr]);
+        float d = dp[i];
+        if (a.dropout_on)
+          d = mask_keep(mbase[rr], cnt0[rr] + static_cast<uint32_t>(col), a.threshold)
+                  ? d * a.inv_keep
+                  : 0.f;
+        ds = e * (d - delta[rr]);
+      }
+      s[i] = ds;
+    }
+    accumulate<D>(dq, s, sK + stage * kB);
+    t = nt;
+  }
+
+  const float rs[2] = {r[0] * a.scale, r[1] * a.scale};
+  store_rows<D>(a.dq + (static_cast<size_t>(b) * a.Tq * a.H + h) * D, ostride, q0, a.Tq, dq, rs,
+                tid);
+}
+
+// Per query of a tile, what the dK/dV kernel reads by column.
+struct QueryStats {
+  float m[kTile], r[kTile], delta[kTile];
+  uint32_t base[kTile], cnt0[kTile];
+};
+
+__device__ __forceinline__ void load_query_stats(const Args<bf16>& a, int bh, int q0,
+                                                 QueryStats& st, int tid) {
+  if (tid >= kTile) return;
+  const int qq = q0 + tid;
+  const bool in = qq < a.Tq;
+  const size_t at = static_cast<size_t>(bh) * a.Tq + qq;
+  st.m[tid] = in ? a.m[at] : INFINITY;  // e = 0 for queries past Tq
+  st.r[tid] = in ? 1.0f / a.l[at] : 0.f;
+  st.delta[tid] = in ? a.delta[at] : 0.f;
+  st.base[tid] = mask_base(a.seed, static_cast<uint32_t>(bh * 8192 + qq / a.block_q));
+  st.cnt0[tid] = static_cast<uint32_t>(qq % a.block_q) * static_cast<uint32_t>(a.Tk);
+}
+
+// dst = bf16(src * mul[row]) for a swizzled (64, D) tile (rows keep their place)
+template <int D>
+__device__ __forceinline__ void scale_rows(uint8_t* dst, const uint8_t* src, const float* rmul,
+                                           float mul, int tid) {
+  constexpr int kChunks = D / 8;
+#pragma unroll
+  for (int i = 0; i < kTile * kChunks / kWg; ++i) {
+    const int idx = tid + kWg * i, rr = idx / kChunks;
+    const uint32_t off = swizzled<D>(rr, idx % kChunks);
+    const float f = rmul[rr] * mul;
+    uint4 u = *reinterpret_cast<const uint4*>(src + off);
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 x = __bfloat1622float2(p[j]);
+      p[j] = __floats2bfloat162_rn(x.x * f, x.y * f);
+    }
+    *reinterpret_cast<uint4*>(dst + off) = u;
+  }
+}
+
+// dK, dV: one block per (batch * head, key tile), looping over query tiles.
+template <int D>
+__global__ void __launch_bounds__(kWg) flash_dkdv_tc(const Args<bf16> a) {
+  constexpr uint32_t kB = tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  // K, V once; Q, dO in two stages; T(Q r scale), T(dO r / (1 - p)) of the current tile
+  uint8_t* pQ = base + 2 * kB;
+  uint8_t* pO = pQ + 2 * kB;
+  uint8_t* pQs = pO + 2 * kB;
+  uint8_t* pOs = pQs + kB;
+  QueryStats* stats = reinterpret_cast<QueryStats*>(pOs + kB);  // two stages
+  uint8_t* skip = reinterpret_cast<uint8_t*>(stats + 2);
+  const uint32_t sK = smem_addr(base), sV = sK + kB, sQ = smem_addr(pQ), sO = smem_addr(pO);
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int n_qt = (a.Tq + kTile - 1) / kTile;
+  const int k0 = static_cast<int>(blockIdx.y) * kTile;  // the first key tiles are the heaviest
+  const bf16* q = a.q + b * a.qs[0] + h * a.qs[2];
+  const bf16* k = a.k + b * a.ks[0] + h * a.ks[2];
+  const bf16* v = a.v + b * a.vs[0] + h * a.vs[2];
+  const long long ostride = static_cast<long long>(a.H) * D;
+  const bf16* dout = a.dout + (static_cast<long long>(b) * a.Tq * a.H + h) * D;
+  const float* bias = a.bias + static_cast<size_t>(b) * a.Tk;
+  const float* mrow = a.m + static_cast<size_t>(bh) * a.Tq;
+
+  int key[2];
+  float kb[2];
+  bool pad = true;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    key[i] = k0 + acc_row(tid, i);
+    kb[i] = ld_bias(bias, key[i], a.Tk);
+    pad = pad && kb[i] <= kNegInf;
+  }
+  const bool padded = __syncthreads_and(pad);  // every key of the tile padded
+  // skip[t]: no query of tile t reaches these keys (e is exactly 0) and every
+  // query of it has seen a live score
+  for (int t = tid / 32; t < n_qt; t += kWg / 32) {
+    const int qa = t * kTile + lane, qb = qa + 32;
+    const bool lv = (qa >= a.Tq || mrow[qa] > kLive) && (qb >= a.Tq || mrow[qb] > kLive);
+    const bool all = __all_sync(0xffffffffu, lv);
+    const bool masked = a.causal && min((t + 1) * kTile, a.Tq) - 1 < k0;
+    if (lane == 0) skip[t] = all && (padded || masked);
+  }
+  __syncthreads();
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  int t = next_tile(-1, n_qt, true, skip);
+  if (t < n_qt) {
+    load_tile_async<D>(sK, k, a.ks[1], k0, a.Tk, tid);
+    load_tile_async<D>(sV, v, a.vs[1], k0, a.Tk, tid);
+    load_tile_async<D>(sQ, q, a.qs[1], t * kTile, a.Tq, tid);
+    load_tile_async<D>(sO, dout, ostride, t * kTile, a.Tq, tid);
+    cp_async_commit();
+    load_query_stats(a, bh, t * kTile, stats[0], tid);
+  }
+  for (int stage = 0; t < n_qt; stage ^= 1) {
+    cp_async_wait_all();
+    fence_async_shared();
+    __syncthreads();  // tile t and its stats landed; the other stage is free
+    const int nt = next_tile(t, n_qt, true, skip);
+    if (nt < n_qt) {
+      load_tile_async<D>(sQ + (stage ^ 1) * kB, q, a.qs[1], nt * kTile, a.Tq, tid);
+      load_tile_async<D>(sO + (stage ^ 1) * kB, dout, ostride, nt * kTile, a.Tq, tid);
+      cp_async_commit();
+      load_query_stats(a, bh, nt * kTile, stats[stage ^ 1], tid);
+    }
+    const QueryStats& st = stats[stage];
+    const int q0 = t * kTile;
+    float s[32], dp[32];
+    issue_scores<D>(s, sK, sQ + stage * kB);   // S^T = K Q^T
+    issue_scores<D>(dp, sV, sO + stage * kB);  // dP^T = V dO^T
+    wgmma_commit();
+    // while the products run: the scaled copies the dK and dV products read
+    scale_rows<D>(pQs, pQ + stage * kB, st.r, a.scale, tid);
+    scale_rows<D>(pOs, pO + stage * kB, st.r, a.inv_keep, tid);
+    fence_async_shared();
+    __syncthreads();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int rr = (i / 2) % 2, ql = acc_col(tid, i);
+      float x = s[i] * a.scale + kb[rr];
+      if (a.causal && key[rr] > q0 + ql) x = kNegInf;
+      if (key[rr] >= a.Tk) x = -INFINITY;
+      const float e = __expf(x - st.m[ql]);
+      float d = dp[i], ed = e;
+      if (a.dropout_on) {
+        if (mask_keep(st.base[ql], st.cnt0[ql] + static_cast<uint32_t>(key[rr]), a.threshold)) {
+          d = d * a.inv_keep;
+        } else {
+          d = 0.f;
+          ed = 0.f;
+        }
+      }
+      s[i] = ed;
+      dp[i] = e * (d - st.delta[ql]);
+    }
+    issue_accumulate<D>(dv, s, smem_addr(pOs));
+    issue_accumulate<D>(dk, dp, smem_addr(pQs));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    t = nt;
+  }
+
+  const float one[2] = {1.f, 1.f};
+  const size_t at = static_cast<size_t>(b) * a.Tk * a.H + h;
+  store_rows<D>(a.dk + at * D, ostride, k0, a.Tk, dk, one, tid);
+  store_rows<D>(a.dv + at * D, ostride, k0, a.Tk, dv, one, tid);
+}
+
 // ------------------------------------------------------------------- launch
 
 template <int D> constexpr size_t fwd_smem() {
@@ -514,6 +1020,12 @@ template <int D> constexpr size_t dq_smem() {
 template <int D> constexpr size_t dkdv_smem() {
   return sizeof(float) * (4 * D * kLd + 2 * kTile * D + 2 * kTile * kLd);
 }
+// bf16: 1,024 bytes to align the tiles, the tiles, then per-tile data
+template <int D> size_t fwd_tc_smem(int n_kt) { return 1024 + 5 * tile_bytes<D>() + n_kt; }
+template <int D> size_t dq_tc_smem(int n_kt) { return 1024 + 6 * tile_bytes<D>() + n_kt; }
+template <int D> size_t dkdv_tc_smem(int n_qt) {
+  return 1024 + 8 * tile_bytes<D>() + 2 * sizeof(QueryStats) + n_qt;
+}
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
@@ -521,26 +1033,55 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D>
-int launch_fwd(const Args<T>& a, cudaStream_t s) {
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, fwd_smem<D>());
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <int D>
+int launch_fwd(const Args<float>& a, cudaStream_t s) {
+  cudaError_t err = allow_smem(flash_fwd_kernel<float, D>, fwd_smem<D>());
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Tq + kTile - 1) / kTile, a.B * a.H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, fwd_smem<D>(), s>>>(a);
+  const dim3 grid(cdiv(a.Tq, kTile), a.B * a.H);
+  flash_fwd_kernel<float, D><<<grid, kThreads, fwd_smem<D>(), s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_fwd(const Args<bf16>& a, cudaStream_t s) {
+  const size_t smem = fwd_tc_smem<D>(cdiv(a.Tk, kTile));
+  cudaError_t err = allow_smem(flash_fwd_tc<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_fwd_tc<D><<<dim3(a.B * a.H, cdiv(a.Tq, kTile)), kWg, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-int launch_bwd(const Args<T>& a, cudaStream_t s) {
-  cudaError_t err = allow_smem(flash_dq_kernel<T, D>, dq_smem<D>());
-  if (err == cudaSuccess) err = allow_smem(flash_dkdv_kernel<T, D>, dkdv_smem<D>());
+void launch_delta(const Args<T>& a, cudaStream_t s) {
+  const long long threads = static_cast<long long>(a.B) * a.Tq * a.H * (D / vec<T>());
+  flash_delta_kernel<T, D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, s>>>(a);
+}
+
+template <int D>
+int launch_bwd(const Args<float>& a, cudaStream_t s) {
+  cudaError_t err = allow_smem(flash_dq_kernel<float, D>, dq_smem<D>());
+  if (err == cudaSuccess) err = allow_smem(flash_dkdv_kernel<float, D>, dkdv_smem<D>());
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long vectors = static_cast<long long>(a.B) * a.Tq * a.H;
-  flash_delta_kernel<T><<<static_cast<unsigned>((vectors + 7) / 8), 256, 0, s>>>(a, D);
-  const dim3 qgrid((a.Tq + kTile - 1) / kTile, a.B * a.H);
-  flash_dq_kernel<T, D><<<qgrid, kThreads, dq_smem<D>(), s>>>(a);
-  const dim3 kgrid((a.Tk + kTile - 1) / kTile, a.B * a.H);
-  flash_dkdv_kernel<T, D><<<kgrid, kThreads, dkdv_smem<D>(), s>>>(a);
+  launch_delta<float, D>(a, s);
+  const dim3 qgrid(cdiv(a.Tq, kTile), a.B * a.H);
+  flash_dq_kernel<float, D><<<qgrid, kThreads, dq_smem<D>(), s>>>(a);
+  const dim3 kgrid(cdiv(a.Tk, kTile), a.B * a.H);
+  flash_dkdv_kernel<float, D><<<kgrid, kThreads, dkdv_smem<D>(), s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd(const Args<bf16>& a, cudaStream_t s) {
+  const int n_qt = cdiv(a.Tq, kTile), n_kt = cdiv(a.Tk, kTile);
+  const size_t dq = dq_tc_smem<D>(n_kt), dkdv = dkdv_tc_smem<D>(n_qt);
+  cudaError_t err = allow_smem(flash_dq_tc<D>, dq);
+  if (err == cudaSuccess) err = allow_smem(flash_dkdv_tc<D>, dkdv);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch_delta<bf16, D>(a, s);
+  flash_dq_tc<D><<<dim3(a.B * a.H, n_qt), kWg, dq, s>>>(a);
+  flash_dkdv_tc<D><<<dim3(a.B * a.H, n_kt), kWg, dkdv, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -574,7 +1115,8 @@ Args<T> make_args(int B, int H, int Tq, int Tk, const void* q, const void* k, co
 }
 
 bool shape_ok(int B, int H, int Tq, int Tk, int D, int block_q) {
-  // blockIdx.y carries batch * head; the salt bh * 8192 + row / block_q is the TPU kernel's
+  // the fp32 kernels' blockIdx.y carries batch * head; the salt bh * 8192 + row / block_q is
+  // the TPU kernel's
   return B >= 1 && H >= 1 && Tq >= 1 && Tk >= 1 && block_q >= 1 && (D == 32 || D == 64) &&
          static_cast<long long>(B) * H <= 65535;
 }
@@ -603,7 +1145,7 @@ int tts_flash_fwd(int is_bf16, int B, int H, int Tq, int Tk, int D, const void* 
     a.out = static_cast<T*>(out);                                                            \
     a.m = static_cast<float*>(m);                                                            \
     a.l = static_cast<float*>(l);                                                            \
-    return D == 32 ? launch_fwd<T, 32>(a, s) : launch_fwd<T, 64>(a, s);                      \
+    return D == 32 ? launch_fwd<32>(a, s) : launch_fwd<64>(a, s);                            \
   }
   if (is_bf16) TTS_FLASH_FWD(bf16)
   TTS_FLASH_FWD(float)
@@ -632,11 +1174,29 @@ int tts_flash_bwd(int is_bf16, int B, int H, int Tq, int Tk, int D, const void* 
     a.dq = static_cast<T*>(dq);                                                              \
     a.dk = static_cast<T*>(dk);                                                              \
     a.dv = static_cast<T*>(dv);                                                              \
-    return D == 32 ? launch_bwd<T, 32>(a, s) : launch_bwd<T, 64>(a, s);                      \
+    return D == 32 ? launch_bwd<32>(a, s) : launch_bwd<64>(a, s);                            \
   }
   if (is_bf16) TTS_FLASH_BWD(bf16)
   TTS_FLASH_BWD(float)
 #undef TTS_FLASH_BWD
+}
+
+// Dynamic shared memory per block, in bytes, of the forward, dQ and dK/dV
+// kernels for these sizes, into out[0..2].
+int tts_flash_shared_bytes(int is_bf16, int D, int Tq, int Tk, long long* out) {
+  if (D != 32 && D != 64) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_qt = cdiv(Tq, kTile), n_kt = cdiv(Tk, kTile);
+  const bool d64 = D == 64;
+  if (is_bf16) {
+    out[0] = d64 ? fwd_tc_smem<64>(n_kt) : fwd_tc_smem<32>(n_kt);
+    out[1] = d64 ? dq_tc_smem<64>(n_kt) : dq_tc_smem<32>(n_kt);
+    out[2] = d64 ? dkdv_tc_smem<64>(n_qt) : dkdv_tc_smem<32>(n_qt);
+  } else {
+    out[0] = d64 ? fwd_smem<64>() : fwd_smem<32>();
+    out[1] = d64 ? dq_smem<64>() : dq_smem<32>();
+    out[2] = d64 ? dkdv_smem<64>() : dkdv_smem<32>();
+  }
+  return 0;
 }
 
 }  // extern "C"

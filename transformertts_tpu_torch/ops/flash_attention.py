@@ -16,15 +16,19 @@ taken before dropout; ``e = exp(s - m)`` is cast to V's dtype unnormalised;
 ``1 / (l (1 - p))`` multiplies the fp32 output.  A row whose keys are all
 padded comes out uniform, not NaN.
 
-What bounds it on an H100: operations (4 Tq Tk D per batch and head
-forward; the bytes are only Q, K, V and O).  This first version does them as
-fp32 FMAs on the CUDA cores in 64 x 64 tiles (see the source); tensor cores
-and TMA are later work.  The forward keeps a running maximum over key tiles
-(online softmax) and saves ``m`` and ``l``, which the TPU backward
-recomputed; ``e`` is thus rounded against the running maximum, one rounding
-of the storage dtype away from the plain version per term, and not at all
-in fp32.  The backward is two kernels, each owning its outputs (dQ per
-query tile, dK and dV per key tile): no atomics, the same bits every run.
+What bounds it on an H100 at the training path's shapes: bytes (Q, K, V
+and O once), the products being light at the tensor cores' rate; what
+stands in the way is the exp, masks and dropout hash of every score.  bf16
+runs on the tensor cores (wgmma from swizzled bf16 tiles in shared memory,
+K/V tiles by cp.async into a two-stage ring, key tiles that are masked or
+all padded skipped; see the source); fp32 on the CUDA cores, whose fp32
+arithmetic keeps the plain version's digits.  The forward keeps a running
+maximum over key tiles (online softmax) and saves ``m`` and ``l``, which
+the TPU backward recomputed; ``e`` is thus rounded against the running
+maximum, one rounding of the storage dtype away from the plain version per
+term, and not at all in fp32.  The backward is two kernels, each owning its
+outputs (dQ per query tile, dK and dV per key tile): no atomics, the same
+bits every run.
 
 What the TPU shaped and this port keeps only as a number: the dropout mask
 is keyed on (batch * head, q-block, local row, key) of the TPU kernel's
@@ -148,7 +152,9 @@ def _lib():
         tail = [f, i, i, i, f, f, u, u, i, p]
         lib.tts_flash_fwd.argtypes = [i] * 6 + [p] * 8 + tail
         lib.tts_flash_bwd.argtypes = [i] * 6 + [p] * 13 + tail
+        lib.tts_flash_shared_bytes.argtypes = [i, i, i, i, p]
         lib.tts_flash_fwd.restype = lib.tts_flash_bwd.restype = i
+        lib.tts_flash_shared_bytes.restype = i
         lib._argtypes_set = True
     return lib
 
