@@ -6,9 +6,11 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. build: the CUDA kernels of ``transformertts_tpu_torch/ops/csrc`` with
-   nvcc, one process per source, all at once; for the flash library each
-   kernel's registers and spills, its dynamic shared memory at (768, 768),
-   and the HGMMA (wgmma) instructions in its SASS (where cuobjdump exists);
+   nvcc, one process per source, all at once; for the flash, fused-FFN and
+   fused-LN libraries each kernel's registers and spills, ptxas's warnings
+   of serialized wgmma, the dynamic shared memory at the path shapes, and
+   the HGMMA (wgmma) instructions in the SASS (where cuobjdump exists; the
+   tensor-core kernels must hold some);
 2. mask: the device ``keep_mask`` against its plain version, bit for bit;
 3. kernel: every kernel against its plain PyTorch version on the card.
    The decode-step kernel (``decode_step_reference``) at the full width of
@@ -19,12 +21,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    attention and residual+dropout+LayerNorm kernels, forward and every
    gradient, at the training path's shapes (B 16, 4 heads of 64; (128, 128),
    causal (768, 768), (768, 128); 12,288 and 2,048 rows of 256) and at odd
-   ones, fp32 and bf16, dropout 0 and 0.1, ragged key bias; flash also with
+   ones (LN: 1,000 and 24 rows, mask blocks shorter than the backward's
+   runs of rows), fp32 and bf16, dropout 0 and 0.1, ragged key bias; flash also with
    mask q-blocks of 96 rows at (768, 768), with whole 64-key tiles padded in
    some batch rows, and with one batch row whose keys are all padded; each
    backward twice, for equal bits.  The fused FFN kernels, forward and all five
    gradients, at (N, D, F) = (12,288, 256, 1,024) and (2,048, 256, 1,024) and
-   at odd sizes (an N no mask block divides, F no multiple of a slice, a
+   at odd sizes (an N no mask block divides, F no multiple of a slice, N
+   and F no multiples of the tensor-core kernels' 64-wide tiles, a
    d_model narrower than a block's 256 output columns, the two wider models
    of ``configs/`` at (512, 2,048) and (1,024, 4,096), a width where bf16 and
    fp32 key the mask on different block heights), fp32 and bf16, dropout 0 and 0.1,
@@ -71,7 +75,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    flash and 120 / 60 LayerNorm ones;
 10. time: every kernel beside its plain version, its bound and (where
     PyTorch has a call or a short chain of calls for the same function)
-    that (flash also at dropout 0, and the host's time per eager call),
+    that (flash, the LN and the FFN backward also at dropout 0, and flash's
+    host time per eager call),
     decode frames/s through ``Synthesizer.synthesize`` and both
     training configurations' ms per step and audio-seconds per second, with
     the card's name and power limit.
@@ -279,7 +284,8 @@ def phase_build() -> None:
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         log(f"[build] {path.name}: {len(regs)} kernels, max {max(regs, default=0)} "
             f"registers/thread, spill lines: {spills[:3] or 'none'}")
-    flash_report(libs["flash_attention"])
+    for name in ("flash_attention", "fused_ffn", "fused_ln"):
+        kernel_report(name, libs[name])
 
 
 def ptxas_kernels(text: str) -> list[tuple[str, int, str]]:
@@ -310,41 +316,74 @@ def demangle(names: list[str]) -> list[str]:
     return [f.group(1) if f else o for f, o in zip(found, out)]
 
 
-def flash_report(path) -> None:
-    """The flash library's kernels: registers, spills, dynamic shared memory
-    at the decoder's causal (768, 768) shape, and HGMMA (wgmma) instructions
-    in the SASS where cuobjdump is present."""
+def smem_lines(name: str) -> list[str]:
+    """Dynamic shared memory per block of a library's kernels at the path
+    shapes, as the library itself computes it."""
     import ctypes
+
+    if name == "flash_attention":
+        from transformertts_tpu_torch.ops import flash_attention as fa
+
+        out = []
+        for is_bf16, dtype in ((1, "bf16"), (0, "fp32")):
+            smem = (ctypes.c_longlong * 3)()
+            if fa._lib().tts_flash_shared_bytes(is_bf16, TRAIN_DH, 768, 768, smem) != 0:
+                raise AssertionError("tts_flash_shared_bytes refused D = 64")
+            out.append(f"{dtype} D={TRAIN_DH} (768, 768): forward {smem[0]}, dQ {smem[1]}, "
+                       f"dK/dV {smem[2]} bytes")
+        return out
+    if name == "fused_ffn":
+        from transformertts_tpu_torch.ops import fused_ffn as ffn
+
+        smem = (ctypes.c_longlong * 3)()
+        if ffn._lib().tts_fused_ffn_shared_bytes(TRAIN_D, smem) != 0:
+            raise AssertionError("tts_fused_ffn_shared_bytes refused D = 256")
+        return [f"D={TRAIN_D}: forward {smem[0]}, bf16 backward dh {smem[1]}, "
+                f"gradients {smem[2]} bytes"]
+    if name == "fused_ln":
+        from transformertts_tpu_torch.ops import fused_ln as ln
+
+        return [f"D={TRAIN_D}: backward {ln._lib().tts_fused_ln_bwd_shared_bytes(TRAIN_D)} "
+                f"bytes (forward none)"]
+    return []
+
+
+def kernel_report(name: str, path) -> None:
+    """A library's kernels: registers and spills of each, dynamic shared
+    memory at the path shapes, and HGMMA (wgmma) instructions in the SASS
+    where cuobjdump is present."""
     import os
     import shutil
 
-    from transformertts_tpu_torch.ops import flash_attention as fa
-
-    rows = ptxas_kernels(path.with_suffix(".log").read_text())
+    report = path.with_suffix(".log").read_text()
+    rows = ptxas_kernels(report)
     for short, (_, regs, spill) in zip(demangle([r[0] for r in rows]), rows):
-        log(f"[build] flash_attention: {short}: {regs} registers/thread; {spill}")
-    for is_bf16, dtype in ((1, "bf16"), (0, "fp32")):
-        smem = (ctypes.c_longlong * 3)()
-        if fa._lib().tts_flash_shared_bytes(is_bf16, TRAIN_DH, 768, 768, smem) != 0:
-            raise AssertionError("tts_flash_shared_bytes refused D = 64")
-        log(f"[build] flash_attention {dtype} D={TRAIN_DH} (768, 768): dynamic shared memory "
-            f"per block forward {smem[0]}, dQ {smem[1]}, dK/dV {smem[2]} bytes")
+        log(f"[build] {name}: {short}: {regs} registers/thread; {spill}")
+    # ptxas serializes every wgmma of a function that holds a call, for example
+    # to the slow path of a float division
+    serialized = [ln.strip() for ln in report.splitlines() if "serialized" in ln]
+    log(f"[build] {name}: wgmma serialization warnings: {serialized[:4] or 'none'}")
+    for line in smem_lines(name):
+        log(f"[build] {name} dynamic shared memory per block, {line}")
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(cuobjdump):
-        log("[build] flash_attention: cuobjdump not available")
+        log(f"[build] {name}: cuobjdump not available")
         return
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    counts, name = {}, None
+    counts, fn = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            name = ln.split("Function :")[1].strip()
-            counts[name] = 0
-        elif name is not None and "HGMMA" in ln:
-            counts[name] += 1
+            fn = ln.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in ln:
+            counts[fn] += 1
     per = ", ".join(f"{short} {n}" for short, n in zip(demangle(list(counts)), counts.values()))
-    log(f"[build] flash_attention: {sum(counts.values())} HGMMA instructions in the SASS ({per})")
+    log(f"[build] {name}: {sum(counts.values())} HGMMA instructions in the SASS ({per})")
+    for must in {"fused_ffn": ("ffn_dh_tc", "ffn_grad_tc"), "flash_attention": ("_tc",)}.get(name, ()):
+        if not any(must in fn and n > 0 for fn, n in counts.items()):
+            raise AssertionError(f"{name}: no HGMMA instruction in a kernel named *{must}*")
 
 
 def phase_kernel(cfg, device) -> dict:
@@ -525,10 +564,14 @@ def phase_train_kernels(device) -> dict:
                    ("padded_tiles", 3, TRAIN_H, 768, 768, True, TRAIN_DH, None, (768, 300, 64)),
                    # one batch row with every key padded: uniform weights, nothing skipped
                    ("all_padded_row", 3, 2, 130, 200, False, TRAIN_DH, None, (200, 0, 77))]
-    ln_cases = [(name, n, TRAIN_D) for name, n in LN_ROWS.items()]
-    # ragged row counts, and one width for each register layout of the kernel
-    ln_cases += [("odd", 1000, TRAIN_D), ("narrow", 100, 64), ("wide", 520, 512),
-                 ("widest", 264, 1024)]
+    # (name, N, D, mask block height or None for the TPU kernel's)
+    ln_cases = [(name, n, TRAIN_D, None) for name, n in LN_ROWS.items()]
+    # ragged row counts (the backward's last block partial; fewer rows than
+    # warps), mask blocks shorter than a backward block's run of rows (8 at
+    # N = 2,048), and one width for each register layout of the kernel
+    ln_cases += [("odd", 1000, TRAIN_D, None), ("tiny", 24, TRAIN_D, None),
+                 ("encoder_mask6", 2048, TRAIN_D, 6), ("narrow", 100, 64, None),
+                 ("wide", 520, 512, None), ("widest", 264, 1024, None)]
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         for name, b, h, tq, tk, causal, dh, block_q, lens in attn_cases:
@@ -549,14 +592,15 @@ def phase_train_kernels(device) -> dict:
                            worst, "flash")
                 if not all(torch.equal(a, c) for a, c in zip(kern, again)):
                     raise AssertionError(f"flash {name}: two runs of the kernels differ in bits")
-        for name, n, d in ln_cases:
+        for name, n, d, mask_rows in ln_cases:
             for p in (0.0, 0.1):
                 x, h, gamma, beta, dy = ln_inputs(n, d, dtype, device, seed=n)
                 outs = []
                 for plain in (False, True, False):
                     outs.append(run_with_grads(
                         lambda x_, h_, g_, b_: residual_dropout_layernorm(
-                            x_, h_, g_, b_, dropout=p, seed=777 + n, plain=plain),
+                            x_, h_, g_, b_, dropout=p, seed=777 + n, mask_rows=mask_rows,
+                            plain=plain),
                         (x, h, gamma, beta), dy))
                     torch.cuda.synchronize()
                 kern, plain_out, again = outs
@@ -605,11 +649,14 @@ def phase_ffn_kernels(device) -> dict:
     worst: dict = {}
     cases = [(name, n, TRAIN_D, TRAIN_F, None) for name, n in FFN_ROWS.items()]
     # an N that no mask block divides with an F that is no multiple of a slice;
+    # an N and an F that are no multiples of the bf16 backward's 64-wide tiles
+    # (and an F that is no multiple of 8);
     # a d_model that rides in a block's 256 output columns; a d_ffn where bf16
     # and fp32 pick other mask heights; and the two wider models of configs/,
     # which take 2 and 4 groups of 256 output columns (paper.yaml has a mask
     # geometry in bf16 only and large_tp.yaml none, so the height is given)
-    cases += [("odd", 1001, TRAIN_D, 1000, None), ("narrow", 520, 192, 264, None),
+    cases += [("odd", 1001, TRAIN_D, 1000, None), ("ragged", 130, 64, 196, None),
+              ("narrow", 520, 192, 264, None),
               ("tall", 192, TRAIN_D, 3072, None),
               ("paper", 1000, 512, 2048, pick_rows(1000, 512, 2048, 2)),
               ("large", 264, 1024, 4096, 8)]
@@ -1019,6 +1066,15 @@ def profile_step(run_step, step_ms: float, card: str, top: int = 14) -> None:
     log(f"[profile] flash attention kernels: {sum(v[0] for v in flash) / 1e3:.2f} ms in "
         f"{sum(v[1] for v in flash)} kernels, {100 * sum(v[0] for v in flash) / 1e3 / busy_ms:.1f} % "
         f"of the device's busy time")
+    for what, keys in (("fused LN forward", ("ln_fwd_kernel",)), ("fused LN backward", ("ln_bwd_kernel",)),
+                       ("fused FFN forward", ("ffn_fwd_kernel",)),
+                       ("fused FFN backward", ("ffn_dx", "ffn_dw", "ffn_dh", "ffn_grad", "ffn_reduce",
+                                               "ffn_cast"))):
+        sel = [v for name, v in by_name.items() if any(k in name for k in keys)]
+        if sel:
+            log(f"[profile] {what} kernels: {sum(v[0] for v in sel) / 1e3:.2f} ms in "
+                f"{sum(v[1] for v in sel)} kernels, "
+                f"{100 * sum(v[0] for v in sel) / 1e3 / busy_ms:.1f} % of the device's busy time")
     for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"[profile] {us / 1e3:8.2f} ms {100 * us / 1e3 / busy_ms:5.1f} % {count:6d} x {name[:90]}")
 
@@ -1315,9 +1371,9 @@ def phase_time_train(device, card: str) -> dict:
             x, hh, g, be, _ = nxt()
             return ln.fused_ln_forward(x, hh, g, be, 99, p, 1e-5, rows_m)
 
-        def k_bwd():
+        def k_bwd(p_=p):
             x, hh, g, _, dy = nxt()
-            return ln.fused_ln_backward(x, hh, g, dy, 99, p, 1e-5, rows_m)
+            return ln.fused_ln_backward(x, hh, g, dy, 99, p_, 1e-5, rows_m)
 
         def p_fwd():
             x, hh, g, be, _ = nxt()
@@ -1346,8 +1402,11 @@ def phase_time_train(device, card: str) -> dict:
         shape = f"N={n} D={d} p={p}"
         report("ln_fwd", name, device_ms(k_fwd), time_ms(p_fwd, 5, 2), f_bound, f_by,
                device_ms(l_fwd), shape)
-        report("ln_bwd", name, device_ms(k_bwd), time_ms(p_bwd, 5, 2), b_bound, b_by,
-               lib_bwd, shape)
+        bwd = device_ms(k_bwd)
+        report("ln_bwd", name, bwd, time_ms(p_bwd, 5, 2), b_bound, b_by, lib_bwd, shape)
+        bwd0 = device_ms(lambda: k_bwd(0.0))
+        log(f"[time] bf16 ln_bwd {name} at p=0: {bwd0 * 1e3:.1f} us (the mask hash: "
+            f"{100 * (1 - bwd0 / bwd):.0f} % of the p={p} time) [{card}]")
     return rows
 
 
@@ -1398,10 +1457,14 @@ def phase_time_ffn_mel(device, card: str) -> dict:
                device_ms(lambda: ffn.fused_ffn_forward(x, w1, b1, w2, b2, *args), n=10, reps=5),
                time_ms(lambda: ffn.fused_ffn_reference(x, w1, b1, w2, b2, *args), 5, 2),
                f_bound, f_by, lib_f, shape)
-        report("ffn_bwd", name,
-               device_ms(lambda: ffn.fused_ffn_backward(x, w1, b1, w2, dy, *args), n=5, reps=5),
+        bwd = device_ms(lambda: ffn.fused_ffn_backward(x, w1, b1, w2, dy, *args), n=5, reps=5)
+        report("ffn_bwd", name, bwd,
                time_ms(lambda: ffn.fused_ffn_backward_reference(x, w1, b1, w2, dy, *args), 5, 2),
                b_bound, b_by, lib_b, shape)
+        bwd0 = device_ms(lambda: ffn.fused_ffn_backward(x, w1, b1, w2, dy, 99, 0.0, rows_m),
+                         n=5, reps=5)
+        log(f"[time] ffn_bwd {name} at p=0: {bwd0 * 1e3:.1f} us (the mask hash: "
+            f"{100 * (1 - bwd0 / bwd):.0f} % of the p={p} time) [{card}]")
 
     # row 9: the batch preprocess sends (32 clips in one 163,840-sample bucket)
     rng = np.random.default_rng(9)

@@ -38,6 +38,7 @@ from transformertts_tpu.train import train_step as jax_ts
 from transformertts_tpu_torch.convert import torch_state_from_jax
 from transformertts_tpu_torch.models import TransformerTTS
 from transformertts_tpu_torch.models.factory import runtime_model_kwargs
+from transformertts_tpu_torch.ops import fused_ffn as port_ffn
 from transformertts_tpu_torch.ops.fused_ffn import fused_ffn, pick_rows
 from transformertts_tpu_torch.train import train_step as ts
 
@@ -121,6 +122,70 @@ def test_bf16_forward_and_gradients_match_jax():
         r = np.asarray(r, np.float32)
         assert t.grad.dtype == t.dtype
         assert_close(t.grad, r.T if transpose else r, 2e-2, name)
+
+
+def test_bf16_backward_with_dropout_at_ragged_tiles_matches_jax():
+    """N and F no multiples of the tensor-core kernels' 64-wide tiles.  x in
+    eighths and W1, b1 in 64ths of small integers keep the first product
+    exact in any summation order, so both sides take the same relu
+    decisions (as chip_smoke.py's inputs do)."""
+    n, d, f, p = 130, 64, 200, 0.1
+    rng = np.random.default_rng(5)
+    x = (np.clip(np.round(rng.standard_normal((n, d)) * 8), -24, 24) / 8).astype(np.float32)
+    w1 = (np.clip(np.round(rng.standard_normal((d, f)) * 4), -12, 12) / 64).astype(np.float32)
+    b1 = (np.round(rng.standard_normal(f) * 6) / 64).astype(np.float32)
+    w2 = (rng.standard_normal((f, d)) * 0.06).astype(np.float32)
+    b2 = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    dy = rng.standard_normal((n, d)).astype(np.float32)
+    jx = [jnp.asarray(x, jnp.bfloat16)] + [jnp.asarray(a) for a in (w1, b1, w2, b2)]
+    jseed = jnp.array([977], jnp.int32)
+    ref, vjp = jax.vjp(lambda *a: jax_ffn._fused(*a, jseed, p, True), *jx)
+    ref_grads = vjp(jnp.asarray(dy, jnp.bfloat16))
+    tx = [torch.tensor(x).to(torch.bfloat16), torch.tensor(w1.T.copy()), torch.tensor(b1),
+          torch.tensor(w2.T.copy()), torch.tensor(b2)]
+    for t in tx:
+        t.requires_grad_(True)
+    out = fused_ffn(*tx, dropout=p, seed=977)
+    assert_close(out.detach(), np.asarray(ref, np.float32), 2e-2, "y")
+    out.backward(torch.tensor(dy).to(torch.bfloat16))
+    for name, t, r, transpose in zip(("dx", "dw1", "db1", "dw2", "db2"), tx, ref_grads,
+                                     (False, True, False, True, False)):
+        r = np.asarray(r, np.float32)
+        assert_close(t.grad, r.T if transpose else r, 2e-2, name)
+
+
+@pytest.mark.parametrize("n,d,f", [
+    (12288, 256, 1024), (2048, 256, 1024), (1001, 256, 1000), (130, 64, 196),
+    (520, 192, 264), (192, 256, 3072), (1000, 512, 2048), (264, 1024, 4096), (1, 8, 4),
+])
+def test_bf16_backward_plan_and_scratch(n, d, f):
+    """The grids cover every slice and row tile exactly once, and the
+    scratch arrays are 256-byte aligned, disjoint and of the sizes the
+    kernels index."""
+    pl = port_ffn.bwd_plan(n, d, f)
+    tiles, dx_slices = -(-n // 64), 2 * -(-f // 64)
+    assert pl["tiles"] == tiles and pl["fp"] == 64 * -(-f // 64) and pl["dp"] == 64 * -(-d // 64)
+    assert (pl["fgroups"] - 1) * pl["spg"] < dx_slices <= pl["fgroups"] * pl["spg"]
+    assert (pl["chunks"] - 1) * pl["tpc"] < tiles <= pl["chunks"] * pl["tpc"]
+    lay = port_ffn.bwd_scratch(n, d, f)
+    want = {"w1b": 2 * pl["fp"] * pl["dp"], "w2b": 2 * pl["fp"] * pl["dp"],
+            "dh": 2 * n * pl["fp"], "hd": 2 * n * pl["fp"], "pdb1": 4 * tiles * f,
+            "pdb2": 4 * tiles * d, "pw1": 4 * pl["chunks"] * f * d,
+            "pw2": 4 * pl["chunks"] * f * d}
+    assert {k: size for k, (_, size) in lay.items() if k != "total"} == want
+    spans = sorted((off, off + size) for k, (off, size) in lay.items() if k != "total")
+    assert all(off % 256 == 0 for off, _ in spans)
+    assert all(a_end <= b_off for (_, a_end), (b_off, _) in zip(spans, spans[1:]))
+    assert spans[-1][1] <= lay["total"][1]
+
+
+def test_bf16_backward_plan_splits_d_ffn_to_fill_the_last_wave():
+    """The dh kernel runs one block on each of 132 SMs: the decoder's 192 row
+    tiles take d_ffn in 2 groups (384 blocks, 97 % of three waves), the
+    encoder's 32 in 4 (128 blocks, one wave)."""
+    dec, enc = port_ffn.bwd_plan(12288, 256, 1024), port_ffn.bwd_plan(2048, 256, 1024)
+    assert (dec["fgroups"], dec["spg"]) == (2, 16)
+    assert (enc["fgroups"], enc["spg"]) == (4, 8)
 
 
 def test_dropout_drops_the_same_elements_as_jax():

@@ -23,6 +23,7 @@ import torch
 
 from tests.test_torch_models import assert_close
 from transformertts_tpu.ops.pallas import fused_ln as jax_ln
+from transformertts_tpu_torch.ops import fused_ln
 from transformertts_tpu_torch.ops.fused_ln import pick_rows, residual_dropout_layernorm
 
 FWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -49,7 +50,11 @@ def test_pick_rows_matches_jax(n, d):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
-@pytest.mark.parametrize("n,d", [(1024, 128), (24, 96)])
+@pytest.mark.parametrize("n,d", [
+    (1024, 128), (24, 96),
+    # the backward kernel's grids: a ragged last run of rows, and the encoder's shape
+    (1000, 256), (2048, 256),
+])
 def test_forward_and_gradients_match_jax(n, d, dropout, dtype):
     seed = 1234567
     (jx, jh, jg, jb), (x, h, g, b), jdy, dy = _inputs(n, d, dtype)
@@ -98,3 +103,21 @@ def test_leading_axes_and_mask_rows_argument():
     assert torch.equal(flat, shaped.reshape(64, 32))
     other = residual_dropout_layernorm(x, h, g, b, dropout=0.2, seed=9, mask_rows=64)
     assert not torch.equal(flat, other)  # the block height is part of the mask
+
+
+@pytest.mark.parametrize("n", [1, 24, 1000, 2048, 12288, 10**6])
+def test_backward_grid_and_scratch(n):
+    """One launch: about 8 rows a block up to two blocks on each of 132 SMs,
+    and scratch for a partial per block and per group of 16 blocks."""
+    blocks = fused_ln.bwd_blocks(n)
+    assert 1 <= blocks <= min(n, 264)
+    assert blocks == min(-(-n // 8), 264)
+    assert fused_ln.bwd_scratch_floats(n, 256) == (blocks + -(-blocks // 16)) * 2 * 256
+
+
+def test_ticket_counters_are_zeros_kept_per_device_and_stream():
+    a = fused_ln.ticket_counters(torch.device("cpu"), 7)
+    assert a.dtype == torch.int32 and not a.any()
+    assert len(a) >= 1 + -(-528 // 16)  # the groups of the kernel's largest grid, and one
+    assert fused_ln.ticket_counters(torch.device("cpu"), 7) is a
+    assert fused_ln.ticket_counters(torch.device("cpu"), 8) is not a

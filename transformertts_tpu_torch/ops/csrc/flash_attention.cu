@@ -545,10 +545,6 @@ constexpr int kWg = 128;  // one warpgroup per block
 
 template <int D> __host__ __device__ constexpr uint32_t tile_bytes() { return kTile * 2 * D; }
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
-}
-
 __device__ __forceinline__ float ld_bias(const float* bias, int col, int Tk) {
   return col < Tk ? __ldg(bias + col) : -INFINITY;
 }
@@ -572,15 +568,6 @@ __device__ __forceinline__ int next_tile(int t, int n, bool all_live, const uint
   for (++t; t < n && all_live && dead[t]; ++t) {
   }
   return t;
-}
-
-// The thread's two accumulator rows (h = 0, 1) and the column of element i
-// inside its 64-column tile (hopper.cuh).
-__device__ __forceinline__ int acc_row(int tid, int h) {
-  return 16 * (tid / 32) + (tid % 32) / 4 + 8 * h;
-}
-__device__ __forceinline__ int acc_col(int tid, int i) {
-  return 8 * (i / 4) + 2 * (tid % 4) + i % 2;
 }
 
 // (B, T, H, D) rows of (b, h) as bf16 pairs from fp32 accumulator columns

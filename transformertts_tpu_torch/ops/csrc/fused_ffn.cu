@@ -15,34 +15,48 @@
 // db2 sums dy.  All four parameter gradients are fp32 sums over all rows.
 //
 // The weights keep the layout of the PyTorch parameters: W1 (F, D), W2
-// (D, F), and so do dW1 and dW2.  A product that needs a weight tile the
-// other way round transposes it on its way into shared memory, so no call
-// copies or casts a weight in device memory.
+// (D, F), and so do dW1 and dW2.
 //
-// Bound: operations (4 N D F forward, 12.9 GFLOP at N 12,288, D 256, F 1,024,
-// against 13.6 MB).  This first version runs them as fp32 FMAs on the CUDA
-// cores, not on the tensor cores.  Two weight matrices and the intermediate
-// of a row tile do not fit a block's shared memory, so a block of 256
-// threads takes 64 rows and walks over d_ffn in slices of 64 columns: the
-// slice's hp is a 64 x 64 tile (every thread a 4 x 4 sub-tile, operands
-// staged in chunks of 32 along d_model), it becomes hd in registers, goes to
-// shared memory rounded to T, and its product with the slice of W2 is added
-// to the block's (64, 256) fp32 output, which stays in registers (4 x 16 values
-// a thread).  A block owns 256 output columns: a narrower D rides in them, and
-// a wider D (512, 1,024) takes one block per group of 256 columns
-// (blockIdx.y; blockIdx.z in the weight-gradient kernel), each of which
-// recomputes the slice's intermediate from all of d_model.  wgmma and TMA are
-// later work.
+// Bound: operations (4 N D F forward, 10 N D F backward; 12.9 and 32.2 GFLOP
+// at N 12,288, D 256, F 1,024).
 //
-// Backward, sums over all rows without atomics: blocks run in no order, so
-// the work is cut by who owns the result.  One kernel gridded over row tiles
-// recomputes hp and forms dh slice by slice and owns dx.  A second kernel
-// gridded over (slice of 32 d_ffn columns, chunk of rows) recomputes the
-// slice's hd and dh for its rows and owns that chunk's partial of the
-// slice's dW1 rows, db1 entries and dW2 columns (and, for the first slice,
-// db2); the number of chunks is fixed by the shapes.  A reduce kernel adds
-// the chunks' partials in chunk order.  Two runs give the same bits.  Rows
-// beyond N are read as zeros and add nothing.
+// Forward, and the fp32 backward: fp32 FMAs on the CUDA cores (TF32 would
+// break fp32 parity).  A product that needs a weight tile the other way
+// round transposes it on its way into shared memory, rounding it to T.  Two
+// weight matrices and the intermediate of a row tile do not fit a block's
+// shared memory, so a block of 256 threads takes 64 rows and walks over d_ffn
+// in slices of 64 columns: the slice's hp is a 64 x 64 tile (every thread a
+// 4 x 4 sub-tile, operands staged in chunks of 32 along d_model), it becomes
+// hd in registers, goes to shared memory rounded to T, and its product with
+// the slice of W2 is added to the block's (64, 256) fp32 output, which stays
+// in registers.  A block owns 256 output columns; a wider D takes one block
+// per group of 256 columns (blockIdx.y), each of which recomputes the
+// slice's intermediate.  The fp32 backward: one kernel gridded over row
+// tiles recomputes hp, forms dh slice by slice and owns dx; a second,
+// gridded over (slice of 32 d_ffn columns, chunk of rows), recomputes the
+// slice's hd and dh and owns that chunk's partial of dW1, db1, dW2, db2; two
+// reduce kernels add the chunks' partials in chunk order.  Seven products.
+//
+// bf16 backward: every product a wgmma (hopper.cuh) with bf16 operands and
+// fp32 sums, from 128B- and 64B-swizzled tiles that cp.async fills; five
+// products, four launches.  (1) The fp32 weights are rounded to bf16 once per
+// call into scratch (W1 (Fp, Dp), W2 (Dp, Fp), zero-padded to multiples of
+// 64; 2 MB read at F 1,024, D 256).  (2) ffn_dh_tc, four warpgroups on one
+// row tile of 64, taking its slices of 32 d_ffn columns in turn (blocks
+// split d_ffn where that balances the card): hp = x W1s^T and dhd = dy W2s
+// (the W2 tiles read MN-major through the transpose bit), relu, mask and
+// dropout applied at each accumulator element through its (row, column),
+// the division by 1 - p exact without the division's slow path (div_rn); hd
+// and dh go to device memory rounded to bf16 and db1 is summed over the
+// tile's rows in fp32.  (3) ffn_grad_tc, two warpgroups a block, the three
+// products with a long depth, each a 64 x 256 result of m64n256 wgmmas: dW1 =
+// dh^T x and dW2^T = hd^T dy per (pair of 64-wide d_ffn slices, chunk of
+// rows) with both operands read MN-major from the row tiles as they lie, and
+// dx = dh W1 per pair of row tiles over all of d_ffn.  (4) One reduce kernel
+// adds the chunks' dW1 / dW2 partials and
+// the row tiles' db1 / db2 partials, each in index order.  No float atomics:
+// two runs give the same bits.  Rows beyond N and columns beyond D are
+// loaded as zeros and add nothing.
 //
 // The dropout mask is a function of the logical index (dropout_mask.cuh):
 // element (row, col) of the intermediate takes salt = row / mask_rows and
@@ -59,6 +73,7 @@
 #include <cstdint>
 
 #include "dropout_mask.cuh"
+#include "hopper.cuh"
 #include "numeric.cuh"
 
 namespace {
@@ -82,6 +97,7 @@ struct Mask {
   int rows;        // height of a mask block
   float keep_div;  // 1 - p
   int on;
+  float inv_keep;  // 1 / (1 - p), rounded to nearest on the host
 };
 
 // Rows r0 .. r0 + kNR - 1, columns c0 .. c0 + kNC - 1 of a row-major
@@ -517,6 +533,429 @@ __global__ void ffn_reduce_transposed_kernel(const float* __restrict__ part, int
   }
 }
 
+// -------------------------------------------- bf16 backward, tensor cores
+
+constexpr int kWg = 128;                     // one warpgroup per block
+constexpr int kT = 64;                       // rows of a row tile; columns of a slice, a chunk
+constexpr int kGc = 4;                       // d_model chunks of a group: 256 columns
+constexpr int kGw = kGc * kT;                // columns of a group
+constexpr int kS = 32;                       // d_ffn columns of a slice of the dx kernel
+constexpr uint32_t kTileB = kT * kT * 2;     // one swizzled (64, 64) bf16 tile
+constexpr uint32_t kHalfB = kS * kT * 2;     // one (32, 64) or (64, 32) tile
+constexpr int kDhWgs = 4;                        // warpgroups of the dh kernel
+constexpr uint32_t kDhStage = 2 * kGc * kHalfB;  // a slice's W1 and W2 tiles
+constexpr size_t kDhSmem =                       // x, dy; a stage a warpgroup; column sums
+    2 * kGc * kTileB + kDhWgs * kDhStage + kDhWgs * 4 * kS * sizeof(float) + 1024;
+constexpr int kDwStages = 4;
+constexpr size_t kDwSmemTc = kDwStages * (2 + kGc) * kTileB + 1024;
+
+struct TcArgs {
+  const bf16* x;    // (N, D)
+  const bf16* dy;   // (N, D)
+  const bf16* w1;   // (Fp, Dp): W1 rounded to bf16, zeros past F and D
+  const bf16* w2;   // (Dp, Fp): W2 the same
+  const float* b1;  // (F)
+  bf16* dx;         // (N, D)
+  bf16* dh;         // (N, Fp): dh rounded to bf16
+  bf16* hd;         // (N, Fp): hd rounded to bf16
+  float* pdb1;      // (tiles, F): db1 of each row tile
+  float* pdb2;      // (tiles, D): db2 of each row tile
+  float* pw1;       // (chunks, F, D): dW1 of each chunk of rows
+  float* pw2;       // (chunks, D, F): dW2 of each chunk of rows
+  int N, D, F, Dp, Fp;
+  int spg, fgroups;  // slices of 32 d_ffn columns per group of the dh kernel, groups
+  int tpc, chunks;   // row tiles per chunk of the weight-gradient kernel, chunks
+  Mask mk;
+};
+
+// W1 (F, D) and W2 (D, F) fp32 -> bf16 (Fp, Dp) and (Dp, Fp), zero-padded;
+// two elements a thread.
+__global__ void ffn_cast_weights_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
+                                        bf16* __restrict__ w1b, bf16* __restrict__ w2b, int D,
+                                        int F, int Dp, int Fp) {
+  const size_t pairs = static_cast<size_t>(Fp) * Dp / 2;
+  for (size_t q = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; q < 2 * pairs;
+       q += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const bool second = q >= pairs;
+    const size_t e = 2 * (second ? q - pairs : q);
+    float2 v = make_float2(0.f, 0.f);
+    if (!second) {  // w1b[f][d]
+      const int f = static_cast<int>(e / Dp), d = static_cast<int>(e % Dp);
+      if (f < F && d < D) v = *reinterpret_cast<const float2*>(w1 + static_cast<size_t>(f) * D + d);
+      reinterpret_cast<__nv_bfloat162*>(w1b)[e / 2] = __floats2bfloat162_rn(v.x, v.y);
+    } else {  // w2b[d][f]
+      const int d = static_cast<int>(e / Fp), f = static_cast<int>(e % Fp);
+      if (d < D && f < F) v = *reinterpret_cast<const float2*>(w2 + static_cast<size_t>(d) * F + f);
+      reinterpret_cast<__nv_bfloat162*>(w2b)[e / 2] = __floats2bfloat162_rn(v.x, v.y);
+    }
+  }
+}
+
+// hd, dh and the bias partials of one row tile for one group of d_ffn
+// slices.  Four warpgroups share the tile's x and dy, which stay in shared
+// memory (D <= 256), and take the group's slices of 32 d_ffn columns in
+// turn, each with its own weight stage.  Per slice: hp = x W1s^T and dhd =
+// dy W2s over all of d_model (the W2 tiles read MN-major); relu, mask and
+// dropout at each accumulator element, the division by 1 - p exact
+// (div_rn); hd and dh to device memory rounded to bf16, db1 of the tile's
+// rows in fp32.  As soon as a warpgroup's two products are done its stage
+// loads its next slice, under its epilogue.  Wider d_model: the warpgroups
+// go in step, and every K group of 256 columns loads x, dy and weights and
+// waits.  blockIdx: (row tile, group of slices).
+__global__ void __launch_bounds__(kDhWgs * kWg, 1) ffn_dh_tc(const TcArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  // the warpgroup index through a shuffle, so that the compiler knows it is
+  // the same across each warp: wgmma under a branch it takes for divergent
+  // is serialized
+  const int tid = threadIdx.x % kWg, wg = __shfl_sync(0xffffffffu, threadIdx.x / kWg, 0);
+  const int warp = tid / 32, lane = tid % 32;
+  const uint32_t sX = smem_addr(base), sY = sX + kGc * kTileB;
+  uint8_t* pStages = base + 2 * kGc * kTileB;
+  const uint32_t w1s = smem_addr(pStages) + wg * kDhStage, w2s = w1s + kGc * kHalfB;
+  float* red = reinterpret_cast<float*>(pStages + kDhWgs * kDhStage) + wg * 4 * kS;
+  const int tile = blockIdx.x, row0 = tile * kT, fg = blockIdx.y;
+  const int n_kg = (a.D + kGw - 1) / kGw;
+  const bool lockstep = n_kg > 1;
+  const int s0 = fg * a.spg, s1 = min(a.Fp / kS, s0 + a.spg);
+  const int rounds = (s1 - s0 + kDhWgs - 1) / kDhWgs;
+
+  // db2 of this tile's rows: 16-byte loads, 16 row phases added in order
+  if (fg == 0) {
+    float* red2 = reinterpret_cast<float*>(pStages);  // (16, 256), before any tile lands there
+    for (int c0 = 0; c0 < a.D; c0 += kGw) {
+      const int col = c0 + (threadIdx.x % 32) * 8, ph = threadIdx.x / 32;
+      float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = ph; r < kT; r += 16) {
+        if (row0 + r < a.N && col < a.D) {
+          float v[8];
+          load16<bf16>(a.dy + static_cast<size_t>(row0 + r) * a.D + col, v);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[i] += v[i];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) red2[ph * kGw + (threadIdx.x % 32) * 8 + i] = acc[i];
+      __syncthreads();
+      if (threadIdx.x < kGw && c0 + threadIdx.x < a.D) {
+        float s = red2[threadIdx.x];
+#pragma unroll
+        for (int p = 1; p < 16; ++p) s += red2[p * kGw + threadIdx.x];
+        a.pdb2[static_cast<size_t>(tile) * a.D + c0 + threadIdx.x] = s;
+      }
+      __syncthreads();
+    }
+  }
+
+  auto load_xdy = [&](int kg) {  // chunk wg of x and dy by warpgroup wg
+    const int c0 = kg * kGw + wg * kT;
+    if (wg < kGc && c0 < a.Dp) {
+      load_tile_async<kT>(sX + wg * kTileB, a.x, a.D, row0, a.N, c0, a.D, tid);
+      load_tile_async<kT>(sY + wg * kTileB, a.dy, a.D, row0, a.N, c0, a.D, tid);
+    }
+  };
+  auto load_w = [&](int s, int kg) {  // this warpgroup's stage
+#pragma unroll
+    for (int j = 0; j < kGc; ++j) {
+      const int c0 = kg * kGw + j * kT;
+      if (c0 >= a.Dp) continue;
+      load_tile_async<kT, kS>(w1s + j * kHalfB, a.w1 + c0, a.Dp, s * kS, a.Fp, tid);
+      load_tile_async<kS>(w2s + j * kHalfB, a.w2 + s * kS, a.Fp, c0, a.Dp, tid);
+    }
+  };
+
+  int rows[2];
+  uint32_t mbase[2], cnt0[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rows[h] = row0 + acc_row(tid, h);
+    mbase[h] = a.mk.on ? mask_base(a.mk.seed, static_cast<uint32_t>(rows[h] / a.mk.rows)) : 0u;
+    cnt0[h] = static_cast<uint32_t>(rows[h] % a.mk.rows) * static_cast<uint32_t>(a.F);
+  }
+  float hp[16], dhd[16];
+
+  if (!lockstep) {
+    load_xdy(0);
+    if (s0 + wg < s1) load_w(s0 + wg, 0);
+    cp_async_commit();
+  }
+  for (int r = 0; r < rounds; ++r) {
+    const int s = s0 + r * kDhWgs + wg;
+    const bool live = s < s1;
+    for (int kg = 0; kg < n_kg; ++kg) {
+      if (lockstep) {
+        __syncthreads();  // every read of the previous tiles is done
+        load_xdy(kg);
+        if (live) load_w(s, kg);
+        cp_async_commit();
+        cp_async_wait<0>();
+        fence_async_shared();
+        __syncthreads();
+      } else {
+        cp_async_wait<0>();
+        fence_async_shared();
+        if (r == 0) __syncthreads();  // x and dy landed for every warpgroup
+        else warpgroup_sync(1 + wg);  // this warpgroup's stage landed
+      }
+      if (!live) continue;
+      const int nc = min(kGc, (a.Dp - kg * kGw) / kT);
+      if (kg == 0) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) hp[i] = dhd[i] = 0.f;
+      }
+      fence_regs(hp);
+      fence_regs(dhd);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kGc; ++j) {
+        if (j >= nc) continue;
+        const uint64_t da = make_desc<kT>(sX + j * kTileB), db = make_desc<kT>(w1s + j * kHalfB);
+#pragma unroll
+        for (int kk = 0; kk < kT / 16; ++kk) wgmma_ss_n32<0, 0>(hp, da + 2 * kk, db + 2 * kk);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < kGc; ++j) {
+        if (j >= nc) continue;
+        const uint64_t da = make_desc<kT>(sY + j * kTileB), db = make_desc<kS>(w2s + j * kHalfB);
+#pragma unroll
+        for (int kk = 0; kk < kT / 16; ++kk) wgmma_ss_n32<0, 1>(dhd, da + 2 * kk, db + 64 * kk);
+      }
+      wgmma_commit();
+      if (kg + 1 < n_kg) {  // more of d_model to sum before the slice is done
+        wgmma_wait<0>();
+        fence_regs(hp);
+        fence_regs(dhd);
+        continue;
+      }
+      float2 bias[4];  // the slice's bias at this thread's columns
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = s * kS + 8 * j + 2 * (tid % 4);
+        bias[j] = col < a.F ? *reinterpret_cast<const float2*>(a.b1 + col) : make_float2(0.f, 0.f);
+      }
+      // hp is done while dhd may still run: hd, and which elements pass
+      wgmma_wait<1>();
+      fence_regs(hp);
+      uint32_t pass_bits = 0u, keep_bits = 0u;
+      float hv[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int h = (i / 2) % 2, col = s * kS + acc_col(tid, i);
+        const float v = hp[i] + (i % 2 ? bias[i / 4].y : bias[i / 4].x);
+        const bool keep =
+            !a.mk.on || mask_keep(mbase[h], cnt0[h] + static_cast<uint32_t>(col), a.mk.threshold);
+        keep_bits |= (keep ? 1u : 0u) << i;
+        pass_bits |= (v > 0.f && keep ? 1u : 0u) << i;
+        hv[i] = fmaxf(v, 0.f);
+      }
+      if (a.mk.on) div_rn(hv, a.mk.keep_div, a.mk.inv_keep);
+#pragma unroll
+      for (int i = 0; i < 16; i += 2) {
+        const int h = (i / 2) % 2, col = s * kS + acc_col(tid, i);
+        if (rows[h] < a.N)
+          *reinterpret_cast<__nv_bfloat162*>(a.hd + static_cast<size_t>(rows[h]) * a.Fp + col) =
+              __floats2bfloat162_rn((keep_bits >> i) & 1u ? hv[i] : 0.f,
+                                    (keep_bits >> (i + 1)) & 1u ? hv[i + 1] : 0.f);
+      }
+      wgmma_wait<0>();
+      fence_regs(dhd);
+      if (!lockstep && s + kDhWgs < s1) {  // this stage is free: the next slice loads under the epilogue
+        load_w(s + kDhWgs, 0);
+        cp_async_commit();
+      }
+      // dh (fp32), its column sums over the tile's rows, dh rounded to bf16
+      if (a.mk.on) div_rn(dhd, a.mk.keep_div, a.mk.inv_keep);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dhd[i] = ((pass_bits >> i) & 1u) ? dhd[i] : 0.f;
+      float colsum[8];  // column 8 (k / 2) + 2 c + k % 2: rows h = 0 and 1
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        colsum[k] = dhd[4 * (k / 2) + k % 2] + dhd[4 * (k / 2) + k % 2 + 2];
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+        for (int k = 0; k < 8; ++k) colsum[k] += __shfl_xor_sync(0xffffffffu, colsum[k], o);
+      if (lane < 4) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) red[warp * kS + 8 * (k / 2) + 2 * lane + k % 2] = colsum[k];
+      }
+#pragma unroll
+      for (int i = 0; i < 16; i += 2) {
+        const int h = (i / 2) % 2, col = s * kS + acc_col(tid, i);
+        if (rows[h] < a.N)
+          *reinterpret_cast<__nv_bfloat162*>(a.dh + static_cast<size_t>(rows[h]) * a.Fp + col) =
+              __floats2bfloat162_rn(dhd[i], dhd[i + 1]);
+      }
+      warpgroup_sync(1 + wg);  // this warpgroup's column sums are in red
+      if (tid < kS && s * kS + tid < a.F)
+        a.pdb1[static_cast<size_t>(tile) * a.F + s * kS + tid] =
+            red[tid] + red[kS + tid] + red[2 * kS + tid] + red[3 * kS + tid];
+    }
+  }
+}
+
+// The products over a long depth, one launch: per (pair of 64-wide
+// d_ffn slices, chunk of rows), product 0 dW1 (64 f x 256 d) = dh^T x and
+// product 1 dW2^T (64 f x 256 d) = hd^T dy (partial sums of the chunk);
+// product 2, per pair of row tiles, dx (64 rows x 256 d) = dh W1 over all of
+// d_ffn.  Two warpgroups a block: on two slices sharing the x or dy tiles
+// (products 0, 1), on two row tiles sharing the W1 tiles (product 2).  Each
+// warpgroup's 64 x 256 result is one m64n256 product a depth step of 16,
+// from its own (64, 64) tile (dh or hd rows read MN-major; dh read K-major
+// for dx) and the four shared (64, 64) tiles of a group of 256 d_model
+// columns read as one MN-major operand 256 wide (x or dy rows, W1 rows).
+// Tiles by cp.async into a four-stage ring, two ahead of the products, which
+// run one behind their issue.  blockIdx.x: the weight-gradient blocks (pair
+// of slices fastest, then chunk, product, group), then the dx blocks (pair
+// of row tiles, group).
+__global__ void __launch_bounds__(2 * kWg, 1) ffn_grad_tc(const TcArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  constexpr uint32_t kStage = (2 + kGc) * kTileB;  // the two own tiles, then the shared ones
+  const uint32_t sBase = smem_addr(base);
+  const int tid = threadIdx.x % kWg, wg = __shfl_sync(0xffffffffu, threadIdx.x / kWg, 0);
+  const int tiles = (a.N + kT - 1) / kT, slices = a.Fp / kT;
+  const int n_dg = (a.D + kGw - 1) / kGw, pairs = (slices + 1) / 2;
+  const int dw_blocks = pairs * a.chunks * 2 * n_dg;
+  int b = blockIdx.x, prod, dg, own, t0, t1;
+  if (b < dw_blocks) {
+    own = 2 * (b % pairs) + wg;  // slice
+    b /= pairs;
+    const int chunk = b % a.chunks;
+    b /= a.chunks;
+    prod = b / n_dg;
+    dg = b % n_dg;
+    t0 = chunk * a.tpc;
+    t1 = min(tiles, t0 + a.tpc);
+  } else {
+    b -= dw_blocks;
+    prod = 2;
+    own = 2 * (b % ((tiles + 1) / 2)) + wg;  // row tile
+    dg = b / ((tiles + 1) / 2);
+    t0 = 0;
+    t1 = slices;
+  }
+  const bool live = own < (prod == 2 ? tiles : slices);
+
+  auto load = [&](int t, uint32_t st) {  // each warpgroup its own tile and half of the shared
+    if (prod == 2) {
+      if (live) load_tile_async<kT>(st + wg * kTileB, a.dh + t * kT, a.Fp, own * kT, a.N, tid);
+    } else if (live) {
+      load_tile_async<kT>(st + wg * kTileB, (prod == 0 ? a.dh : a.hd) + own * kT, a.Fp, t * kT,
+                          a.N, tid);
+    }
+#pragma unroll
+    for (int jj = 0; jj < kGc / 2; ++jj) {  // columns past D (or Dp) as zeros
+      const int j = wg * (kGc / 2) + jj, c0 = dg * kGw + j * kT;
+      if (prod == 2)
+        load_tile_async<kT>(st + (2 + j) * kTileB, a.w1, a.Dp, t * kT, a.Fp, c0, a.Dp, tid);
+      else
+        load_tile_async<kT>(st + (2 + j) * kTileB, prod == 0 ? a.x : a.dy, a.D, t * kT, a.N, c0,
+                            a.D, tid);
+    }
+    cp_async_commit();
+  };
+
+  float acc[4 * kT / 2];  // 64 x 256
+#pragma unroll
+  for (int i = 0; i < 4 * kT / 2; ++i) acc[i] = 0.f;
+  // four stages: steps t + 1 and t + 2 load while the products of t - 1 and
+  // t run; every iteration commits one copy group, empty past the end
+  if (t0 < t1) load(t0, sBase);
+  if (t0 + 1 < t1) load(t0 + 1, sBase + kStage); else cp_async_commit();
+  for (int t = t0; t < t1; ++t) {
+    cp_async_wait<1>();
+    fence_async_shared();
+    __syncthreads();  // step t landed in both halves; the products of t - 2 are done
+    if (t + 2 < t1) load(t + 2, sBase + ((t + 2 - t0) % kDwStages) * kStage);
+    else cp_async_commit();
+    if (!live) continue;
+    const uint32_t st = sBase + ((t - t0) % kDwStages) * kStage;
+    const uint64_t dso = make_desc<kT>(st + wg * kTileB);
+    const uint64_t dsh = make_desc_lbo<kT>(st + 2 * kTileB, kTileB);  // 256 wide
+    fence_regs(acc);
+    wgmma_fence();
+    if (prod == 2) {  // dh K-major (depth along its row), W1 MN-major
+#pragma unroll
+      for (int kk = 0; kk < kT / 16; ++kk) wgmma_ss_n256<0, 1>(acc, dso + 2 * kk, dsh + 128 * kk);
+    } else {  // dh or hd MN-major, x or dy MN-major
+#pragma unroll
+      for (int kk = 0; kk < kT / 16; ++kk) wgmma_ss_n256<1, 1>(acc, dso + 128 * kk, dsh + 128 * kk);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the products of t - 1 are done
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  if (!live) return;
+
+  const int chunk = prod == 2 ? 0 : t0 / a.tpc;
+  const size_t fd = static_cast<size_t>(a.F) * a.D;
+#pragma unroll
+  for (int i = 0; i < 4 * kT / 2; i += 2) {
+    const int m = own * kT + acc_row(tid, (i / 2) % 2), d = dg * kGw + acc_col(tid, i);
+    if (d >= a.D) continue;
+    if (prod == 0) {  // (f, d) of dW1
+      if (m < a.F)
+        *reinterpret_cast<float2*>(a.pw1 + chunk * fd + static_cast<size_t>(m) * a.D + d) =
+            make_float2(acc[i], acc[i + 1]);
+    } else if (prod == 1) {  // (f, d) of dW2^T, stored as dW2 (d, f)
+      if (m < a.F) {
+        float* at = a.pw2 + chunk * fd + static_cast<size_t>(d) * a.F + m;
+        at[0] = acc[i];
+        at[a.F] = acc[i + 1];
+      }
+    } else if (m < a.N) {  // (row, d) of dx
+      *reinterpret_cast<__nv_bfloat162*>(a.dx + static_cast<size_t>(m) * a.D + d) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
+}
+
+// One launch for every sum of partials, each in the order of its partials.
+// Blocks below `bias_blocks`: one warp per 4 columns of db1 | db2 over the
+// row tiles (lane l takes tiles l, l + 32, ...; lanes then added in a fixed
+// tree).  The others: one thread per 4 values of dW1 and dW2 over the chunks.
+// grads: dW1 (F, D) | db1 (F) | db2 (D) | dW2 (D, F).
+__global__ void __launch_bounds__(256) ffn_reduce_tc(const TcArgs a, float* __restrict__ grads,
+                                                     int bias_blocks) {
+  const int tiles = (a.N + kT - 1) / kT;
+  const size_t fd = static_cast<size_t>(a.F) * a.D;
+  if (static_cast<int>(blockIdx.x) < bias_blocks) {
+    const int w = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int qf = a.F / 4, qd = a.D / 4;
+    if (w >= qf + qd) return;
+    const bool b1 = w < qf;
+    const int width = b1 ? a.F : a.D, col = 4 * (b1 ? w : w - qf);
+    const float* src = (b1 ? a.pdb1 : a.pdb2) + col;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int t = lane; t < tiles; t += 32)
+      add4(s, *reinterpret_cast<const float4*>(src + static_cast<size_t>(t) * width));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s.x += __shfl_down_sync(0xffffffffu, s.x, o);
+      s.y += __shfl_down_sync(0xffffffffu, s.y, o);
+      s.z += __shfl_down_sync(0xffffffffu, s.z, o);
+      s.w += __shfl_down_sync(0xffffffffu, s.w, o);
+    }
+    if (lane == 0)
+      *reinterpret_cast<float4*>(grads + fd + (b1 ? 0 : a.F) + col) = s;
+    return;
+  }
+  const size_t q = (blockIdx.x - bias_blocks) * static_cast<size_t>(blockDim.x) + threadIdx.x;
+  const size_t qw = fd / 4;
+  if (q < 2 * qw) {
+    const bool w2 = q >= qw;
+    const size_t e = 4 * (w2 ? q - qw : q);
+    const float* src = (w2 ? a.pw2 : a.pw1) + e;
+    float4 s = *reinterpret_cast<const float4*>(src);
+    for (int c = 1; c < a.chunks; ++c) add4(s, *reinterpret_cast<const float4*>(src + c * fd));
+    *reinterpret_cast<float4*>(grads + (w2 ? fd + a.F + a.D : 0) + e) = s;
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -573,6 +1012,27 @@ int launch_bwd(const void* x, const float* w1, const float* b1, const float* w2,
   return static_cast<int>(cudaGetLastError());
 }
 
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+int launch_bwd_tc(const TcArgs& a, const float* w1, const float* w2, float* grads,
+                  cudaStream_t s) {
+  cudaError_t err = allow_smem(ffn_dh_tc, kDhSmem);
+  if (err == cudaSuccess) err = allow_smem(ffn_grad_tc, kDwSmemTc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = cdiv(a.N, kT), slices = a.Fp / kT, n_dg = cdiv(a.D, kGw);
+  const int pairs = a.Fp * a.Dp;  // both matrices, two elements a thread
+  ffn_cast_weights_kernel<<<cdiv(pairs, 256) < 2048 ? cdiv(pairs, 256) : 2048, 256, 0, s>>>(
+      w1, w2, const_cast<bf16*>(a.w1), const_cast<bf16*>(a.w2), a.D, a.F, a.Dp, a.Fp);
+  ffn_dh_tc<<<dim3(tiles, a.fgroups), kDhWgs * kWg, kDhSmem, s>>>(a);
+  const int grad_blocks = cdiv(slices, 2) * a.chunks * 2 * n_dg + cdiv(tiles, 2) * n_dg;
+  ffn_grad_tc<<<grad_blocks, 2 * kWg, kDwSmemTc, s>>>(a);
+  const int bias_blocks = cdiv(a.F / 4 + a.D / 4, 8);
+  const size_t quads = static_cast<size_t>(a.F) * a.D / 2;
+  ffn_reduce_tc<<<bias_blocks + static_cast<int>((quads + 255) / 256), 256, 0, s>>>(a, grads,
+                                                                                   bias_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool shape_ok(int N, int D, int F, int mask_rows) {
   return N >= 1 && D >= 8 && D % 8 == 0 && F >= 4 && F % 4 == 0 && mask_rows >= 1;
 }
@@ -589,6 +1049,16 @@ int tts_fused_ffn_bwd_chunks(int N, int F) {
   return chunks;
 }
 
+// Dynamic shared memory per block, bytes, for d_model D: out[0] the forward,
+// out[1] the bf16 backward's dh kernel, out[2] its gradient kernel.
+int tts_fused_ffn_shared_bytes(int D, long long* out) {
+  if (D < 8 || D % 8) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = static_cast<long long>(kFwdSmem);
+  out[1] = static_cast<long long>(kDhSmem);
+  out[2] = static_cast<long long>(kDwSmemTc);
+  return 0;
+}
+
 // x, y: (N, D) T, contiguous; w1 (F, D), b1 (F), w2 (D, F), b2 (D) fp32, the
 // PyTorch parameters as they lie.  T is bf16 when is_bf16, else fp32.  D is a
 // multiple of 8, F a multiple of 4.  With dropout_on, keep_div =
@@ -598,7 +1068,7 @@ int tts_fused_ffn_fwd(int is_bf16, int N, int D, int F, const void* x, const voi
                       float keep_div, unsigned threshold, unsigned seed, int mask_rows,
                       void* stream) {
   if (!shape_ok(N, D, F, mask_rows)) return static_cast<int>(cudaErrorInvalidValue);
-  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on};
+  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
   auto s = static_cast<cudaStream_t>(stream);
   auto a1 = static_cast<const float*>(w1);
   auto c1 = static_cast<const float*>(b1);
@@ -608,23 +1078,64 @@ int tts_fused_ffn_fwd(int is_bf16, int N, int D, int F, const void* x, const voi
                  : launch_fwd<float>(x, a1, c1, a2, c2, y, N, D, F, mk, s);
 }
 
-// dy, dx: (N, D) T.  grads: F D + F + D + D F floats, in this order dW1
-// (F, D), db1 (F), db2 (D), dW2 (D, F).  part: scratch of
-// tts_fused_ffn_bwd_chunks(N, F) * (2 F D + F + D) floats.
-int tts_fused_ffn_bwd(int is_bf16, int N, int D, int F, const void* x, const void* w1,
-                      const void* b1, const void* w2, const void* dy, void* dx, void* grads,
-                      void* part, int dropout_on, float keep_div, unsigned threshold,
-                      unsigned seed, int mask_rows, void* stream) {
+// fp32, on the CUDA cores.  dy, dx: (N, D) fp32.  grads: F D + F + D + D F
+// floats, in this order dW1 (F, D), db1 (F), db2 (D), dW2 (D, F).  part:
+// scratch of tts_fused_ffn_bwd_chunks(N, F) * (2 F D + F + D) floats.
+int tts_fused_ffn_bwd(int N, int D, int F, const void* x, const void* w1, const void* b1,
+                      const void* w2, const void* dy, void* dx, void* grads, void* part,
+                      int dropout_on, float keep_div, unsigned threshold, unsigned seed,
+                      int mask_rows, void* stream) {
   if (!shape_ok(N, D, F, mask_rows)) return static_cast<int>(cudaErrorInvalidValue);
-  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on};
-  auto s = static_cast<cudaStream_t>(stream);
-  auto a1 = static_cast<const float*>(w1);
-  auto c1 = static_cast<const float*>(b1);
-  auto a2 = static_cast<const float*>(w2);
-  auto g = static_cast<float*>(grads);
-  auto pt = static_cast<float*>(part);
-  return is_bf16 ? launch_bwd<bf16>(x, a1, c1, a2, dy, dx, g, pt, N, D, F, mk, s)
-                 : launch_bwd<float>(x, a1, c1, a2, dy, dx, g, pt, N, D, F, mk, s);
+  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
+  return launch_bwd<float>(x, static_cast<const float*>(w1), static_cast<const float*>(b1),
+                           static_cast<const float*>(w2), dy, dx, static_cast<float*>(grads),
+                           static_cast<float*>(part), N, D, F, mk,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// bf16, on the tensor cores.  x, dy, dx: (N, D) bf16; w1 (F, D), b1 (F),
+// w2 (D, F) fp32; grads as above.  Scratch, with Dp and Fp D and F rounded
+// up to multiples of 64: w1b (Fp, Dp) and w2b (Dp, Fp) bf16; dh, hd (N, Fp)
+// bf16; pdb1 (tiles, F), pdb2 (tiles, D), pw1 (chunks, F, D), pw2 (chunks,
+// D, F) fp32 with tiles = ceil(N / 64).  The dh kernel takes the d_ffn slices
+// of 32 in fgroups groups of spg (fgroups = ceil(Fp / 32 / spg)), the
+// weight-gradient products the row tiles in chunks of tpc (chunks =
+// ceil(tiles / tpc)).
+int tts_fused_ffn_bwd_tc(int N, int D, int F, const void* x, const void* w1, const void* b1,
+                         const void* w2, const void* dy, void* dx, void* grads, void* w1b,
+                         void* w2b, void* dh, void* hd, void* pdb1, void* pdb2, void* pw1,
+                         void* pw2, int spg, int fgroups, int tpc, int chunks, int dropout_on,
+                         float keep_div, unsigned threshold, unsigned seed, int mask_rows,
+                         void* stream) {
+  const int Dp = cdiv(D, kT) * kT, Fp = cdiv(F, kT) * kT;
+  if (!shape_ok(N, D, F, mask_rows) || spg < 1 || fgroups != cdiv(Fp / kS, spg) || tpc < 1 ||
+      chunks != cdiv(cdiv(N, kT), tpc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TcArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.dy = static_cast<const bf16*>(dy);
+  a.w1 = static_cast<const bf16*>(w1b);
+  a.w2 = static_cast<const bf16*>(w2b);
+  a.b1 = static_cast<const float*>(b1);
+  a.dx = static_cast<bf16*>(dx);
+  a.dh = static_cast<bf16*>(dh);
+  a.hd = static_cast<bf16*>(hd);
+  a.pdb1 = static_cast<float*>(pdb1);
+  a.pdb2 = static_cast<float*>(pdb2);
+  a.pw1 = static_cast<float*>(pw1);
+  a.pw2 = static_cast<float*>(pw2);
+  a.N = N;
+  a.D = D;
+  a.F = F;
+  a.Dp = Dp;
+  a.Fp = Fp;
+  a.spg = spg;
+  a.fgroups = fgroups;
+  a.tpc = tpc;
+  a.chunks = chunks;
+  a.mk = Mask{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
+  return launch_bwd_tc(a, static_cast<const float*>(w1), static_cast<const float*>(w2),
+                       static_cast<float*>(grads), static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -14,13 +14,21 @@
 // and writes dx, dh; about 10 operations per element).  One warp owns a
 // row: the lanes read it in 16-byte vectors, neighbouring lanes on
 // neighbouring bytes, keep it in registers, and reduce with shuffles, so
-// every element is read once.  Rows beyond the grid are taken in strides.
+// every element is read once.  Forward: rows beyond the grid are taken in
+// strides.
 //
-// dgamma / dbeta are sums over all rows.  The TPU grid ran in order and
-// carried them in scratch; blocks here run in no order, so every block
-// writes the partial sums of its rows (warps added in a fixed order) and a
-// second kernel adds the blocks' partials in index order: no atomics, the
-// same bits on every run.
+// Backward, one launch.  The caller sizes the grid to the card (about two
+// blocks per SM); each block takes a contiguous run of rows, and each warp
+// keeps two rows in flight (at D <= 256), their loads issued before the
+// first reduction.  dgamma / dbeta are sums over all rows.  The TPU grid ran
+// in order and carried them in scratch; blocks here run in no order, so
+// each block writes the partial sums of its rows (its warps added in warp
+// order after one barrier), the last block of every group of 16 to finish
+// adds the group's partials in block order, and the last group to finish
+// adds the groups' sums in group order.  "Last" is a ticket counter taken
+// with acquire-release ordering after a fence; the last taker sets it back
+// to 0, so no call clears it.  No atomic float add: the order of every sum
+// is fixed by N and the block count, and two runs give the same bits.
 //
 // The dropout mask is a function of the logical index (dropout_mask.cuh):
 // element (row, col) takes salt = row / mask_rows and counter =
@@ -43,12 +51,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;  // rows a block works on at a time
 constexpr int kMaxBlocks = 528;        // 4 blocks on each of 132 SMs
+constexpr int kGroup = 16;             // backward blocks whose partials the last of them adds
 
 struct Mask {
   uint32_t seed, threshold;
   int rows;        // height of a mask block
   float keep_div;  // 1 - p
   int on;
+  float inv_keep;  // 1 / (1 - p), rounded to nearest on the host
 };
 
 // z = x + Dropout(h) of one row into registers (kPerLane values per lane:
@@ -130,107 +140,224 @@ ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ h, const float* __r
   }
 }
 
-// Backward of the rows of this block; part (gridDim.x, 2, D) gets the
-// block's sums of dy * zhat and of dy.
-template <typename T, int kPerLane>
+// dst[0 .. 2D) = sum over k < n of src[k * 2D + c], added in k order; the
+// threads take 4 columns each and keep 8 loads in flight.  src was written
+// by other blocks of this launch, so it is read past L1.
+__device__ __forceinline__ void sum_partials(const float* src, int n, int two_d, float* dst) {
+  constexpr int kBatch = 8;
+  for (int c = threadIdx.x * 4; c < two_d; c += kThreads * 4) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k0 = 0; k0 < n; k0 += kBatch) {
+      float4 v[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        if (k0 + k < n)
+          v[k] = __ldcg(reinterpret_cast<const float4*>(src + static_cast<size_t>(k0 + k) * two_d + c));
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k)
+        if (k0 + k < n) add4(s, v[k]);
+    }
+    *reinterpret_cast<float4*>(dst + c) = s;
+  }
+}
+
+// Ticket of this block at *counter, taken by thread 0 after the block's
+// writes are visible device-wide; true in every thread of the block that
+// takes the last of `n` tickets, which then reads what the others wrote
+// and sets the counter back to 0 for the next launch.
+__device__ __forceinline__ bool last_of(unsigned* counter, int n, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned t;
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;\n"
+                 : "=r"(t)
+                 : "l"(counter)
+                 : "memory");
+    const bool last = t == static_cast<unsigned>(n - 1);
+    if (last) *counter = 0u;
+    *flag = last;
+  }
+  __syncthreads();
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
+}
+
+// One launch: dx, dh of the rows of this block and dgamma | dbeta of all
+// rows.  Block b takes the contiguous run of rows [b rpb, (b + 1) rpb);
+// warp w of it rows w, w + 8, ... of the run, kR rows at a time with every
+// load of the kR rows issued before the first reduction.  The warps' sums of
+// dy * zhat and dy go through shared memory (one barrier) into the block's
+// partial part[b]; the last block of each group of kGroup blocks adds its
+// group's partials in block order into group[g], and the last group to
+// finish adds the groups' sums in group order into dgb.  Which block is last
+// is decided by ticket counters (counters[0] for the groups, counters[1 + g]
+// inside group g) that the last taker sets back to 0.  The order of every
+// sum is fixed by N and the block count alone: the same bits on every run.
+template <typename T, int kPerLane, int kR>
 __global__ void __launch_bounds__(kThreads)
 ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h, const float* __restrict__ gamma,
               const T* __restrict__ dy, T* __restrict__ dx, T* __restrict__ dh,
-              float* __restrict__ part, int N, int D, float eps, Mask mk) {
+              float* __restrict__ part, float* __restrict__ group, float* __restrict__ dgb,
+              unsigned* __restrict__ counters, int N, int D, float eps, Mask mk) {
   constexpr int V = vec<T>();
-  extern __shared__ float acc[];  // (2, D): the block's dgamma | dbeta
+  extern __shared__ __align__(16) float red[];  // (kWarps, 2, D): the warps' dgamma | dbeta
+  __shared__ int flag;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float dg[kPerLane], db[kPerLane];
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) dg[i] = db[i] = 0.f;
+  const int rpb = (N + gridDim.x - 1) / gridDim.x;
+  const int r0 = blockIdx.x * rpb, r1 = min(N, r0 + rpb);
+  const float invD = 1.0f / static_cast<float>(D);
 
-  for (int row = blockIdx.x * kWarps + warp; row < N; row += gridDim.x * kWarps) {
-    const size_t off = static_cast<size_t>(row) * D;
-    float z[kPerLane], gf[kPerLane], sum, sq;
-    uint32_t keep;
-    row_z<T, kPerLane>(x + off, h + off, D, lane, row, mk, z, keep, sum, sq);
-    sum = warp_sum(sum);
-    sq = warp_sum(sq);
-    const float mu = sum / static_cast<float>(D);
-    const float var = sq / static_cast<float>(D) - mu * mu;
-    const float rstd = rsqrtf(fmaxf(var, 0.f) + eps);
-    float s1 = 0.f, s2 = 0.f;
+  // gamma stays in registers where they suffice (D <= 512), else is read per row
+  constexpr bool kKeepGamma = kPerLane <= 16;
+  float g[kKeepGamma ? kPerLane : 1], dg[kPerLane], db[kPerLane];
+  auto load_gamma = [&](int v, float* out) {
+    const int c0 = (v * 32 + lane) * V;
+    load16<float>(gamma + c0, out);
+    if constexpr (V == 8) load16<float>(gamma + c0 + 4, out + 4);
+  };
 #pragma unroll
-    for (int v = 0; v < kPerLane / V; ++v) {
-      const int c0 = (v * 32 + lane) * V;
-      if (c0 < D) {
-        float g[V], d[V];
-        load16<float>(gamma + c0, g);
-        if constexpr (V == 8) load16<float>(gamma + c0 + 4, g + 4);
-        load16<T>(dy + off + c0, d);
+  for (int v = 0; v < kPerLane / V; ++v) {
 #pragma unroll
-        for (int i = 0; i < V; ++i) {
-          const int k = v * V + i;
-          const float zhat = (z[k] - mu) * rstd;
-          z[k] = zhat;
-          dg[k] += d[i] * zhat;
-          db[k] += d[i];
-          gf[k] = d[i] * g[i];
-          s1 += gf[k];
-          s2 += gf[k] * zhat;
-        }
-      }
-    }
-    const float m1 = warp_sum(s1) / static_cast<float>(D);
-    const float m2 = warp_sum(s2) / static_cast<float>(D);
-#pragma unroll
-    for (int v = 0; v < kPerLane / V; ++v) {
-      const int c0 = (v * 32 + lane) * V;
-      if (c0 < D) {
-        float ox[V], oh[V];
-#pragma unroll
-        for (int i = 0; i < V; ++i) {
-          const int k = v * V + i;
-          const float dz = rstd * (gf[k] - m1 - z[k] * m2);
-          ox[i] = dz;
-          oh[i] = mk.on ? (((keep >> k) & 1u) ? dz / mk.keep_div : 0.f) : dz;
-        }
-        store16<T>(dx + off + c0, ox);
-        store16<T>(dh + off + c0, oh);
-      }
+    for (int i = 0; i < V; ++i) dg[v * V + i] = db[v * V + i] = 0.f;
+    if constexpr (kKeepGamma) {
+      if ((v * 32 + lane) * V < D) load_gamma(v, g + v * V);
     }
   }
 
-  // the warps' sums, added in warp order
-  for (int w = 0; w < kWarps; ++w) {
-    if (warp == w) {
+  for (int first = r0 + warp; first < r1; first += kWarps * kR) {
+    float xv[kR][kPerLane], hv[kR][kPerLane], dv[kR][kPerLane];
+#pragma unroll
+    for (int rr = 0; rr < kR; ++rr) {
+      const int row = first + rr * kWarps;
+      const size_t off = static_cast<size_t>(row < r1 ? row : first) * D;
 #pragma unroll
       for (int v = 0; v < kPerLane / V; ++v) {
         const int c0 = (v * 32 + lane) * V;
         if (c0 < D) {
+          load16<T>(x + off + c0, xv[rr] + v * V);
+          load16<T>(h + off + c0, hv[rr] + v * V);
+          load16<T>(dy + off + c0, dv[rr] + v * V);
+        } else {
 #pragma unroll
-          for (int i = 0; i < V; ++i) {
-            const int k = v * V + i;
-            if (w == 0) {
-              acc[c0 + i] = dg[k];
-              acc[D + c0 + i] = db[k];
-            } else {
-              acc[c0 + i] += dg[k];
-              acc[D + c0 + i] += db[k];
-            }
-          }
+          for (int i = 0; i < V; ++i) xv[rr][v * V + i] = hv[rr][v * V + i] = dv[rr][v * V + i] = 0.f;
         }
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int rr = 0; rr < kR; ++rr) {
+      const int row = first + rr * kWarps;  // the same in every lane of the warp
+      if (row >= r1) continue;
+      const size_t off = static_cast<size_t>(row) * D;
+      const uint32_t base = mk.on ? mask_base(mk.seed, static_cast<uint32_t>(row / mk.rows)) : 0u;
+      const uint32_t cnt0 = static_cast<uint32_t>(row % mk.rows) * static_cast<uint32_t>(D);
+      float z[kPerLane], sum = 0.f, sq = 0.f;
+      uint32_t keep = 0xffffffffu;
+      if (mk.on) div_rn(hv[rr], mk.keep_div, mk.inv_keep);  // h / (1 - p), dropped or not
+#pragma unroll
+      for (int v = 0; v < kPerLane / V; ++v) {
+        const int c0 = (v * 32 + lane) * V;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const int k = v * V + i;
+          z[k] = 0.f;
+          if (c0 < D) {
+            float hd = hv[rr][k];
+            if (mk.on && !mask_keep(base, cnt0 + static_cast<uint32_t>(c0 + i), mk.threshold)) {
+              hd = 0.f;
+              keep &= ~(1u << k);
+            }
+            z[k] = xv[rr][k] + hd;
+            sum += z[k];
+            sq += z[k] * z[k];
+          }
+        }
+      }
+      sum = warp_sum(sum);
+      sq = warp_sum(sq);
+      const float mu = sum * invD;
+      const float rstd = rsqrtf(fmaxf(sq * invD - mu * mu, 0.f) + eps);
+      float s1 = 0.f, s2 = 0.f, gf[kPerLane];
+#pragma unroll
+      for (int v = 0; v < kPerLane / V; ++v) {
+        const int c0 = (v * 32 + lane) * V;
+        float gv[V];
+        if constexpr (!kKeepGamma) {
+          if (c0 < D) load_gamma(v, gv);
+        }
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          const int k = v * V + i;
+          gf[k] = 0.f;
+          if (c0 < D) {
+            const float zhat = (z[k] - mu) * rstd;
+            z[k] = zhat;
+            dg[k] += dv[rr][k] * zhat;
+            db[k] += dv[rr][k];
+            float gk;
+            if constexpr (kKeepGamma) {
+              gk = g[k];
+            } else {
+              gk = gv[i];
+            }
+            gf[k] = dv[rr][k] * gk;
+            s1 += gf[k];
+            s2 += gf[k] * zhat;
+          }
+        }
+      }
+      const float m1 = warp_sum(s1) * invD;
+      const float m2 = warp_sum(s2) * invD;
+      float dz[kPerLane], dzk[kPerLane];  // dx, and dx / (1 - p)
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k) dz[k] = dzk[k] = rstd * (gf[k] - m1 - z[k] * m2);
+      if (mk.on) div_rn(dzk, mk.keep_div, mk.inv_keep);
+#pragma unroll
+      for (int v = 0; v < kPerLane / V; ++v) {
+        const int c0 = (v * 32 + lane) * V;
+        if (c0 < D) {
+          float oh[V];
+#pragma unroll
+          for (int i = 0; i < V; ++i) {
+            const int k = v * V + i;
+            oh[i] = mk.on && !((keep >> k) & 1u) ? 0.f : dzk[k];
+          }
+          store16<T>(dx + off + c0, dz + v * V);
+          store16<T>(dh + off + c0, oh);
+        }
+      }
+    }
   }
-  float* out = part + static_cast<size_t>(blockIdx.x) * 2 * D;
-  for (int c = threadIdx.x; c < 2 * D; c += kThreads) out[c] = acc[c];
-}
 
-// dgamma | dbeta (2, D) = the blocks' partials added in block order.
-__global__ void ln_reduce_kernel(const float* __restrict__ part, int n_blocks, int two_d,
-                                 float* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= two_d) return;
-  float s = 0.f;
-  for (int b = 0; b < n_blocks; ++b) s += part[static_cast<size_t>(b) * two_d + c];
-  out[c] = s;
+  // the warps' sums side by side, then added in warp order: one barrier
+#pragma unroll
+  for (int v = 0; v < kPerLane / V; ++v) {
+    const int c0 = (v * 32 + lane) * V;
+    if (c0 < D) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        red[warp * 2 * D + c0 + i] = dg[v * V + i];
+        red[warp * 2 * D + D + c0 + i] = db[v * V + i];
+      }
+    }
+  }
+  __syncthreads();
+  const int two_d = 2 * D;
+  for (int c = threadIdx.x; c < two_d; c += kThreads) {
+    float s = red[c];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s += red[w * two_d + c];
+    part[static_cast<size_t>(blockIdx.x) * two_d + c] = s;
+  }
+
+  const int grp = blockIdx.x / kGroup, n_groups = (gridDim.x + kGroup - 1) / kGroup;
+  const int in_group = min(kGroup, static_cast<int>(gridDim.x) - grp * kGroup);
+  if (!last_of(counters + 1 + grp, in_group, &flag)) return;
+  sum_partials(part + static_cast<size_t>(grp) * kGroup * two_d, in_group, two_d,
+               group + static_cast<size_t>(grp) * two_d);
+  if (!last_of(counters, n_groups, &flag)) return;
+  sum_partials(group, n_groups, two_d, dgb);
 }
 
 __global__ void keep_mask_kernel(uint8_t* out, int rows, int cols, uint32_t threshold,
@@ -258,13 +385,18 @@ int launch_fwd(const void* x, const void* h, const float* gamma, const float* be
 
 template <typename T, int kPerLane>
 int launch_bwd(const void* x, const void* h, const float* gamma, const void* dy, void* dx,
-               void* dh, float* dgb, float* part, int N, int D, float eps, Mask mk,
-               cudaStream_t s) {
-  const int blocks = grid_blocks(N);
-  ln_bwd_kernel<T, kPerLane><<<blocks, kThreads, sizeof(float) * 2 * D, s>>>(
+               void* dh, float* dgb, float* part, unsigned* counters, int blocks, int N, int D,
+               float eps, Mask mk, cudaStream_t s) {
+  constexpr int kR = kPerLane <= 8 ? 2 : 1;  // rows in flight per warp
+  auto kernel = ln_bwd_kernel<T, kPerLane, kR>;
+  const size_t smem = sizeof(float) * kWarps * 2 * D;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  float* group = part + static_cast<size_t>(blocks) * 2 * D;
+  kernel<<<blocks, kThreads, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(h), gamma, static_cast<const T*>(dy),
-      static_cast<T*>(dx), static_cast<T*>(dh), part, N, D, eps, mk);
-  ln_reduce_kernel<<<(2 * D + 255) / 256, 256, 0, s>>>(part, blocks, 2 * D, dgb);
+      static_cast<T*>(dx), static_cast<T*>(dh), part, group, dgb, counters, N, D, eps, mk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -277,9 +409,6 @@ bool shape_ok(int is_bf16, int N, int D, int mask_rows) {
 
 extern "C" {
 
-// Blocks the backward runs for N rows: part must hold this many (2, D) floats.
-int tts_fused_ln_bwd_blocks(int N) { return grid_blocks(N); }
-
 // x, h, y: (N, D) T, contiguous; gamma, beta: (D) fp32.  T is bf16 when
 // is_bf16, else fp32.  D must be a multiple of 16 bytes of T and <= 1024.
 // With dropout_on, keep_div = 1 - p and threshold = uint32(p * 2^32).
@@ -287,7 +416,7 @@ int tts_fused_ln_fwd(int is_bf16, int N, int D, const void* x, const void* h, co
                      const void* beta, void* y, float eps, int dropout_on, float keep_div,
                      unsigned threshold, unsigned seed, int mask_rows, void* stream) {
   if (!shape_ok(is_bf16, N, D, mask_rows)) return static_cast<int>(cudaErrorInvalidValue);
-  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on};
+  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
   auto s = static_cast<cudaStream_t>(stream);
   auto g = static_cast<const float*>(gamma);
   auto b = static_cast<const float*>(beta);
@@ -299,22 +428,32 @@ int tts_fused_ln_fwd(int is_bf16, int N, int D, const void* x, const void* h, co
 #undef TTS_LN_FWD
 }
 
-// dy, dx, dh: (N, D) T; dgb: (2, D) fp32, dgamma then dbeta; part: scratch
-// of tts_fused_ln_bwd_blocks(N) * 2 * D floats.
+// Dynamic shared memory of a backward block for width D, bytes.
+long long tts_fused_ln_bwd_shared_bytes(int D) {
+  return static_cast<long long>(sizeof(float)) * kWarps * 2 * D;
+}
+
+// dy, dx, dh: (N, D) T; dgb: (2, D) fp32, dgamma then dbeta.  blocks:
+// 1 .. min(N, kMaxBlocks) blocks of rows; part: scratch of (blocks +
+// ceil(blocks / kGroup)) * 2 * D floats; counters: 1 + ceil(blocks /
+// kGroup) zeros, which every launch leaves at zero (one set per stream: two
+// launches in flight at once must not share it).
 int tts_fused_ln_bwd(int is_bf16, int N, int D, const void* x, const void* h, const void* gamma,
-                     const void* dy, void* dx, void* dh, void* dgb, void* part, float eps,
-                     int dropout_on, float keep_div, unsigned threshold, unsigned seed,
-                     int mask_rows, void* stream) {
-  if (!shape_ok(is_bf16, N, D, mask_rows)) return static_cast<int>(cudaErrorInvalidValue);
-  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on};
+                     const void* dy, void* dx, void* dh, void* dgb, void* part, void* counters,
+                     int blocks, float eps, int dropout_on, float keep_div, unsigned threshold,
+                     unsigned seed, int mask_rows, void* stream) {
+  if (!shape_ok(is_bf16, N, D, mask_rows) || blocks < 1 || blocks > N || blocks > kMaxBlocks)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
   auto s = static_cast<cudaStream_t>(stream);
   auto g = static_cast<const float*>(gamma);
   auto o = static_cast<float*>(dgb);
   auto pt = static_cast<float*>(part);
-#define TTS_LN_BWD(T)                                                              \
-  (D <= 256   ? launch_bwd<T, 8>(x, h, g, dy, dx, dh, o, pt, N, D, eps, mk, s)     \
-   : D <= 512 ? launch_bwd<T, 16>(x, h, g, dy, dx, dh, o, pt, N, D, eps, mk, s)    \
-              : launch_bwd<T, 32>(x, h, g, dy, dx, dh, o, pt, N, D, eps, mk, s))
+  auto ct = static_cast<unsigned*>(counters);
+#define TTS_LN_BWD(T)                                                                      \
+  (D <= 256   ? launch_bwd<T, 8>(x, h, g, dy, dx, dh, o, pt, ct, blocks, N, D, eps, mk, s)   \
+   : D <= 512 ? launch_bwd<T, 16>(x, h, g, dy, dx, dh, o, pt, ct, blocks, N, D, eps, mk, s)  \
+              : launch_bwd<T, 32>(x, h, g, dy, dx, dh, o, pt, ct, blocks, N, D, eps, mk, s))
   return is_bf16 ? TTS_LN_BWD(bf16) : TTS_LN_BWD(float);
 #undef TTS_LN_BWD
 }

@@ -60,6 +60,38 @@ template <> __device__ __forceinline__ void store16<bf16>(bf16* p, const float* 
   *reinterpret_cast<uint4*>(p) = u;
 }
 
+// a += b, four floats
+__device__ __forceinline__ void add4(float4& a, const float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// v[i] / b rounded to nearest even, in place, for b > 0 normal and rb =
+// 1 / b rounded to nearest: the product with the reciprocal, corrected twice
+// by the exact remainder (fma); an element beyond 2^100 or below 2^-100 in
+// magnitude is scaled by 2^-64 or 2^64 first and back after, both exact.
+// The bits `v[i] / b` gives, zeros with their sign, for every finite v[i]
+// whose quotient is normal (checked for every finite v at p = 0.05, 0.1, 0.2,
+// 0.3, 0.5 and every 17th at p = 0.01 .. 0.99 on an H100); a subnormal
+// quotient may differ in its last place.  No branch and no call: the full
+// division's slow path is a subroutine call, and ptxas serializes every
+// wgmma of a function that holds a call.
+template <int N>
+__device__ __forceinline__ void div_rn(float (&v)[N], float b, float rb) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float m = fabsf(v[i]);
+    const bool big = m > 0x1p100f, small = m < 0x1p-100f;
+    const float a = v[i] * (big ? 0x1p-64f : (small ? 0x1p64f : 1.f));
+    const float q0 = a * rb;
+    const float q1 = fmaf(fmaf(-q0, b, a), rb, q0);
+    const float q2 = fmaf(fmaf(-q1, b, a), rb, q1);
+    v[i] = (a == 0.f ? q0 : q2) * (big ? 0x1p64f : (small ? 0x1p-64f : 1.f));
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -16,17 +16,20 @@ nothing but the inputs is saved.  ``dx`` comes in x's dtype; ``dW1``,
 ``dh``, the products take ``dh`` and ``hd`` rounded to x's dtype).
 
 Layout: the weights are the PyTorch parameters as they lie, ``w1`` (F, D) =
-``Dense_0.weight`` and ``w2`` (D, F) = ``Dense_1.weight``, fp32; the kernels
-round them to x's dtype and transpose the tiles they need on the way into
-shared memory, so no call copies or casts a weight in device memory, and the
-gradients come back in the parameters' layout.  (The flax kernels are the
-transposes: (D, F) and (F, D).)
+``Dense_0.weight`` and ``w2`` (D, F) = ``Dense_1.weight``, fp32, and the
+gradients come back in that layout.  (The flax kernels are the transposes:
+(D, F) and (F, D).)
 
 What bounds it on an H100: operations (4 N D F forward, 10 N D F backward).
-This first version runs them as fp32 FMAs on the CUDA cores; see the source
-for its tiling.  The parameter gradients go through per-chunk partial sums
-and a reduce kernel that adds them in chunk order, so two runs give the same
-bits (no atomics).
+The forward and the fp32 backward run them as fp32 FMAs on the CUDA cores,
+rounding and transposing weight tiles on their way into shared memory.  The
+bf16 backward runs five products on the tensor cores (wgmma) in four
+launches: the weights rounded to bf16 once per call into scratch; a kernel
+per row tile that forms dh and hd (written to scratch in bf16) and dx; a
+kernel per (d_ffn slice, chunk of rows) for dW1 and dW2; one reduce.  See
+the source for the tiling.  The parameter gradients go through per-chunk
+partial sums added in chunk order, so two runs give the same bits (no
+atomics).  ``bwd_plan`` sizes the grids, ``bwd_scratch`` the scratch.
 
 What the TPU shaped and this port keeps only as a number: the mask is keyed
 on (row block, local row, column) of the TPU kernel's row blocks
@@ -111,6 +114,53 @@ def fused_ffn_backward_reference(x, w1, b1, w2, dy, seed, dropout, mask_rows):
     return dx.to(x.dtype), dw1, dh.sum(dim=0), dw2, dy32.sum(dim=0)
 
 
+_SMS = 132  # streaming multiprocessors of an H100 SXM
+_TILE = 64  # rows of a row tile, d_ffn columns of a slice (bf16 backward)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def bwd_plan(n: int, d: int, f: int) -> dict:
+    """Grids of the bf16 backward for (N, D, F): the dh kernel takes one
+    block (one a SM) per row tile and group of ``spg`` d_ffn slices of 32,
+    with the number of groups, ``fgroups``, that fills the last wave best;
+    the gradient kernel's weight-gradient products take one block per (pair
+    of 64-wide slices, chunk of ``tpc`` row tiles, product, group of 256
+    d_model columns), about one on every other SM (the dx products take the
+    rest)."""
+    tiles, slices, dgroups = _cdiv(n, _TILE), _cdiv(f, _TILE), _cdiv(d, 4 * _TILE)
+    dh_slices = 2 * slices  # 32 wide
+
+    def fill(groups):  # the share of the SMs' waves that the blocks fill
+        blocks = tiles * groups
+        return blocks / (_cdiv(blocks, _SMS) * _SMS)
+
+    spg = _cdiv(dh_slices, max(range(1, min(8, dh_slices) + 1), key=lambda g: (fill(g), -g)))
+    chunks = max(1, min(tiles, _SMS // 2 // (2 * _cdiv(slices, 2) * dgroups)))
+    tpc = _cdiv(tiles, chunks)
+    return {"tiles": tiles, "spg": spg, "fgroups": _cdiv(dh_slices, spg), "tpc": tpc,
+            "chunks": _cdiv(tiles, tpc), "dp": _cdiv(d, _TILE) * _TILE,
+            "fp": slices * _TILE}
+
+
+def bwd_scratch(n: int, d: int, f: int) -> dict:
+    """Byte offset and size of each scratch array of the bf16 backward in
+    one buffer (256-byte aligned), and the buffer's size under "total"."""
+    pl = bwd_plan(n, d, f)
+    sizes = {"w1b": 2 * pl["fp"] * pl["dp"], "w2b": 2 * pl["dp"] * pl["fp"],
+             "dh": 2 * n * pl["fp"], "hd": 2 * n * pl["fp"],
+             "pdb1": 4 * pl["tiles"] * f, "pdb2": 4 * pl["tiles"] * d,
+             "pw1": 4 * pl["chunks"] * f * d, "pw2": 4 * pl["chunks"] * d * f}
+    out, at = {}, 0
+    for name, size in sizes.items():
+        out[name] = (at, size)
+        at += _cdiv(size, 256) * 256
+    out["total"] = (0, at)
+    return out
+
+
 def _lib():
     from transformertts_tpu_torch import _build
 
@@ -119,9 +169,12 @@ def _lib():
         i, u, f, p = ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p
         tail = [i, f, u, u, i, p]
         lib.tts_fused_ffn_fwd.argtypes = [i] * 4 + [p] * 6 + tail
-        lib.tts_fused_ffn_bwd.argtypes = [i] * 4 + [p] * 8 + tail
+        lib.tts_fused_ffn_bwd.argtypes = [i] * 3 + [p] * 8 + tail
+        lib.tts_fused_ffn_bwd_tc.argtypes = [i] * 3 + [p] * 15 + [i] * 4 + tail
         lib.tts_fused_ffn_bwd_chunks.argtypes = [i, i]
-        for fn in (lib.tts_fused_ffn_fwd, lib.tts_fused_ffn_bwd, lib.tts_fused_ffn_bwd_chunks):
+        lib.tts_fused_ffn_shared_bytes.argtypes = [i, p]
+        for fn in (lib.tts_fused_ffn_fwd, lib.tts_fused_ffn_bwd, lib.tts_fused_ffn_bwd_tc,
+                   lib.tts_fused_ffn_bwd_chunks, lib.tts_fused_ffn_shared_bytes):
             fn.restype = i
         lib._argtypes_set = True
     return lib
@@ -173,21 +226,31 @@ def fused_ffn_forward(x, w1, b1, w2, b2, seed, dropout, mask_rows):
 
 
 def fused_ffn_backward(x, w1, b1, w2, dy, seed, dropout, mask_rows):
-    """The backward kernels (dx, parameter partials, reduce, behind one entry
-    point) on contiguous (N, D) CUDA rows: (dx, dW1, db1, dW2, db2), the
-    last four fp32 views of one buffer, or raises."""
+    """The backward kernels (bf16: weight cast, dh / hd, gradients, reduce;
+    fp32: dx, parameter partials, two reduces; behind one
+    entry point) on contiguous (N, D) CUDA rows: (dx, dW1, db1, dW2, db2),
+    the last four fp32 views of one buffer, or raises."""
     n, d = x.shape
     f = w1.shape[0]
     _check_cuda_args(x, w1, b1, w2, dy=dy)
     lib = _lib()
     dx = torch.empty_like(x)
     grads = torch.empty(2 * f * d + f + d, dtype=torch.float32, device=x.device)
-    part = torch.empty(lib.tts_fused_ffn_bwd_chunks(n, f) * grads.numel(), dtype=torch.float32,
-                       device=x.device)
-    rc = lib.tts_fused_ffn_bwd(
-        int(x.dtype == torch.bfloat16), n, d, f, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), dy.data_ptr(), dx.data_ptr(), grads.data_ptr(), part.data_ptr(),
-        *_mask_args(x, seed, dropout, mask_rows))
+    ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy.data_ptr(),
+            dx.data_ptr(), grads.data_ptr())
+    if x.dtype == torch.bfloat16:
+        plan, layout = bwd_plan(n, d, f), bwd_scratch(n, d, f)
+        scratch = torch.empty(layout["total"][1], dtype=torch.uint8, device=x.device)
+        rc = lib.tts_fused_ffn_bwd_tc(
+            n, d, f, *ptrs, *(scratch.data_ptr() + layout[k][0]
+                              for k in ("w1b", "w2b", "dh", "hd", "pdb1", "pdb2", "pw1", "pw2")),
+            plan["spg"], plan["fgroups"], plan["tpc"], plan["chunks"],
+            *_mask_args(x, seed, dropout, mask_rows))
+    else:
+        part = torch.empty(lib.tts_fused_ffn_bwd_chunks(n, f) * grads.numel(),
+                           dtype=torch.float32, device=x.device)
+        rc = lib.tts_fused_ffn_bwd(n, d, f, *ptrs, part.data_ptr(),
+                                   *_mask_args(x, seed, dropout, mask_rows))
     if rc != 0:
         raise RuntimeError(f"fused FFN backward kernels failed to launch (CUDA error {rc}) "
                            f"for N={n}, D={d}, F={f}, {x.dtype}")
@@ -244,4 +307,4 @@ def fused_ffn(
 
 
 fused_ffn.launches_fwd = 0  # forward kernel launches
-fused_ffn.launches_bwd = 0  # backward launches (dx, partials and reduce kernels together)
+fused_ffn.launches_bwd = 0  # backward calls (its four kernels together)

@@ -14,9 +14,11 @@ The backward recomputes z, the statistics and the dropout mask from
 
 What bounds it on an H100: bytes (three (N, D) arrays forward, five
 backward, about ten operations per element).  One warp per row, 16-byte
-loads, the row kept in registers, so each element is read once; dgamma and
-dbeta go through per-block partial sums and a second kernel that adds them
-in block order, so two runs give the same bits (no atomics).
+loads, the row kept in registers, so each element is read once.  The
+backward is one launch: about two blocks per SM, each on a run of rows;
+dgamma and dbeta go through per-block partial sums that the last blocks to
+finish add in a fixed order (ticket counters, no atomic float adds), so two
+runs give the same bits.
 
 What the TPU shaped and this port keeps only as a number: the mask is keyed
 on (row block, local row, column) of the TPU kernel's row blocks
@@ -89,6 +91,35 @@ def residual_dropout_layernorm_backward_reference(x, h, gamma, dy, seed, dropout
     return dz.to(x.dtype), dh.to(h.dtype), dg, db
 
 
+# backward grid: about 8 rows a block (one a warp), at most two blocks on each of 132 SMs
+_BWD_ROWS_PER_BLOCK, _BWD_MAX_BLOCKS, _BWD_GROUP = 8, 264, 16
+_counters: dict = {}  # (device, stream) -> the backward's ticket counters
+
+
+def bwd_blocks(n: int) -> int:
+    """Blocks of the backward kernel for n rows."""
+    return max(1, min(-(-n // _BWD_ROWS_PER_BLOCK), _BWD_MAX_BLOCKS))
+
+
+def bwd_scratch_floats(n: int, d: int) -> int:
+    """fp32 scratch of the backward: a (2, D) partial per block and per
+    group of ``_BWD_GROUP`` blocks."""
+    blocks = bwd_blocks(n)
+    return (blocks + -(-blocks // _BWD_GROUP)) * 2 * d
+
+
+def ticket_counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The backward's ticket counters on ``device`` for ``stream``: zeros,
+    allocated at the first call only (every launch leaves them at zero, so
+    no call clears them); one set per stream, since two launches in flight
+    at once must not share one."""
+    key = (str(device), stream)
+    if key not in _counters:
+        # 1 + ceil(blocks / 16) for the kernel's largest grid, 528 blocks
+        _counters[key] = torch.zeros(1 + -(-528 // _BWD_GROUP), dtype=torch.int32, device=device)
+    return _counters[key]
+
+
 def _lib():
     from transformertts_tpu_torch import _build
 
@@ -96,11 +127,12 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         i, u, f, p = ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p
         lib.tts_fused_ln_fwd.argtypes = [i, i, i, p, p, p, p, p, f, i, f, u, u, i, p]
-        lib.tts_fused_ln_bwd.argtypes = [i, i, i, p, p, p, p, p, p, p, p, f, i, f, u, u, i, p]
-        lib.tts_fused_ln_bwd_blocks.argtypes = [i]
+        lib.tts_fused_ln_bwd.argtypes = [i, i, i, p, p, p, p, p, p, p, p, p, i, f, i, f, u, u,
+                                         i, p]
         lib.tts_keep_mask.argtypes = [i, i, u, u, u, p, p]
-        for fn in (lib.tts_fused_ln_fwd, lib.tts_fused_ln_bwd, lib.tts_fused_ln_bwd_blocks,
-                   lib.tts_keep_mask):
+        lib.tts_fused_ln_bwd_shared_bytes.argtypes = [i]
+        lib.tts_fused_ln_bwd_shared_bytes.restype = ctypes.c_longlong
+        for fn in (lib.tts_fused_ln_fwd, lib.tts_fused_ln_bwd, lib.tts_keep_mask):
             fn.restype = i
         lib._argtypes_set = True
     return lib
@@ -148,22 +180,20 @@ def fused_ln_forward(x, h, gamma, beta, seed, dropout, eps, mask_rows):
 
 
 def fused_ln_backward(x, h, gamma, dy, seed, dropout, eps, mask_rows):
-    """The backward kernel and its reduce on contiguous (N, D) CUDA tensors:
+    """The backward kernel, one launch, on contiguous (N, D) CUDA tensors:
     (dx, dh, dgamma, dbeta), the last two fp32, or raises."""
     g32 = gamma.float().contiguous()
     _check_cuda_args(x, h, g32, g32, extra=(("dy", dy),))
     n, d = x.shape
-    lib = _lib()
     dx, dh = torch.empty_like(x), torch.empty_like(h)
     dgb = torch.empty((2, d), dtype=torch.float32, device=x.device)
-    part = torch.empty((lib.tts_fused_ln_bwd_blocks(n), 2, d), dtype=torch.float32,
-                       device=x.device)
-    rc = lib.tts_fused_ln_bwd(
+    part = torch.empty(bwd_scratch_floats(n, d), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _lib().tts_fused_ln_bwd(
         int(x.dtype == torch.bfloat16), n, d, x.data_ptr(), h.data_ptr(),
         g32.data_ptr(), dy.data_ptr(), dx.data_ptr(), dh.data_ptr(), dgb.data_ptr(),
-        part.data_ptr(), eps, int(dropout > 0.0), 1.0 - dropout,
-        threshold_of(dropout), seed, mask_rows,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        part.data_ptr(), ticket_counters(x.device, stream).data_ptr(), bwd_blocks(n), eps,
+        int(dropout > 0.0), 1.0 - dropout, threshold_of(dropout), seed, mask_rows, stream)
     if rc != 0:
         raise RuntimeError(f"fused LN backward kernel failed to launch (CUDA error "
                            f"{rc}) for N={n}, D={d}, {x.dtype}")
@@ -217,4 +247,4 @@ def residual_dropout_layernorm(
 
 
 residual_dropout_layernorm.launches_fwd = 0  # forward kernel launches
-residual_dropout_layernorm.launches_bwd = 0  # backward kernel launches (with its reduce)
+residual_dropout_layernorm.launches_bwd = 0  # backward kernel launches
