@@ -6,18 +6,23 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. build: the CUDA kernels of ``transformertts_tpu_torch/ops/csrc`` with
-   nvcc, one process per source, all at once; for the flash, fused-FFN and
-   fused-LN libraries each kernel's registers and spills, ptxas's warnings
-   of serialized wgmma, the dynamic shared memory at the path shapes, and
-   the HGMMA (wgmma) instructions in the SASS (where cuobjdump exists; the
-   tensor-core kernels must hold some);
+   nvcc, one process per source, all at once; for the decode-step, flash,
+   fused-FFN and fused-LN libraries each kernel's registers and spills,
+   ptxas's warnings of serialized wgmma, the dynamic shared memory at the
+   path shapes (the decode step at ``Config()`` and ``paper.yaml`` widths),
+   and the HGMMA (wgmma) instructions in the SASS (where cuobjdump exists;
+   the tensor-core kernels must hold some);
 2. mask: the device ``keep_mask`` against its plain version, bit for bit;
 3. kernel: every kernel against its plain PyTorch version on the card.
    The decode-step kernel (``decode_step_reference``) at the full width of
    ``Config()`` (d_model 256, 3 layers, 4 heads, d_ffn 1024, 80 mels): B in
    {1, 8}, t in {0, 1, 700} with 1,500 cache positions and 192 encoder
    positions, the expected-position output off and on, bf16 and fp32, plus
-   the serving shape (400 positions, 64 encoder positions).  The flash
+   the serving shape (400 positions, 64 encoder positions); and at
+   ``configs/paper.yaml`` widths (d_model 512, 6 layers, 8 heads, d_ffn
+   2,048): B in {1, 8}, t in {0, 700, 1,499}, the same positions, output
+   and dtypes.  Each case is called twice for equal bits, and one call
+   under ``torch.profiler`` must be exactly one kernel launch.  The flash
    attention and residual+dropout+LayerNorm kernels, forward and every
    gradient, at the training path's shapes (B 16, 4 heads of 64; (128, 128),
    causal (768, 768), (768, 128); 12,288 and 2,048 rows of 256) and at odd
@@ -73,13 +78,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    synthetic batches of the train phase, then one evaluation step; per
    optimizer step 48 / 24 FFN forwards / backwards beside the 72 / 36
    flash and 120 / 60 LayerNorm ones;
-10. time: every kernel beside its plain version, its bound and (where
-    PyTorch has a call or a short chain of calls for the same function)
-    that (flash, the LN and the FFN backward also at dropout 0, and flash's
-    host time per eager call),
-    decode frames/s through ``Synthesizer.synthesize`` and both
-    training configurations' ms per step and audio-seconds per second, with
-    the card's name and power limit.
+10. time: the decode-step kernel beside its plain version and its bound
+    at ``Config()`` and ``paper.yaml`` widths, with the host's time per eager
+    call and the kernel's time by stage (its global-timer stamps), and
+    decode frames/s through ``Synthesizer.synthesize``;
+11. time-train: every training and preprocessing kernel beside its plain
+    version, its bound and (where PyTorch has a call or a short chain of
+    calls for the same function) that (flash, the LN and the FFN backward
+    also at dropout 0, and flash's host time per eager call), and both
+    training configurations' ms per step and audio-seconds per second; all
+    timings with the card's name and power limit.
 
 The train phase keeps its 3 checked + 4 timed steps while the whole run stays
 near two minutes; it may drop to 1 + 2 if later phases push the run past that.
@@ -110,7 +118,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, published
 ALL_PHASES = ("build", "mask", "kernel", "decode", "serve", "train-parity", "train",
-              "preprocess", "train-ffn", "time")
+              "preprocess", "train-ffn", "time", "time-train")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max|kernel - plain| / max(1, max|plain|)
 # kernel loop vs plain loop, fp32, 64 fed-back frames: as the CPU test of the
 # port against the JAX loop; the H100 showed at most 1.2e-6 relative
@@ -145,6 +153,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def default_config():
+    from transformertts_tpu_torch.config import Config
+
+    return Config()
+
+
+def paper_config():
+    """``configs/paper.yaml``: d_model 512, 6 + 6 layers, 8 heads, d_ffn 2,048."""
+    from pathlib import Path
+
+    from transformertts_tpu_torch.config import load_config
+
+    return load_config(Path(__file__).resolve().parent / "configs" / "paper.yaml")
+
+
 def perturb_(model, gen) -> None:
     """Random biases and norm parameters, so no bias or LayerNorm offset is
     invisible behind a zero or a one (init leaves them so)."""
@@ -176,7 +199,8 @@ def rel_err(a, b) -> tuple[float, float]:
 
 
 def step_inputs(cfg, b, t, n_pos, tp, dtype, device, seed):
-    """Seeded frame, alpha*PE[t], ragged cross bias and caches for one step."""
+    """Seeded frame, alpha*PE[t], ragged cross bias and caches for one step
+    (the caches drawn on the device, in bulk)."""
     import torch
 
     from transformertts_tpu_torch.models.masks import NEG_INF
@@ -191,9 +215,10 @@ def step_inputs(cfg, b, t, n_pos, tp, dtype, device, seed):
     lens[0] = tp
     bias = torch.from_numpy(
         np.where(np.arange(tp)[None, :] < lens[:, None], 0.0, NEG_INF).astype(np.float32))
-    caches = [torch.from_numpy(rng.standard_normal((L, H, b, n, dh), np.float32)).to(dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    caches = [torch.randn((L, H, b, n, dh), generator=gen, device=device).to(dtype)
               for n in (n_pos, n_pos, tp, tp)]
-    return [x.to(device) for x in (frame, pe_row, bias)], [c.to(device) for c in caches]
+    return [x.to(device) for x in (frame, pe_row, bias)], caches
 
 
 def step_bytes_flops(packed, b, t, tp, cfg):
@@ -284,7 +309,7 @@ def phase_build() -> None:
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         log(f"[build] {path.name}: {len(regs)} kernels, max {max(regs, default=0)} "
             f"registers/thread, spill lines: {spills[:3] or 'none'}")
-    for name in ("flash_attention", "fused_ffn", "fused_ln"):
+    for name in ("decode_step", "flash_attention", "fused_ffn", "fused_ln"):
         kernel_report(name, libs[name])
 
 
@@ -340,6 +365,31 @@ def smem_lines(name: str) -> list[str]:
             raise AssertionError("tts_fused_ffn_shared_bytes refused D = 256")
         return [f"D={TRAIN_D}: forward {smem[0]}, bf16 backward dh {smem[1]}, "
                 f"gradients {smem[2]} bytes"]
+    if name == "decode_step":
+        import torch
+
+        from transformertts_tpu_torch.ops.decode_step import _lib, card_plan
+
+        out = []
+        for what, cfg in (("Config()", default_config()), ("paper.yaml", paper_config())):
+            m = cfg.model
+            for dtype in (torch.bfloat16, torch.float32):
+                for b in (1, 8):
+                    cluster, rows, (_, pieces, lay) = card_plan(
+                        m.decoder_n_layers, m.d_model, m.decoder_d_ffn, m.n_mels,
+                        m.n_mels * m.reduction_factor + m.reduction_factor, b, m.decoder_n_head,
+                        1500, 192, dtype)
+                    held = _lib().tts_decode_step_max_clusters(
+                        int(dtype == torch.bfloat16), rows, lay["smem_bytes"], cluster)
+                    real = pieces[:, :, 3] < (1 << 30)
+                    out.append(
+                        f"{what} {str(dtype)[6:]} B={b}, n_pos 1500, Tp 192: {b // rows} "
+                        f"cluster(s) of {cluster} blocks x {rows} row(s) ({held} held at once), "
+                        f"{lay['smem_bytes']} bytes a block ({lay['ring_bytes']} of them the "
+                        f"weight ring), {int(real.sum(0).max())} weight pieces a block, "
+                        f"{int((real & (pieces[:, :, 3] >= 0)).sum(0).max())} copied after "
+                        f"kernel start")
+        return out
     if name == "fused_ln":
         from transformertts_tpu_torch.ops import fused_ln as ln
 
@@ -386,8 +436,27 @@ def kernel_report(name: str, path) -> None:
             raise AssertionError(f"{name}: no HGMMA instruction in a kernel named *{must}*")
 
 
+def check_one_launch(call, name: str) -> None:
+    """``call()`` under ``torch.profiler`` launches exactly one kernel, and
+    its name holds ``name`` (copies and fills are not kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not any(w in e.name.lower() for w in ("memcpy", "memset"))]
+    if len(kernels) != 1 or name not in kernels[0]:
+        raise AssertionError(f"one call launched {len(kernels)} kernels: {kernels[:30]}")
+    log(f"[kernel] one decode_step call under the profiler: 1 kernel launch ({kernels[0][:80]})")
+
+
 def phase_kernel(cfg, device) -> dict:
-    """Kernel vs plain version; returns the max errors by batch."""
+    """Kernel vs plain version at ``Config()`` and ``paper.yaml`` widths,
+    each case twice for equal bits; returns the max errors by batch."""
     import torch
 
     from transformertts_tpu_torch.ops.decode_step import (
@@ -397,42 +466,59 @@ def phase_kernel(cfg, device) -> dict:
     )
 
     worst: dict[int, float] = {}
-    cases = [(n_pos, tp, t) for n_pos, tp in ((1500, 192),) for t in (0, 1, 700)]
-    cases.append((SERVE_MAX_LEN, 64, 200))  # the serving shape
-    for dtype_name in ("bfloat16", "float32"):
-        dtype = getattr(torch, dtype_name)
-        model = make_model(cfg, dtype, device, seed=1)
-        packed = pack_decode_weights(model, dtype)
-        alpha = float(model.pe.alpha.detach())
-        for b in (1, 8):
-            for n_pos, tp, t in cases:
-                for with_pos in (False, True):
+    runs = [("Config()", cfg, [(1500, 192, t) for t in (0, 1, 700)] + [(SERVE_MAX_LEN, 64, 200)]),
+            ("paper.yaml", paper_config(), [(1500, 192, t) for t in (0, 700, 1499)])]
+    for what, wcfg, cases in runs:
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            model = make_model(wcfg, dtype, device, seed=1)
+            packed = pack_decode_weights(model, dtype)
+            alpha = float(model.pe.alpha.detach())
+            del model
+            for b in (1, 8):
+                for n_pos, tp, t in cases:
                     (frame, pe_row, bias), caches = step_inputs(
-                        cfg, b, t, n_pos, tp, dtype, device, seed=b * 1000 + t)
+                        wcfg, b, t, n_pos, tp, dtype, device, seed=b * 1000 + t)
                     pe_row = alpha * pe_row
-                    work = [c.clone() for c in caches]
-                    out = decode_step(t, frame, pe_row, bias, *work, packed, with_attn_pos=with_pos)
-                    torch.cuda.synchronize()
-                    ref = decode_step_reference(t, frame, pe_row, bias, *caches, packed, with_pos)
-                    errs = []
-                    for name, o, r in zip(("y", "k_new", "v_new", "pos"), out, ref):
-                        err, rel = rel_err(o, r)
-                        errs.append(f"{name} {err:.2e}")
-                        worst[b] = max(worst.get(b, 0.0), err)
-                        if not rel <= TOL[dtype_name]:
-                            raise AssertionError(
-                                f"kernel != plain: {dtype_name} B={b} t={t} n_pos={n_pos} "
-                                f"tp={tp} pos={with_pos} {name}: rel err {rel:.3g}")
-                    for c, new, orig in ((work[0], out[1], caches[0]), (work[1], out[2], caches[1])):
-                        if not torch.equal(c[:, :, :, t], new):
-                            raise AssertionError("kernel did not write the new row at t")
-                        keep = torch.arange(n_pos, device=device) != t
-                        if not torch.equal(c[:, :, :, keep], orig[:, :, :, keep]):
-                            raise AssertionError("kernel changed cache rows other than t")
-                    if not all(torch.isfinite(o).all() for o in out):
-                        raise AssertionError("kernel output not finite")
-                    log(f"[kernel] {dtype_name:8s} B={b} t={t:4d} n_pos={n_pos} tp={tp} "
-                        f"pos={int(with_pos)}: " + ", ".join(errs))
+                    for with_pos in (False, True):
+                        work = [c.clone() for c in caches]
+                        out = decode_step(t, frame, pe_row, bias, *work, packed,
+                                          with_attn_pos=with_pos)
+                        again = decode_step(t, frame, pe_row, bias, *work, packed,
+                                            with_attn_pos=with_pos)
+                        torch.cuda.synchronize()
+                        if not all(torch.equal(x, y) for x, y in zip(out, again)):
+                            raise AssertionError(f"{what} {dtype_name} B={b} t={t}: a second "
+                                                 f"call gave other bits")
+                        ref = decode_step_reference(t, frame, pe_row, bias, *caches, packed,
+                                                    with_pos)
+                        errs = []
+                        for name, o, r in zip(("y", "k_new", "v_new", "pos"), out, ref):
+                            err, rel = rel_err(o, r)
+                            errs.append(f"{name} {err:.2e}")
+                            worst[b] = max(worst.get(b, 0.0), err)
+                            if not rel <= TOL[dtype_name]:
+                                raise AssertionError(
+                                    f"kernel != plain: {what} {dtype_name} B={b} t={t} "
+                                    f"n_pos={n_pos} tp={tp} pos={with_pos} {name}: rel err {rel:.3g}")
+                        for c, new, orig in ((work[0], out[1], caches[0]),
+                                             (work[1], out[2], caches[1])):
+                            if not torch.equal(c[:, :, :, t], new):
+                                raise AssertionError("kernel did not write the new row at t")
+                            keep = torch.arange(n_pos, device=device) != t
+                            if not torch.equal(c[:, :, :, keep], orig[:, :, :, keep]):
+                                raise AssertionError("kernel changed cache rows other than t")
+                        if not all(torch.isfinite(o).all() for o in out):
+                            raise AssertionError("kernel output not finite")
+                        log(f"[kernel] {what} {dtype_name:8s} B={b} t={t:4d} n_pos={n_pos} "
+                            f"tp={tp} pos={int(with_pos)}: " + ", ".join(errs) + ", equal bits")
+                    del work, caches
+            if what == "Config()" and dtype_name == "bfloat16":
+                (frame, pe_row, bias), caches = step_inputs(
+                    wcfg, 1, 200, SERVE_MAX_LEN, 64, dtype, device, seed=5)
+                check_one_launch(
+                    lambda: decode_step(200, frame, pe_row, bias, *caches, packed),
+                    "decode_step_kernel")
     return worst
 
 
@@ -861,6 +947,34 @@ def phase_serve(cfg, device, synth, default_threshold: float) -> dict:
     return {"b1": launches - batched, "batched": batched}
 
 
+def log_stage_times(what, b, t, step_args, packed, card: str, calls: int = 20) -> None:
+    """The decode kernel's time by stage at one shape: the median over
+    ``calls`` calls of each stage's work (slowest block) and grid-barrier
+    wait, from the kernel's global-timer stamps."""
+    import statistics
+
+    import torch
+
+    from transformertts_tpu_torch.ops.decode_step import _prepared_step, stage_times
+
+    frame, pe_row, bias, caches = step_args
+    step = _prepared_step(*caches, packed, False)
+    names = step.stages(t)
+    runs = []
+    for _ in range(calls):
+        tl = step.timeline_buffer()
+        step(t, frame, pe_row, bias, timeline=tl)
+        torch.cuda.synchronize()
+        runs.append(stage_times(tl, len(names) - 1))
+    med = [(statistics.median(r[i][0] for r in runs), statistics.median(r[i][1] for r in runs))
+           for i in range(len(names))]
+    work, wait = sum(m[0] for m in med), sum(m[1] for m in med)
+    log(f"[time] {what} bf16 B={b} t={t} by stage (median of {calls} calls, global timer): "
+        f"{len(names)} stages, work {work:.1f} us, barrier waits {wait:.1f} us "
+        f"({wait / max(1, len(names) - 1):.2f} us each) [{card}]")
+    log("[time]   " + ", ".join(f"{n} {w:.2f}+{x:.2f}" for n, (w, x) in zip(names, med)))
+
+
 def phase_time(cfg, device, synth, card: str) -> dict:
     import torch
 
@@ -870,27 +984,37 @@ def phase_time(cfg, device, synth, card: str) -> dict:
         pack_decode_weights,
     )
 
-    model = make_model(cfg, torch.bfloat16, device, seed=1)
-    packed = pack_decode_weights(model, torch.bfloat16)
+    from transformertts_tpu_torch.ops import decode_step as decode_module
+
+    stamps = hasattr(decode_module, "stage_times")  # (an earlier kernel in a same-call A/B has none)
     rows = {}
-    shapes = [(1500, 192, 0), (1500, 192, 700), (SERVE_MAX_LEN, 64, 200)]
-    for b in (1, 8):
-        for n_pos, tp, t in shapes:
-            (frame, pe_row, bias), caches = step_inputs(
-                cfg, b, t, n_pos, tp, torch.bfloat16, device, seed=7)
-            kern = lambda: decode_step(t, frame, pe_row, bias, *caches, packed)  # noqa: E731
-            plain = lambda: decode_step_reference(  # noqa: E731
-                t, frame, pe_row, bias, *caches, packed)
-            call = time_ms(kern, 200, 10)  # back-to-back calls: host launch cost included
-            ms, plain_ms = device_ms(kern), device_ms(plain, n=5, reps=4)
-            nbytes, flops = step_bytes_flops(packed, b, t, tp, cfg)
-            bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
-            by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS else "operations"
-            rows[(b, n_pos, tp, t)] = (ms, plain_ms, bound, by)
-            log(f"[time] bf16 B={b} n_pos={n_pos} tp={tp} t={t}: kernel {ms * 1e3:.1f} us/step "
-                f"on the device ({call * 1e3:.1f} us per eager call), plain "
-                f"{plain_ms * 1e3:.1f} us/step, bound {bound * 1e3:.2f} us ({by}, "
-                f"{nbytes / 1e6:.2f} MB) [{card}]")
+    for what, wcfg, shapes in (
+            ("Config()", cfg, [(1500, 192, 0), (1500, 192, 700), (SERVE_MAX_LEN, 64, 200)]),
+            ("paper.yaml", paper_config(), [(1500, 192, 700), (SERVE_MAX_LEN, 64, 200)])):
+        model = make_model(wcfg, torch.bfloat16, device, seed=1)
+        packed = pack_decode_weights(model, torch.bfloat16)
+        del model
+        for b in (1, 8):
+            for n_pos, tp, t in shapes:
+                (frame, pe_row, bias), caches = step_inputs(
+                    wcfg, b, t, n_pos, tp, torch.bfloat16, device, seed=7)
+                kern = lambda: decode_step(t, frame, pe_row, bias, *caches, packed)  # noqa: E731
+                plain = lambda: decode_step_reference(  # noqa: E731
+                    t, frame, pe_row, bias, *caches, packed)
+                call = time_ms(kern, 200, 10)  # back-to-back calls: host launch cost included
+                host = host_us(kern)
+                ms, plain_ms = device_ms(kern), device_ms(plain, n=5, reps=4)
+                nbytes, flops = step_bytes_flops(packed, b, t, tp, wcfg)
+                bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
+                by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS else "operations"
+                rows[(what, b, n_pos, tp, t)] = (ms, plain_ms, bound, by)
+                if (n_pos, tp, t) in ((SERVE_MAX_LEN, 64, 200), (1500, 192, 700)) and stamps:
+                    log_stage_times(what, b, t, (frame, pe_row, bias, caches), packed, card)
+                log(f"[time] {what} bf16 B={b} n_pos={n_pos} tp={tp} t={t}: kernel "
+                    f"{ms * 1e3:.1f} us/step on the device ({call * 1e3:.1f} us per eager call "
+                    f"back to back, {host:.1f} us of host time), plain {plain_ms * 1e3:.1f} "
+                    f"us/step, bound {bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB) [{card}]")
+            del caches
     for b in (1, 8):
         synth.synthesize(TEXTS[:b], max_len=32)  # warm
         torch.cuda.synchronize()
@@ -1568,7 +1692,7 @@ def main(argv=None) -> int:
         phase_train_parity(cfg, device)
         phase_train_parity(with_fused_ffn(cfg), device, batch_seed=12)
     train, train_ffn, prep = {}, {}, {}
-    timed = 4 if "time" in phases else 0
+    timed = 4 if "time-train" in phases else 0
     if "train" in phases:
         train = phase_train(cfg, device, card, timed_steps=timed, profile=args.profile)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1581,8 +1705,8 @@ def main(argv=None) -> int:
     if train and train_ffn and timed:
         log(f"[time] train step, fused FFN off / on: {train['step_ms']:.1f} / "
             f"{train_ffn['step_ms']:.1f} ms [{card}]")
-    train_rows = phase_time_train(device, card) if "time" in phases else {}
-    if "time" in phases:
+    train_rows = phase_time_train(device, card) if "time-train" in phases else {}
+    if "time-train" in phases:
         train_rows.update(phase_time_ffn_mel(device, card))
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
 
@@ -1594,7 +1718,7 @@ def main(argv=None) -> int:
     kernels = []
     for b, name, line, key in ((1, "decode_step", 300, "b1"),
                                (8, "decode_step_batched", 532, "batched")):
-        ms, plain, bound, by = rows[(b, SERVE_MAX_LEN, 64, 200)]
+        ms, plain, bound, by = rows[("Config()", b, SERVE_MAX_LEN, 64, 200)]
         kernels.append({
             "name": f"{name} (B={b}, bf16, n_pos {SERVE_MAX_LEN}, Tp 64, t 200)",
             "route": "cuda", "source": src + "decode_step.cu",
@@ -1602,6 +1726,9 @@ def main(argv=None) -> int:
             "launches": launches[key], "max_abs_err": worst[b],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
+            "shapes": {f"{what} n_pos {n_pos} Tp {tp} t {t}": dict(
+                zip(("ms", "plain_ms", "bound_ms", "bound_by"), r))
+                for (what, rb, n_pos, tp, t), r in rows.items() if rb == b},
         })
     # rows 3-9: the record's numbers are those of the largest shape on the
     # path; "shapes" holds every shape of the path

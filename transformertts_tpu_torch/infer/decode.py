@@ -8,10 +8,11 @@ Two loops with one result:
   row per step, a row stops voting when ``sigmoid(stop) >= threshold`` and
   the loop ends when every row has voted or at ``max_len``;
 - the kernel loop mirrors ``_megakernel_decode(_batched)``
-  (``decode.py:522-685``): each step is ONE call of
-  ``ops.decode_step.decode_step``, the CUDA kernel chain on the GPU.  A
-  batch larger than the kernel takes is decoded as consecutive chunks of
-  rows, each chunk to its own stop.
+  (``decode.py:522-685``): each step is ONE launch of the decode-step
+  kernel on the GPU, through an ``ops.decode_step.DecodeStep`` prepared
+  once per chunk of rows (checks, plan, buffers), so a step costs the host
+  one C call.  A batch larger than the kernel takes is decoded as
+  consecutive chunks of rows, each chunk to its own stop.
 
 On the GPU the kernel loop is the decode path; the plain loop runs there
 only when the caller asks for it by name (``use_kernel=False``), as a
@@ -36,7 +37,12 @@ from transformertts_tpu_torch.config import Config
 from transformertts_tpu_torch.device import resolve_device
 from transformertts_tpu_torch.models.masks import NEG_INF, padding_bias
 from transformertts_tpu_torch.models.modules import sinusoid_table
-from transformertts_tpu_torch.ops.decode_step import MAX_BATCH, decode_step, pack_decode_weights
+from transformertts_tpu_torch.ops.decode_step import (
+    MAX_BATCH,
+    DecodeStep,
+    decode_step,
+    pack_decode_weights,
+)
 
 
 def per_row_lengths(stops: torch.Tensor, n_frames: int, stop_threshold: float) -> torch.Tensor:
@@ -207,8 +213,9 @@ def _plain_loop(model, cfg, cross_kv, cross_bias, n_pos, max_len, stop_threshold
 
 
 def _kernel_loop(model, cfg, packed, cross_kv, cross_bias, n_pos, max_len, stop_threshold):
-    """One ``decode_step`` call per step (the megakernel loops of the JAX
-    package); caches in the kernel's (L, H, B, T, dh) layout."""
+    """One decode-step launch per step (the megakernel loops of the JAX
+    package); caches in the kernel's (L, H, B, T, dh) layout.  On the CPU
+    the step is ``decode_step``'s plain version."""
     m = cfg.model
     r, n_mels, n_heads = m.reduction_factor, m.n_mels, m.decoder_n_head
     b, tp = cross_bias.shape[0], cross_bias.shape[-1]
@@ -225,17 +232,22 @@ def _kernel_loop(model, cfg, packed, cross_kv, cross_bias, n_pos, max_len, stop_
     self_k = torch.zeros(shape, dtype=dtype, device=dev)
     self_v = torch.zeros(shape, dtype=dtype, device=dev)
     center = torch.zeros((b,), dtype=torch.float32, device=dev)
+    if dev.type == "cuda":
+        step = DecodeStep(self_k, self_v, ck, cv, packed, with_attn_pos=attn_win > 0)
+    else:
+        def step(t, frame, pe_row, cb):
+            return decode_step(t, frame, pe_row, cb, self_k, self_v, ck, cv, packed,
+                               with_attn_pos=attn_win > 0)
     t = 0
     while t < n_pos and not bool(stopped.all()):
-        frame = frames[:, t * r].contiguous()  # (B, n_mels)
+        frame = frames[:, t * r]  # (B, n_mels), rows apart in the frame buffer
         pe_row = pe_table[t: t + 1]
         if attn_win > 0:
             cb_t = (cbias + _window_bias(center, tp, attn_win)).contiguous()
-            y, _, _, exp_pos = decode_step(
-                t, frame, pe_row, cb_t, self_k, self_v, ck, cv, packed, with_attn_pos=True)
+            y, _, _, exp_pos = step(t, frame, pe_row, cb_t)
             center = torch.maximum(center, exp_pos[:, 0])
         else:
-            y, _, _ = decode_step(t, frame, pe_row, cbias, self_k, self_v, ck, cv, packed)
+            y, _, _ = step(t, frame, pe_row, cbias)
         stop_t = y[:, n_mels * r:]
         frames[:, t * r + 1: t * r + 1 + r] = y[:, : n_mels * r].reshape(b, r, n_mels)
         stops[:, t * r: t * r + r] = stop_t
