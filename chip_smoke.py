@@ -7,11 +7,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. build: the CUDA kernels of ``transformertts_tpu_torch/ops/csrc`` with
    nvcc, one process per source, all at once; for the decode-step, flash,
-   fused-FFN and fused-LN libraries each kernel's registers and spills,
-   ptxas's warnings of serialized wgmma, the dynamic shared memory at the
-   path shapes (the decode step at ``Config()`` and ``paper.yaml`` widths),
-   and the HGMMA (wgmma) instructions in the SASS (where cuobjdump exists;
-   the tensor-core kernels must hold some);
+   fused-FFN, fused-LN and log-mel libraries each kernel's registers and
+   spills, ptxas's warnings of serialized wgmma (one on the bf16 FFN forward
+   fails the run), the dynamic shared memory at the path shapes (the decode
+   step at ``Config()`` and ``paper.yaml`` widths; the bf16 FFN forward's
+   and the log-mel FFT kernel's plans against the libraries' own sizes), the
+   HGMMA (wgmma) instructions in the SASS (where cuobjdump exists; the
+   tensor-core kernels must hold some) and the bf16 FFN forward's SASS
+   instructions per intermediate element;
 2. mask: the device ``keep_mask`` against its plain version, bit for bit;
 3. kernel: every kernel against its plain PyTorch version on the card.
    The decode-step kernel (``decode_step_reference``) at the full width of
@@ -37,11 +40,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    d_model narrower than a block's 256 output columns, the two wider models
    of ``configs/`` at (512, 2,048) and (1,024, 4,096), a width where bf16 and
    fp32 key the mask on different block heights), fp32 and bf16, dropout 0 and 0.1,
-   each backward twice for equal bits.  The log-mel kernel at one clip
-   (``center=True``, a length that is no multiple of the hop), at a batch of
-   32 rows of 163,840 samples (``center=False``, as ``preprocess`` sends
-   them) and at lengths that rule out 16-byte loads, against its plain
-   version and against ``mel_spectrogram_np``;
+   each forward and backward twice for equal bits (bf16 forwards on the
+   tensor-core kernel, fp32 on the CUDA-core one).  The log-mel FFT kernel
+   at one clip (``center=True``, a length that is no multiple of the hop),
+   at a batch of 32 rows of 163,840 samples (``center=False``, as
+   ``preprocess`` sends them), at lengths that rule out 16-byte loads and at
+   n_fft 512 and 2,048, and the dense kernel at n_fft 800 with a window of
+   640, each against its plain version and against ``mel_spectrogram_np``,
+   and each call checked to have launched the kernel its n_fft selects;
 4. decode: the full decode through the kernel loop against the plain loop,
    fp32 weights, B = 2 with ragged lengths, 64 forced frames, W = 0 and 2;
 5. serve: the serving path, ``make_http_server`` -> ``DynamicBatcher`` ->
@@ -69,8 +75,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    port's ``preprocess`` runs on it with ``runtime.use_pallas_mel`` on the
    card, and the npz keys, ``stats.json``, every clip's frame count and
    every mel (against ``mel_spectrogram_np`` under the same statistics) are
-   checked; the log-mel kernel's launch count is zeroed before and must be
-   twice the number of 32-clip chunks after;
+   checked; the log-mel kernels' launch counts are zeroed before, and after
+   the FFT kernel's must be twice the number of 32-clip chunks and the dense
+   kernel's 0;
 9. train-ffn: the training path with ``runtime.use_pallas_fused_ffn`` on.
    The first optimizer step takes a batch that ``BucketedLoader`` over
    ``LJSpeechDataset`` (through ``prefetch``) reads from what the
@@ -84,10 +91,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     decode frames/s through ``Synthesizer.synthesize``;
 11. time-train: every training and preprocessing kernel beside its plain
     version, its bound and (where PyTorch has a call or a short chain of
-    calls for the same function) that (flash, the LN and the FFN backward
-    also at dropout 0, and flash's host time per eager call), and both
-    training configurations' ms per step and audio-seconds per second; all
-    timings with the card's name and power limit.
+    calls for the same function) that (flash, the LN and the FFN kernels
+    also at dropout 0, and flash's host time per eager call; the FFN forward
+    also at ``paper.yaml`` widths; the log-mel FFT kernel beside the dense
+    one and the operations each does), and both training configurations' ms
+    per step and audio-seconds per second; all timings with the card's name
+    and power limit.
 
 The train phase keeps its 3 checked + 4 timed steps while the whole run stays
 near two minutes; it may drop to 1 + 2 if later phases push the run past that.
@@ -309,7 +318,7 @@ def phase_build() -> None:
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         log(f"[build] {path.name}: {len(regs)} kernels, max {max(regs, default=0)} "
             f"registers/thread, spill lines: {spills[:3] or 'none'}")
-    for name in ("decode_step", "flash_attention", "fused_ffn", "fused_ln"):
+    for name in ("decode_step", "flash_attention", "fused_ffn", "fused_ln", "log_mel"):
         kernel_report(name, libs[name])
 
 
@@ -363,8 +372,23 @@ def smem_lines(name: str) -> list[str]:
         smem = (ctypes.c_longlong * 3)()
         if ffn._lib().tts_fused_ffn_shared_bytes(TRAIN_D, smem) != 0:
             raise AssertionError("tts_fused_ffn_shared_bytes refused D = 256")
-        return [f"D={TRAIN_D}: forward {smem[0]}, bf16 backward dh {smem[1]}, "
-                f"gradients {smem[2]} bytes"]
+        out = [f"D={TRAIN_D}: fp32 forward {smem[0]}, bf16 backward dh {smem[1]}, "
+               f"gradients {smem[2]} bytes"]
+        # the bf16 forward: the plan's sizes against the library's own
+        for n, d, f in ((FFN_ROWS["decoder"], TRAIN_D, TRAIN_F), (FFN_ROWS["encoder"], TRAIN_D, TRAIN_F),
+                        (1000, 512, 2048), (264, 1024, 4096)):
+            pl = ffn.fwd_plan(n, d, f)
+            lib = (ctypes.c_longlong * 2)()
+            if ffn._lib().tts_fused_ffn_fwd_tc_bytes(d, f, pl["stages"], lib) != 0:
+                raise AssertionError(f"tts_fused_ffn_fwd_tc_bytes refused D = {d}")
+            if (lib[0], lib[1]) != (pl["smem"], pl["staged_bytes"]):
+                raise AssertionError(f"fwd_plan {pl['smem']}, {pl['staged_bytes']} != library "
+                                     f"{lib[0]}, {lib[1]} bytes at D = {d}, F = {f}")
+            out.append(f"bf16 forward N={n} D={d} F={f}: {pl['smem']} bytes ({pl['stages']} ring "
+                       f"stages of d_ffn slices of {pl['s']}), grid {pl['grid']} of "
+                       f"{pl['threads']} threads, clusters of {pl['fsplit']}, staged weights "
+                       f"{pl['staged_bytes']} bytes")
+        return out
     if name == "decode_step":
         import torch
 
@@ -390,6 +414,18 @@ def smem_lines(name: str) -> list[str]:
                         f"{int((real & (pieces[:, :, 3] >= 0)).sum(0).max())} copied after "
                         f"kernel start")
         return out
+    if name == "log_mel":
+        from transformertts_tpu_torch.ops import stft
+
+        out = []
+        for n_fft, hop in ((AUDIO["n_fft"], AUDIO["hop_length"]), (512, 128), (2048, 512)):
+            pl = stft.mel_kernel_plan(n_fft, hop, AUDIO["n_mels"])
+            lib = stft._lib().tts_log_mel_fft_smem(n_fft, hop, AUDIO["n_mels"], pl["fpb"])
+            if lib != pl["smem"]:
+                raise AssertionError(f"mel_kernel_plan {pl['smem']} != library {lib} bytes")
+            out.append(f"FFT n_fft={n_fft} hop={hop}: {lib} bytes, {pl['fpb']} frames a block, "
+                       f"radices {pl['radices']}")
+        return out
     if name == "fused_ln":
         from transformertts_tpu_torch.ops import fused_ln as ln
 
@@ -413,6 +449,8 @@ def kernel_report(name: str, path) -> None:
     # to the slow path of a float division
     serialized = [ln.strip() for ln in report.splitlines() if "serialized" in ln]
     log(f"[build] {name}: wgmma serialization warnings: {serialized[:4] or 'none'}")
+    if any("ffn_fwd_tc" in ln for ln in serialized):
+        raise AssertionError(f"{name}: ptxas serialized the wgmma of the bf16 forward")
     for line in smem_lines(name):
         log(f"[build] {name} dynamic shared memory per block, {line}")
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
@@ -422,18 +460,29 @@ def kernel_report(name: str, path) -> None:
         return
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    counts, fn = {}, None
+    counts, fn, body = {}, None, {}
     for ln in sass.splitlines():
         if "Function :" in ln:
             fn = ln.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in ln:
-            counts[fn] += 1
+            counts[fn], body[fn] = 0, []
+        elif fn is not None and "/*" in ln and ";" in ln:
+            body[fn].append(ln)
+            counts[fn] += "HGMMA" in ln
     per = ", ".join(f"{short} {n}" for short, n in zip(demangle(list(counts)), counts.values()))
     log(f"[build] {name}: {sum(counts.values())} HGMMA instructions in the SASS ({per})")
-    for must in {"fused_ffn": ("ffn_dh_tc", "ffn_grad_tc"), "flash_attention": ("_tc",)}.get(name, ()):
+    for must in {"fused_ffn": ("ffn_dh_tc", "ffn_grad_tc", "ffn_fwd_tc"),
+                 "flash_attention": ("_tc",)}.get(name, ()):
         if not any(must in fn and n > 0 for fn, n in counts.items()):
             raise AssertionError(f"{name}: no HGMMA instruction in a kernel named *{must}*")
+    for fn, lines in body.items():
+        if "ffn_fwd_tc" in fn and "ILi64E" in fn:
+            # the slice's epilogue: the instructions between the last product of
+            # hp and the first of y, for the 32 intermediate elements a thread holds
+            at = [i for i, ln in enumerate(lines) if "HGMMA" in ln]
+            gap = max((b - a - 1 for a, b in zip(at, at[1:])), default=0)
+            log(f"[build] fused_ffn: ffn_fwd_tc<64>: {len(lines)} SASS instructions; the widest "
+                f"gap between two HGMMAs (the slice's epilogue) {gap} instructions, "
+                f"{gap / 32:.1f} per intermediate element")
 
 
 def check_one_launch(call, name: str) -> None:
@@ -813,8 +862,23 @@ def check_mel(tag, out, plain, refs, worst) -> None:
         f"{len(refs)} clips max {np_max:.2e} mean {np_mean:.2e}")
 
 
+def ran_kernel(call, want: str, device):
+    """``call()``'s result, after checking that on the card it launched the
+    log-mel kernel ``want`` ("fft" or "dense") once and no other."""
+    from transformertts_tpu_torch.ops.stft import log_mel
+
+    before = (log_mel.launches_fft, log_mel.launches_dense)
+    out = call()
+    ran = (log_mel.launches_fft - before[0], log_mel.launches_dense - before[1])
+    if device.type == "cuda" and ran != ((1, 0) if want == "fft" else (0, 1)):
+        raise AssertionError(f"log_mel launched {ran} (FFT, dense) kernels, wanted one {want}")
+    return out
+
+
 def phase_mel_kernel(device) -> dict:
-    """Row 9 against its plain version and the numpy FFT; worst abs errors."""
+    """Row 9 against its plain version and the numpy FFT; worst abs errors.
+    Config()'s n_fft 1,024 and 512, 2,048 run on the FFT kernel, 800 on the
+    dense one."""
     import torch
 
     from transformertts_tpu_torch.dsp import mel_spectrogram_np
@@ -826,7 +890,7 @@ def phase_mel_kernel(device) -> dict:
     # one clip, center=True, 5 s: 110,250 samples, no multiple of the hop
     y = clip_signal(rng, 110250)
     t = torch.from_numpy(y).to(device)
-    out = log_mel(t, **AUDIO)
+    out = ran_kernel(lambda: log_mel(t, **AUDIO), "fft", device)
     if out.shape != (AUDIO["n_mels"], 1 + len(y) // hop):
         raise AssertionError(f"log_mel: {tuple(out.shape)} for {len(y)} samples")
     check_mel("one clip, center", out[None], log_mel(t, plain=True, **AUDIO)[None],
@@ -834,7 +898,7 @@ def phase_mel_kernel(device) -> dict:
     # the batch preprocess sends: 32 clips of 2-7.3 s in one 163,840-sample bucket
     clips = [clip_signal(rng, int(n)) for n in rng.integers(44100, MEL_BUCKET_LEN - 1024, MEL_BATCH)]
     t = torch.from_numpy(padded_batch(clips, MEL_BUCKET_LEN)).to(device)
-    out = log_mel(t, center=False, **AUDIO)
+    out = ran_kernel(lambda: log_mel(t, center=False, **AUDIO), "fft", device)
     if out.shape != (MEL_BATCH, AUDIO["n_mels"], 1 + (MEL_BUCKET_LEN - 1024) // hop):
         raise AssertionError(f"log_mel: {tuple(out.shape)} for the batch")
     check_mel(f"batch of {MEL_BATCH}, center=False", out, log_mel(t, center=False, plain=True, **AUDIO),
@@ -842,8 +906,19 @@ def phase_mel_kernel(device) -> dict:
     # rows whose starts rule out 16-byte loads (odd padded length), center=True
     clips = [clip_signal(rng, 40001) for _ in range(3)]
     t = torch.from_numpy(np.stack(clips)).to(device)
-    check_mel("3 clips of 40,001, center", log_mel(t, **AUDIO), log_mel(t, plain=True, **AUDIO),
-              [mel_spectrogram_np(c, **AUDIO) for c in clips], worst)
+    check_mel("3 clips of 40,001, center", ran_kernel(lambda: log_mel(t, **AUDIO), "fft", device),
+              log_mel(t, plain=True, **AUDIO), [mel_spectrogram_np(c, **AUDIO) for c in clips],
+              worst)
+    # the FFT kernel's other sizes, and the dense kernel at an n_fft that is no
+    # power of two with a window shorter than the frame; 2 clips, center=True
+    for n_fft, hop_, win, want in ((512, 128, 512, "fft"), (2048, 512, 2048, "fft"),
+                                   (800, 200, 640, "dense")):
+        kw = dict(AUDIO, n_fft=n_fft, hop_length=hop_, win_length=win)
+        clips = [clip_signal(rng, 60001) for _ in range(2)]
+        t = torch.from_numpy(np.stack(clips)).to(device)
+        check_mel(f"2 clips of 60,001, n_fft {n_fft}, hop {hop_}, window {win} ({want})",
+                  ran_kernel(lambda: log_mel(t, **kw), want, device), log_mel(t, plain=True, **kw),
+                  [mel_spectrogram_np(c, **kw) for c in clips], worst)
     torch.cuda.synchronize()
     return worst
 
@@ -1191,7 +1266,7 @@ def profile_step(run_step, step_ms: float, card: str, top: int = 14) -> None:
         f"{sum(v[1] for v in flash)} kernels, {100 * sum(v[0] for v in flash) / 1e3 / busy_ms:.1f} % "
         f"of the device's busy time")
     for what, keys in (("fused LN forward", ("ln_fwd_kernel",)), ("fused LN backward", ("ln_bwd_kernel",)),
-                       ("fused FFN forward", ("ffn_fwd_kernel",)),
+                       ("fused FFN forward", ("ffn_fwd_kernel", "ffn_fwd_tc", "ffn_stage_weights")),
                        ("fused FFN backward", ("ffn_dx", "ffn_dw", "ffn_dh", "ffn_grad", "ffn_reduce",
                                                "ffn_cast"))):
         sel = [v for name, v in by_name.items() if any(k in name for k in keys)]
@@ -1339,15 +1414,16 @@ def phase_preprocess(cfg, device, root) -> dict:
     pcfg = cfg.replace(
         path=dataclasses.replace(cfg.path, data=str(root / "LJSpeech-1.1"), preprocessed=str(out)),
         runtime=dataclasses.replace(cfg.runtime, use_pallas_mel=True))
-    log_mel.launches = 0
+    log_mel.launches = log_mel.launches_fft = log_mel.launches_dense = 0
     t0 = time.perf_counter()
     preprocess(pcfg, device=device)
     t_prep = time.perf_counter() - t0
-    launches = log_mel.launches
+    launches = log_mel.launches_fft
     chunks = -(-N_CLIPS // _DEVICE_MEL_BATCH)
-    # the statistics pass and the saving pass both extract
-    if device.type == "cuda" and launches != 2 * chunks:
-        raise AssertionError(f"preprocess: {launches} log-mel launches, expected {2 * chunks}")
+    # the statistics pass and the saving pass both extract, on the FFT kernel
+    if device.type == "cuda" and (launches, log_mel.launches_dense) != (2 * chunks, 0):
+        raise AssertionError(f"preprocess: {launches} FFT and {log_mel.launches_dense} dense "
+                             f"log-mel launches, expected {2 * chunks} and 0")
     files = sorted(out.glob("*.npz"))
     if [p.stem for p in files] != sorted(lengths):
         raise AssertionError(f"preprocess wrote {len(files)} npz files for {N_CLIPS} clips")
@@ -1375,7 +1451,7 @@ def phase_preprocess(cfg, device, root) -> dict:
     audio_s = sum(lengths.values()) / AUDIO["sample_rate"]
     log(f"[preprocess] {N_CLIPS} clips, {audio_s:.0f} audio-s, {frames} frames: corpus written in "
         f"{t_write:.1f} s, preprocess (two passes, g2p, npz) {t_prep:.1f} s = "
-        f"{audio_s / t_prep:.0f} audio-s/s; {launches} log-mel launches for {chunks} chunks of "
+        f"{audio_s / t_prep:.0f} audio-s/s; {launches} log-mel FFT launches for {chunks} chunks of "
         f"{_DEVICE_MEL_BATCH}; stats mean {stats['mean']:.4f} std {stats['std']:.4f}; vs numpy FFT "
         f"max {worst_max:.2e} mean {worst_mean:.2e}")
     return {"launches": launches, "dir": out}
@@ -1556,9 +1632,31 @@ def phase_time_ffn_mel(device, card: str) -> dict:
         log(f"[time] {kernel} {shape} {note}: kernel {ms * 1e3:.1f} us, plain "
             f"{plain * 1e3:.1f} us, bound {bound * 1e3:.2f} us ({by}), library {lib_txt} [{card}]")
 
-    for name, n in FFN_ROWS.items():
+    def time_fwd(name, n, d, f):
+        """The bf16 forward (staging and kernel) at p and at 0, its plain
+        version, bound and library chain; returns the inputs."""
         x, w1, b1, w2, b2, dy = ffn_inputs(n, d, f, dtype, device, seed=n)
         rows_m = ffn.pick_rows(n, d, f, es)
+        lw1, lb1, lw2, lb2 = (t.to(dtype) for t in (w1, b1, w2, b2))
+        with torch.no_grad():
+            lib_f = device_ms(lambda: F.linear(torch.relu(F.linear(x, lw1, lb1)), lw2, lb2))
+        f_bound, f_by = bound_ms(2 * n * d * es + 2 * d * f * 4 + (f + d) * 4, 4 * n * d * f,
+                                 PEAK_BF16_FLOPS)
+        fwd = device_ms(lambda: ffn.fused_ffn_forward(x, w1, b1, w2, b2, 99, p, rows_m),
+                        n=10, reps=5)
+        report("ffn_fwd", name, fwd,
+               time_ms(lambda: ffn.fused_ffn_reference(x, w1, b1, w2, b2, 99, p, rows_m), 5, 2),
+               f_bound, f_by, lib_f, f"N={n} D={d} F={f} bf16 p={p}")
+        fwd0 = device_ms(lambda: ffn.fused_ffn_forward(x, w1, b1, w2, b2, 99, 0.0, rows_m),
+                         n=10, reps=5)
+        pl = ffn.fwd_plan(n, d, f)
+        log(f"[time] ffn_fwd {name} at p=0: {fwd0 * 1e3:.1f} us (the mask hash and division: "
+            f"{100 * (1 - fwd0 / fwd):.0f} % of the p={p} time); plan: clusters of "
+            f"{pl['fsplit']}, grid {pl['grid']}, ring of {pl['stages']} [{card}]")
+        return x, w1, b1, w2, b2, dy, rows_m
+
+    for name, n in FFN_ROWS.items():
+        x, w1, b1, w2, b2, dy, rows_m = time_fwd(name, n, d, f)
         args = (99, p, rows_m)
         lw1, lb1, lw2, lb2 = (t.to(dtype).requires_grad_(True) for t in (w1, b1, w2, b2))
         lx = x.detach().requires_grad_(True)
@@ -1566,21 +1664,13 @@ def phase_time_ffn_mel(device, card: str) -> dict:
         def lib_fwd(x_=lx):
             return F.linear(torch.relu(F.linear(x_, lw1, lb1)), lw2, lb2)
 
-        with torch.no_grad():
-            lib_f = device_ms(lambda: lib_fwd(x))
         lib_b = device_ms(
             lambda ly: torch.autograd.grad(ly, (lx, lw1, lb1, lw2, lb2), dy, retain_graph=True),
             setup=lib_fwd)
         w_bytes = 2 * d * f * 4  # the fp32 parameters as they lie
-        f_bound, f_by = bound_ms(2 * n * d * es + w_bytes + (f + d) * 4, 4 * n * d * f,
-                                 PEAK_BF16_FLOPS)
         b_bound, b_by = bound_ms(3 * n * d * es + w_bytes + f * 4 + (2 * d * f + f + d) * 4,
                                  10 * n * d * f, PEAK_BF16_FLOPS)
         shape = f"N={n} D={d} F={f} bf16 p={p}"
-        report("ffn_fwd", name,
-               device_ms(lambda: ffn.fused_ffn_forward(x, w1, b1, w2, b2, *args), n=10, reps=5),
-               time_ms(lambda: ffn.fused_ffn_reference(x, w1, b1, w2, b2, *args), 5, 2),
-               f_bound, f_by, lib_f, shape)
         bwd = device_ms(lambda: ffn.fused_ffn_backward(x, w1, b1, w2, dy, *args), n=5, reps=5)
         report("ffn_bwd", name, bwd,
                time_ms(lambda: ffn.fused_ffn_backward_reference(x, w1, b1, w2, dy, *args), 5, 2),
@@ -1589,14 +1679,19 @@ def phase_time_ffn_mel(device, card: str) -> dict:
                          n=5, reps=5)
         log(f"[time] ffn_bwd {name} at p=0: {bwd0 * 1e3:.1f} us (the mask hash: "
             f"{100 * (1 - bwd0 / bwd):.0f} % of the p={p} time) [{card}]")
+    # the forward at configs/paper.yaml widths: its training path's two shapes
+    # and the kernel phase's odd one
+    for name, n in (("paper decoder", FFN_ROWS["decoder"]), ("paper encoder", FFN_ROWS["encoder"]),
+                    ("paper N=1000", 1000)):
+        time_fwd(name, n, 512, 2048)
 
     # row 9: the batch preprocess sends (32 clips in one 163,840-sample bucket)
     rng = np.random.default_rng(9)
     clips = [clip_signal(rng, int(n)) for n in rng.integers(44100, MEL_BUCKET_LEN - 1024, MEL_BATCH)]
     y = torch.from_numpy(padded_batch(clips, MEL_BUCKET_LEN)).to(device)
     a = AUDIO
-    consts = stft._constants(a["sample_rate"], a["n_fft"], a["win_length"], a["n_mels"],
-                             a["fmin"], a["fmax"], device)
+    key = (a["sample_rate"], a["n_fft"], a["win_length"], a["n_mels"], a["fmin"], a["fmax"], device)
+    consts, fft_consts = stft._constants(*key), stft._fft_constants(*key)
     n_fft, hop, n_bins = a["n_fft"], a["hop_length"], 1 + a["n_fft"] // 2
     n_frames = 1 + (MEL_BUCKET_LEN - n_fft) // hop
     frames = MEL_BATCH * n_frames
@@ -1613,13 +1708,18 @@ def phase_time_ffn_mel(device, card: str) -> dict:
     dense_flops = frames * (4 * n_fft * n_bins + 3 * n_bins
                             + 2 * int(np.count_nonzero(basis)))
     bound, by = bound_ms(nbytes, flops, PEAK_FP32_FLOPS)
+    ops = frames * stft.fft_kernel_operations(n_fft, int(np.count_nonzero(basis)), a["n_mels"])
     log(f"[time] log_mel batch: {nbytes / 1e6:.1f} MB and {flops / 1e9:.2f} GFLOP by an FFT; "
-        f"the kernel's dense DFT products do {dense_flops / 1e9:.1f} GFLOP, "
-        f"{dense_flops / PEAK_FP32_FLOPS * 1e6:.0f} us at the fp32 peak")
+        f"the FFT kernel's schedule does {ops / 1e9:.2f} GFLOP, the dense kernel's DFT products "
+        f"{dense_flops / 1e9:.1f} GFLOP ({dense_flops / PEAK_FP32_FLOPS * 1e6:.0f} us at the fp32 peak)")
+    plain = time_ms(lambda: stft.log_mel_reference(y, n_frames, *consts, hop), 3, 1)
+    note = f"B={MEL_BATCH} n={MEL_BUCKET_LEN} center=False fp32, {frames} frames"
     report("log_mel", "batch",
+           device_ms(lambda: stft.log_mel_fft_forward(y, n_frames, *fft_consts, hop), n=4, reps=3),
+           plain, bound, by, None, f"FFT kernel, {note}")
+    report("log_mel", "batch, dense kernel",
            device_ms(lambda: stft.log_mel_forward(y, n_frames, *consts, hop), n=4, reps=3),
-           time_ms(lambda: stft.log_mel_reference(y, n_frames, *consts, hop), 3, 1),
-           bound, by, None, f"B={MEL_BATCH} n={MEL_BUCKET_LEN} center=False fp32, {frames} frames")
+           plain, bound, by, None, f"dense kernel, {note}")
     # no single PyTorch call computes the log-mel; this chain of library calls
     # (cuFFT, a matrix product, two elementwise ops) is printed for scale only
     window, melt = consts[0], consts[3]
@@ -1746,7 +1846,7 @@ def main(argv=None) -> int:
             ("ffn_bwd", "fused_ffn.cu", "fused_ffn.py:236", "ffn_bwd", ("ffn", "bwd"), "decoder",
              "N=12288 D=256 F=1024, bf16, p=0.1"),
             ("log_mel", "log_mel.cu", "stft.py:104", None, None, "batch",
-             "B=32 n=163840 center=False, fp32")):
+             "FFT kernel, B=32 n=163840 center=False, fp32")):
         ms, plain, bound, by, lib = train_rows[(kernel, main_shape)]
         if kernel == "log_mel":  # launched on the preprocessing path
             n_launches, max_err = prep["launches"], max(mel_worst.values())

@@ -188,6 +188,62 @@ def test_bf16_backward_plan_splits_d_ffn_to_fill_the_last_wave():
     assert (enc["fgroups"], enc["spg"]) == (4, 8)
 
 
+# the shapes chip_smoke.py holds the kernels to on the card, the two path
+# shapes first
+FWD_SHAPES = [(12288, 256, 1024), (2048, 256, 1024), (1001, 256, 1000), (130, 64, 196),
+              (520, 192, 264), (192, 256, 3072), (1000, 512, 2048), (264, 1024, 4096),
+              (12288, 512, 2048), (1, 8, 4)]
+
+
+@pytest.mark.parametrize("n,d,f", FWD_SHAPES)
+def test_bf16_forward_plan_owns_every_tile_once(n, d, f):
+    """The bf16 forward's grid: every (row tile, d_ffn slice, output group)
+    is taken by exactly one block, each block's partial rows are added by
+    exactly one block of its cluster over every rank in rank order, and the
+    shared memory and staged weights are the sizes the kernel indexes."""
+    pl = port_ffn.fwd_plan(n, d, f)
+    wgs, s, fs = pl["wgs"], pl["s"], pl["fsplit"]
+    assert (s, wgs) == ((64, 2) if d <= 256 else (32, 1))
+    assert pl["dp"] == (256 if d <= 256 else 512 if d <= 512 else 1024)
+    assert (pl["stages"] == 1) == (pl["dp"] == 1024)  # x leaves room for one stage only there
+    assert pl["grid"] == (fs, -(-n // (64 * wgs)), -(-d // 256)) and pl["threads"] == 128 * wgs
+    assert fs in (1, 2, 4, 8) and fs <= pl["slices"] == pl["fp"] // s
+    owned = {}
+    for part, rb, g in np.ndindex(*pl["grid"]):
+        for w in range(wgs):
+            for sl in port_ffn.fwd_parts(pl["slices"], fs)[part]:
+                key = (rb * wgs + w, sl, g)
+                owned[key] = owned.get(key, 0) + 1
+    tiles = -(-n // 64)
+    want = {(t, sl, g) for t in range(tiles) for sl in range(pl["slices"])
+            for g in range(pl["groups"])}
+    assert want <= set(owned) and all(c == 1 for c in owned.values())
+    assert all(t < tiles + wgs - 1 for t, _, _ in owned)  # only the last block pads
+    rows = port_ffn.fwd_reduce_rows(wgs, fs)
+    assert sorted(r for q in rows for r in q) == list(range(64 * wgs))
+    assert all(list(q) == list(range(rank, 64 * wgs, fs)) for rank, q in enumerate(rows))
+    x_bytes, stage = wgs * 64 * pl["dp"] * 2, s * pl["dp"] * 2 + 256 * s * 2
+
+    def smem(k):  # x and the ring, or the fp32 partial y; an mbarrier and a counter a stage
+        return max(x_bytes + k * stage, wgs * 64 * 264 * 4) + 12 * k + 1024
+
+    k = pl["stages"]
+    assert pl["smem"] == smem(k) and (k == 1 or smem(k) <= 232448)
+    assert k == 4 or smem(k + 1) > 232448  # the deepest ring that fits
+    assert pl["staged_bytes"] == pl["slices"] * (s * pl["dp"] + pl["groups"] * 256 * s) * 2
+
+
+def test_bf16_forward_plan_picks_the_measured_split_and_raises_above_its_widths():
+    """On an H100 the decoder's 96 blocks of 128 rows run fastest unsplit (a
+    cluster's reduction costs more than the idle SMs), the encoder's 16 in
+    clusters of 4 (64 blocks); d_model above 1,024 has no plan."""
+    dec, enc = port_ffn.fwd_plan(12288, 256, 1024), port_ffn.fwd_plan(2048, 256, 1024)
+    assert (dec["fsplit"], dec["grid"], dec["stages"]) == (1, (1, 96, 1), 2)
+    assert (enc["fsplit"], enc["grid"], enc["stages"]) == (4, (4, 16, 1), 2)
+    with pytest.raises(ValueError, match="d_model up to 1024"):
+        port_ffn.fwd_plan(64, 1032, 256)
+
+
 def test_dropout_drops_the_same_elements_as_jax():
     """With identity weights and x > 0 a dropped element of the intermediate
     shows directly in y: compare the pattern, not just the values."""

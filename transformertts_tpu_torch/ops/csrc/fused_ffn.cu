@@ -20,7 +20,7 @@
 // Bound: operations (4 N D F forward, 10 N D F backward; 12.9 and 32.2 GFLOP
 // at N 12,288, D 256, F 1,024).
 //
-// Forward, and the fp32 backward: fp32 FMAs on the CUDA cores (TF32 would
+// fp32 forward and backward: fp32 FMAs on the CUDA cores (TF32 would
 // break fp32 parity).  A product that needs a weight tile the other way
 // round transposes it on its way into shared memory, rounding it to T.  Two
 // weight matrices and the intermediate of a row tile do not fit a block's
@@ -36,6 +36,28 @@
 // gridded over (slice of 32 d_ffn columns, chunk of rows), recomputes the
 // slice's hd and dh and owns that chunk's partial of dW1, db1, dW2, db2; two
 // reduce kernels add the chunks' partials in chunk order.  Seven products.
+//
+// bf16 forward: both products on the tensor cores (wgmma), two launches.
+// (1) ffn_stage_weights_kernel rounds the fp32 weights to bf16 once per call
+// into scratch, already in the order and the swizzled layout of the
+// kernel's shared memory: per d_ffn slice one record of W1's (S, d_model)
+// rows and, per group of 256 output columns, W2's (256, S) columns (S = 64
+// up to d_model 256, else 32), so that each is one bulk copy (2 MB read and
+// 1 MB written at F 1,024, D 256).  (2) ffn_fwd_tc: a block of two
+// warpgroups (one above d_model 256) on their own 64-row tiles of x,
+// resident in swizzled shared memory; each slice's weights arrive by bulk
+// copies into a ring of one to four stages (an mbarrier a stage), refilled
+// by the warp that releases a stage last.  Per slice a warpgroup computes hp =
+// x W1s^T (m64nS), applies b1, relu, the mask and the exact division by
+// 1 - p at each accumulator element (div_rn, no call), packs hd to bf16
+// straight into the A registers of y += hd W2s^T (m64n256, A from
+// registers) and goes on; the warpgroups meet only at the ring, so one's
+// epilogue runs under the other's products.  To fill the card at 2,048 rows
+// the fsplit blocks of a cluster split d_ffn and add their fp32 partial y in
+// rank order through distributed shared memory (fused_ffn.py:fwd_plan
+// picks fsplit and the ring's depth); bias b2, rounding and 16-byte stores
+// after.  A wider D takes one block per group of 256 columns, each of which
+// recomputes the slice's intermediate.
 //
 // bf16 backward: every product a wgmma (hopper.cuh) with bf16 operands and
 // fp32 sums, from 128B- and 64B-swizzled tiles that cp.async fills; five
@@ -75,6 +97,7 @@
 #include "dropout_mask.cuh"
 #include "hopper.cuh"
 #include "numeric.cuh"
+#include "sync.cuh"
 
 namespace {
 
@@ -218,13 +241,6 @@ __device__ __forceinline__ void mask_rows4(const Mask& mk, int row0, int F, uint
 template <typename T> __device__ __forceinline__ void store4(T* p, const float* v);
 template <> __device__ __forceinline__ void store4<float>(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-template <> __device__ __forceinline__ void store4<bf16>(bf16* p, const float* v) {
-  uint2 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-  h[0] = __floats2bfloat162_rn(v[0], v[1]);
-  h[1] = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // The block's (64, kDp) fp32 result, plus bias when given, to the first
@@ -956,6 +972,309 @@ __global__ void __launch_bounds__(256) ffn_reduce_tc(const TcArgs a, float* __re
   }
 }
 
+// --------------------------------------------- bf16 forward, tensor cores
+
+// Staged weights of the bf16 forward: the fp32 weights rounded to bf16 once
+// per call into the order and the swizzled layout the kernel's shared memory
+// holds them in, so that one bulk copy moves a slice's W1 part and one its
+// W2 part.  Per d_ffn slice s of S columns one record: W1 rows s S .. s S +
+// S - 1 as Dp / 64 tiles of (S, 64) (128B swizzle), then for each group g of
+// 256 output columns W2 rows 256 g .. 256 g + 255, columns s S .. s S + S - 1
+// as one (256, S) tile (128B swizzle for S = 64, 64B for S = 32).  Zeros
+// past F, D and Dp.
+__host__ __device__ constexpr size_t fwd_w1_bytes(int S, int Dp) {
+  return static_cast<size_t>(S) * Dp * 2;
+}
+__host__ __device__ constexpr size_t fwd_w2_bytes(int S) { return static_cast<size_t>(kGw) * S * 2; }
+__host__ __device__ constexpr size_t fwd_record_bytes(int S, int Dp, int n_dg) {
+  return fwd_w1_bytes(S, Dp) + n_dg * fwd_w2_bytes(S);
+}
+
+// One 16-byte chunk of the staged weights a thread: the chunk's logical
+// (row, 8 columns) from its place in the swizzled tile, 8 fp32 loaded (two
+// 16-byte loads: D % 8 == 0 and F % 4 == 0 keep each in or out whole),
+// rounded to bf16 and stored where the tile wants them.
+template <int S>
+__global__ void ffn_stage_weights_kernel(const float* __restrict__ w1, const float* __restrict__ w2,
+                                         uint8_t* __restrict__ out, int D, int F, int Dp, int Fp,
+                                         int n_dg) {
+  const size_t w1b = fwd_w1_bytes(S, Dp), w2b = fwd_w2_bytes(S);
+  const size_t per_rec = fwd_record_bytes(S, Dp, n_dg) / 16, total = (Fp / S) * per_rec;
+  for (size_t q = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; q < total;
+       q += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int s = static_cast<int>(q / per_rec);
+    const size_t o = (q % per_rec) * 16;  // byte offset inside the record
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (o < w1b) {  // W1 (F, D): tile j, row r, physical chunk cp
+      const int j = static_cast<int>(o / (S * 128)), ot = static_cast<int>(o % (S * 128));
+      const int r = ot / 128, c = ((ot % 128) / 16) ^ (r % 8);
+      const int f = s * S + r, d = j * kT + 8 * c;
+      if (f < F && d < D) {
+        load16<float>(w1 + static_cast<size_t>(f) * D + d, v);
+        load16<float>(w1 + static_cast<size_t>(f) * D + d + 4, v + 4);
+      }
+    } else {  // W2 (D, F): group g, row r, physical chunk cp of a row of 2 S bytes
+      const size_t o2 = o - w1b;
+      const int g = static_cast<int>(o2 / w2b), ot = static_cast<int>(o2 % w2b);
+      const int r = ot / (2 * S), cp = (ot % (2 * S)) / 16;
+      const int c = S == 64 ? cp ^ (r % 8) : cp ^ ((r / 2) % 4);
+      const int d = g * kGw + r, f = s * S + 8 * c;
+      if (d < D) {
+        const float* src = w2 + static_cast<size_t>(d) * F + f;
+        if (f < F) load16<float>(src, v);
+        if (f + 4 < F) load16<float>(src + 4, v + 4);
+      }
+    }
+    store16<bf16>(reinterpret_cast<bf16*>(out + s * fwd_record_bytes(S, Dp, n_dg) + o), v);
+  }
+}
+
+constexpr int kLdRed = kGw + 8;  // row length of the forward's fp32 partial y in shared memory
+
+struct FwdArgs {
+  const bf16* x;       // (N, D)
+  const uint8_t* wst;  // staged weights (ffn_stage_weights_kernel)
+  const float* b1;     // (F)
+  const float* b2;     // (D)
+  bf16* y;             // (N, D)
+  int N, D, F, Dp, Fp;
+  int n_dg;    // groups of 256 output columns
+  int fsplit;  // blocks of a cluster: each takes one part of the d_ffn slices
+  int stages;  // stages of the weight ring
+  Mask mk;
+};
+
+// Warpgroups (row tiles of 64) of a block: two for d_model up to 256 (S =
+// 64), one above (S = 32), where a row tile's x takes up to 128 KB.
+template <int S> __host__ __device__ constexpr int fwd_wgs() { return S == 64 ? 2 : 1; }
+
+// Shared memory of the forward: x tiles and the ring during the loop, the
+// fp32 partial y over them after it; then the ring's mbarriers and counters.
+__host__ __device__ constexpr size_t fwd_region_bytes(int S, int wgs, int Dp, int stages) {
+  return static_cast<size_t>(wgs) * Dp * kT * 2 + stages * (fwd_w1_bytes(S, Dp) + fwd_w2_bytes(S)) >
+                 static_cast<size_t>(wgs) * kT * kLdRed * sizeof(float)
+             ? static_cast<size_t>(wgs) * Dp * kT * 2 +
+                   stages * (fwd_w1_bytes(S, Dp) + fwd_w2_bytes(S))
+             : static_cast<size_t>(wgs) * kT * kLdRed * sizeof(float);
+}
+// ... plus the mbarriers and the alignment of the dynamic shared memory
+__host__ __device__ constexpr size_t fwd_smem_bytes(int S, int wgs, int Dp, int stages) {
+  return fwd_region_bytes(S, wgs, Dp, stages) + stages * (sizeof(uint64_t) + sizeof(uint32_t)) +
+         1024;
+}
+
+// y = Drop(relu(x W1^T + b1)) W2^T + b2 for the (wgs x 64)-row block
+// blockIdx.y, the output group blockIdx.z of 256 columns and the part
+// blockIdx.x of the d_ffn slices (the block's rank in its cluster of fsplit).
+// Each slice's W1 and W2 tiles arrive by two bulk copies into a ring of
+// stages (an mbarrier a stage counts the bytes); each warpgroup keeps its 64
+// rows of x resident and, per slice: hp = x W1s^T (wgmma from shared
+// memory, m64nS), bias, relu, mask and the exact division by 1 - p at each
+// accumulator element (div_rn), hd packed to bf16 straight into the A
+// registers of y += hd W2s^T (m64n256, A from registers), and waits for
+// both products.  A stage is refilled by the warp that releases it last (a
+// counter a stage), so the warpgroups, each on its own rows, meet only at
+// the ring: one's epilogue runs while the other's products do.  (No
+// producer warp: registers are allotted per warpgroup, and a third one would
+// cap every thread at 168.)  After the slices, a cluster barrier; every
+// block stores the fp32 partial y of its row r into block r % fsplit's shared
+// memory (distributed shared memory, 16 bytes a store); a cluster barrier;
+// block q adds rows q, q + fsplit, ... over the partials in rank order, adds
+// b2 and stores y in bf16.  No float atomics: two runs give the same bits.
+template <int S, int NC>
+__global__ void __launch_bounds__(fwd_wgs<S>() * kWg, 1) ffn_fwd_tc(const FwdArgs a) {
+  constexpr int R = fwd_wgs<S>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  constexpr int nc = NC;  // 64-wide chunks of d_model (a.Dp = 64 NC)
+  const uint32_t w1b = static_cast<uint32_t>(fwd_w1_bytes(S, a.Dp));
+  const uint32_t w2b = static_cast<uint32_t>(fwd_w2_bytes(S)), stage_b = w1b + w2b;
+  uint8_t* ring = base + R * nc * kTileB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + fwd_region_bytes(S, R, a.Dp, a.stages));
+  uint32_t* released = reinterpret_cast<uint32_t*>(full + a.stages);  // warps done with a stage
+  const int part = blockIdx.x, row0 = blockIdx.y * R * kT, dg = blockIdx.z;
+  const int n_s = a.Fp / S;
+  const int s0 = part * n_s / a.fsplit, s1 = (part + 1) * n_s / a.fsplit;
+  // the warpgroup index through a shuffle (see ffn_dh_tc)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWg, 0);
+  const int tid = threadIdx.x % kWg, lane = threadIdx.x % 32;
+  const size_t rec = fwd_record_bytes(S, a.Dp, a.n_dg);
+
+  auto load_slice = [&](int s) {  // slice s into its stage, by one thread
+    const int st = (s - s0) % a.stages;
+    uint8_t* dst = ring + st * stage_b;
+    const uint8_t* src = a.wst + s * rec;
+    fence_proxy_async_shared();  // the stage's last reads come before the copy's writes
+    mbar_arrive_expect_tx(&full[st], stage_b);
+    bulk_copy_g2s(dst, src, w1b, &full[st]);
+    bulk_copy_g2s(dst + w1b, src + w1b + static_cast<size_t>(dg) * w2b, w2b, &full[st]);
+  };
+  // this warp's products have read slice s's stage: the last of the 4 R warps
+  // to say so refills the stage with slice s + stages
+  auto release = [&](int s) {
+    if (lane != 0) return;
+    const int st = (s - s0) % a.stages;
+    if (atomicAdd(&released[st], 1u) == 4 * R - 1) {
+      released[st] = 0u;
+      if (s + a.stages < s1) load_slice(s + a.stages);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.stages; ++i) {
+      mbar_init(&full[i], 1);
+      released[i] = 0u;
+    }
+    fence_mbarrier_init();
+    for (int s = s0; s < s1 && s < s0 + a.stages; ++s) load_slice(s);
+  }
+  const uint32_t sX = smem_addr(base) + wg * nc * kTileB;
+  const int rt0 = row0 + wg * kT;  // this warpgroup's rows
+  for (int j = 0; j < nc; ++j)
+    load_tile_async<kT>(sX + j * kTileB, a.x, a.D, rt0, a.N, j * kT, a.D, tid);
+  cp_async_commit();
+  int rows[2];
+  uint32_t mbase[2], cnt0[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rows[h] = rt0 + acc_row(tid, h);
+    mbase[h] = a.mk.on ? mask_base(a.mk.seed, static_cast<uint32_t>(rows[h] / a.mk.rows)) : 0u;
+    cnt0[h] = static_cast<uint32_t>(rows[h] % a.mk.rows) * static_cast<uint32_t>(a.F);
+  }
+  float y[4 * kT / 2];  // 64 x 256
+#pragma unroll
+  for (int i = 0; i < 4 * kT / 2; ++i) y[i] = 0.f;
+  cp_async_wait<0>();
+  fence_async_shared();
+  __syncthreads();  // x landed; the mbarriers are initialised
+  {
+    const uint32_t ring_a = smem_addr(ring);
+    float hp[S / 2];
+    // the second warpgroup starts one product later than the first, so that
+    // one's epilogue runs while the other's products do (named barrier 3)
+    if (R == 2 && wg == 1) named_bar_sync(3, 2 * kWg);
+    if (R == 2 && wg == 0 && s0 == s1) named_bar_arrive(3, 2 * kWg);
+    for (int s = s0; s < s1; ++s) {
+      const int t = s - s0, st = t % a.stages;
+      mbar_wait(&full[st], (t / a.stages) & 1);
+      const uint32_t w1s = ring_a + st * stage_b, w2s = w1s + w1b;
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < nc; ++j) {  // straight-line: a branch among the products makes
+        // ptxas fence them
+        const uint64_t da = make_desc<kT>(sX + j * kTileB), db = make_desc<kT>(w1s + j * S * 128);
+#pragma unroll
+        for (int kk = 0; kk < kT / 16; ++kk) {
+          if constexpr (S == 64) {
+            if (j + kk == 0) wgmma_ss_n64_first(hp, da, db);
+            else wgmma_ss_n64(hp, da + 2 * kk, db + 2 * kk);
+          } else {
+            if (j + kk == 0) wgmma_ss_n32_first(hp, da, db);
+            else wgmma_ss_n32<0, 0>(hp, da + 2 * kk, db + 2 * kk);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(hp);
+      if (R == 2 && wg == 0 && s == s0) named_bar_arrive(3, 2 * kWg);
+      // hd at each accumulator element, no branch per element: the mask's
+      // counter is (row % mask_rows) F + col, hashed times 0x9E3779B9
+      // (wrapping), so a column step is a constant step of the product
+      const int col0 = s * S + 2 * (tid % 4);
+      uint32_t keep_bits = ~0u;
+      if (a.mk.on) {
+        uint32_t hbase[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          hbase[h] = (cnt0[h] + static_cast<uint32_t>(col0)) * 0x9E3779B9u;
+        keep_bits = 0u;
+#pragma unroll
+        for (int i = 0; i < S / 2; ++i) {
+          const uint32_t step = static_cast<uint32_t>(8 * (i / 4) + i % 2) * 0x9E3779B9u;
+          const int h = (i / 2) % 2;
+          keep_bits |= (fmix32((hbase[h] + step) ^ mbase[h]) >= a.mk.threshold ? 1u : 0u) << i;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < S / 2; i += 2) {
+        const int col = col0 + 8 * (i / 4);
+        float2 b = make_float2(0.f, 0.f);
+        if (col < a.F) b = __ldg(reinterpret_cast<const float2*>(a.b1 + col));
+        hp[i] = fmaxf(hp[i] + b.x, 0.f);
+        hp[i + 1] = fmaxf(hp[i + 1] + b.y, 0.f);
+      }
+      if (a.mk.on) div_rn(hp, a.mk.keep_div, a.mk.inv_keep);
+#pragma unroll
+      for (int i = 0; i < S / 2; ++i) hp[i] = (keep_bits >> i) & 1u ? hp[i] : 0.f;
+      uint32_t afr[S / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < S / 16; ++kk) acc_to_a(hp, kk, afr[kk]);
+      wgmma_fence();
+      const uint64_t dw2 = make_desc<S>(w2s);
+#pragma unroll
+      for (int kk = 0; kk < S / 16; ++kk) wgmma_rs_n256(y, afr[kk], dw2 + 2 * kk);
+      wgmma_commit();
+      // y's products done before the next slice: with them in flight, ptxas
+      // gives the packing of hd the registers of an A operand still being
+      // read and serializes every wgmma (C7515).  The other warpgroup's
+      // products fill the wait.
+      wgmma_wait<0>();
+      release(s);
+    }
+    fence_regs(y);
+  }
+
+  // every block of the cluster is done with its x and ring: partials may land
+  // there.  The partial of block row r goes to block r % fsplit of the
+  // cluster, into slot [rank][r / fsplit] of its (fsplit, R 64 / fsplit,
+  // kLdRed) buffer, by stores into distributed shared memory (no waiting on
+  // remote loads); then each block adds its slots in rank order.
+  if (a.fsplit > 1) cluster_sync();
+  else __syncthreads();
+  float* red = reinterpret_cast<float*>(base);
+  const int rows_per = R * kT / a.fsplit;
+  // 16-byte stores: lanes c and c ^ 1 (c = lane % 4) swap halves, so that the
+  // even lane holds 4 columns of its row g and the odd lane 4 of row g + 8
+  const bool odd = lane & 1;
+#pragma unroll
+  for (int i = 0; i < 4 * kT / 2; i += 4) {
+    const float2 give = odd ? make_float2(y[i], y[i + 1]) : make_float2(y[i + 2], y[i + 3]);
+    const float2 got = make_float2(__shfl_xor_sync(0xffffffffu, give.x, 1),
+                                   __shfl_xor_sync(0xffffffffu, give.y, 1));
+    const float4 v = odd ? make_float4(got.x, got.y, y[i + 2], y[i + 3])
+                         : make_float4(y[i], y[i + 1], got.x, got.y);
+    const int r = wg * kT + acc_row(tid, odd ? 1 : 0), c = acc_col(tid, i) - (odd ? 2 : 0);
+    float* at = red + (part * rows_per + r / a.fsplit) * kLdRed + c;
+    if (a.fsplit > 1) dsmem_store4(at, r % a.fsplit, v);
+    else *reinterpret_cast<float4*>(at) = v;
+  }
+  if (a.fsplit > 1) cluster_sync();  // every partial has landed
+  else __syncthreads();
+  // this block's rows part, part + fsplit, ...: one warp a row, 8 columns a lane
+  const int col = dg * kGw + lane * 8;
+  for (int j = static_cast<int>(threadIdx.x / 32); j < rows_per;
+       j += static_cast<int>(blockDim.x / 32)) {
+    const float* src = red + j * kLdRed + lane * 8;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int q = 0; q < a.fsplit; ++q) {  // partials in rank order
+      const float4 lo = *reinterpret_cast<const float4*>(src + q * rows_per * kLdRed);
+      const float4 hi = *reinterpret_cast<const float4*>(src + q * rows_per * kLdRed + 4);
+      v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
+      v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+    }
+    const int row = row0 + j * a.fsplit + part;
+    if (row < a.N && col < a.D) {
+      float bias[8];
+      load16<float>(a.b2 + col, bias);
+      load16<float>(a.b2 + col + 4, bias + 4);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] += bias[i];
+      store16<bf16>(a.y + static_cast<size_t>(row) * a.D + col, v);
+    }
+  }
+}
+
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -974,14 +1293,12 @@ void chunking(int N, int F, int& chunks, int& chunk_rows) {
   chunk_rows = tiles_per_chunk * kRows;
 }
 
-template <typename T>
-int launch_fwd(const void* x, const float* w1, const float* b1, const float* w2, const float* b2,
-               void* y, int N, int D, int F, Mask mk, cudaStream_t s) {
-  cudaError_t err = allow_smem(ffn_fwd_kernel<T>, kFwdSmem);
+int launch_fwd(const float* x, const float* w1, const float* b1, const float* w2, const float* b2,
+               float* y, int N, int D, int F, Mask mk, cudaStream_t s) {
+  cudaError_t err = allow_smem(ffn_fwd_kernel<float>, kFwdSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kRows - 1) / kRows, (D + kDp - 1) / kDp);
-  ffn_fwd_kernel<T><<<grid, kThreads, kFwdSmem, s>>>(
-      static_cast<const T*>(x), w1, b1, w2, b2, static_cast<T*>(y), N, D, F, mk);
+  ffn_fwd_kernel<float><<<grid, kThreads, kFwdSmem, s>>>(x, w1, b1, w2, b2, y, N, D, F, mk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1033,6 +1350,41 @@ int launch_bwd_tc(const TcArgs& a, const float* w1, const float* w2, float* grad
   return static_cast<int>(cudaGetLastError());
 }
 
+// The staged weights, then the forward: a grid of (fsplit, blocks of wgs x
+// 64 rows, groups of 256 output columns), clusters of fsplit along x.
+template <int S, int NC>
+int launch_fwd_tc(const FwdArgs& a, const float* w1, const float* w2, uint8_t* staged,
+                  cudaStream_t s) {
+  constexpr int R = fwd_wgs<S>();
+  const size_t smem = fwd_smem_bytes(S, R, a.Dp, a.stages);
+  cudaError_t err = allow_smem(ffn_fwd_tc<S, NC>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t chunks = static_cast<size_t>(a.Fp / S) * fwd_record_bytes(S, a.Dp, a.n_dg) / 16;
+  const int stage_blocks = static_cast<int>((chunks + 255) / 256);
+  ffn_stage_weights_kernel<S><<<stage_blocks < 2048 ? stage_blocks : 2048, 256, 0, s>>>(
+      w1, w2, staged, a.D, a.F, a.Dp, a.Fp, a.n_dg);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.fsplit, cdiv(a.N, R * kT), a.n_dg);
+  cfg.blockDim = dim3(R * kWg);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.fsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.fsplit > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, ffn_fwd_tc<S, NC>, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// d_model of the bf16 forward padded to the width its kernel is built for
+// (x and W1 past D are zeros), and the d_ffn columns of a slice.
+int fwd_dp(int D) { return D <= kGw ? kGw : (D <= 2 * kGw ? 2 * kGw : 4 * kGw); }
+int fwd_slice(int Dp) { return Dp <= kGw ? 64 : 32; }
+
 bool shape_ok(int N, int D, int F, int mask_rows) {
   return N >= 1 && D >= 8 && D % 8 == 0 && F >= 4 && F % 4 == 0 && mask_rows >= 1;
 }
@@ -1049,7 +1401,7 @@ int tts_fused_ffn_bwd_chunks(int N, int F) {
   return chunks;
 }
 
-// Dynamic shared memory per block, bytes, for d_model D: out[0] the forward,
+// Dynamic shared memory per block, bytes, for d_model D: out[0] the fp32 forward,
 // out[1] the bf16 backward's dh kernel, out[2] its gradient kernel.
 int tts_fused_ffn_shared_bytes(int D, long long* out) {
   if (D < 8 || D % 8) return static_cast<int>(cudaErrorInvalidValue);
@@ -1059,23 +1411,72 @@ int tts_fused_ffn_shared_bytes(int D, long long* out) {
   return 0;
 }
 
-// x, y: (N, D) T, contiguous; w1 (F, D), b1 (F), w2 (D, F), b2 (D) fp32, the
-// PyTorch parameters as they lie.  T is bf16 when is_bf16, else fp32.  D is a
-// multiple of 8, F a multiple of 4.  With dropout_on, keep_div =
-// 1 - p and threshold = uint32(p * 2^32).
-int tts_fused_ffn_fwd(int is_bf16, int N, int D, int F, const void* x, const void* w1,
-                      const void* b1, const void* w2, const void* b2, void* y, int dropout_on,
-                      float keep_div, unsigned threshold, unsigned seed, int mask_rows,
-                      void* stream) {
+// fp32, on the CUDA cores.  x, y: (N, D) fp32, contiguous; w1 (F, D), b1
+// (F), w2 (D, F), b2 (D) fp32, the PyTorch parameters as they lie.  D is a
+// multiple of 8, F a multiple of 4.  With dropout_on, keep_div = 1 - p and
+// threshold = uint32(p * 2^32).
+int tts_fused_ffn_fwd(int N, int D, int F, const void* x, const void* w1, const void* b1,
+                      const void* w2, const void* b2, void* y, int dropout_on, float keep_div,
+                      unsigned threshold, unsigned seed, int mask_rows, void* stream) {
   if (!shape_ok(N, D, F, mask_rows)) return static_cast<int>(cudaErrorInvalidValue);
   const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
+  return launch_fwd(static_cast<const float*>(x), static_cast<const float*>(w1),
+                    static_cast<const float*>(b1), static_cast<const float*>(w2),
+                    static_cast<const float*>(b2), static_cast<float*>(y), N, D, F, mk,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// bf16 forward, sizes: out[0] the dynamic shared memory of a block with
+// `stages` ring stages, out[1] the staged weights' bytes.  D <= 1,024.
+int tts_fused_ffn_fwd_tc_bytes(int D, int F, int stages, long long* out) {
+  const int Dp = fwd_dp(D), Fp = cdiv(F, kT) * kT;
+  if (D < 8 || D % 8 || F < 4 || F % 4 || D > 4 * kGw || stages < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int S = fwd_slice(Dp), R = S == 64 ? fwd_wgs<64>() : fwd_wgs<32>();
+  out[0] = static_cast<long long>(fwd_smem_bytes(S, R, Dp, stages));
+  out[1] = static_cast<long long>(static_cast<size_t>(Fp / S) *
+                                  fwd_record_bytes(S, Dp, cdiv(D, kGw)));
+  return 0;
+}
+
+// bf16, on the tensor cores.  x, y: (N, D) bf16; w1, b1, w2, b2 fp32 as
+// above; D <= 1,024, padded to 256, 512 or 1,024 (fwd_dp).  staged: scratch
+// of tts_fused_ffn_fwd_tc_bytes()[1] bytes, 16-byte aligned.  fsplit (1, 2,
+// 4 or 8, at most the slices) blocks of a cluster share a row block's d_ffn
+// slices; stages of the weight ring.
+int tts_fused_ffn_fwd_tc(int N, int D, int F, const void* x, const void* w1, const void* b1,
+                         const void* w2, const void* b2, void* y, void* staged, int fsplit,
+                         int stages, int dropout_on, float keep_div, unsigned threshold,
+                         unsigned seed, int mask_rows, void* stream) {
+  long long bytes[2];
+  if (!shape_ok(N, D, F, mask_rows) || tts_fused_ffn_fwd_tc_bytes(D, F, stages, bytes) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a;
+  a.Dp = fwd_dp(D);
+  a.Fp = cdiv(F, kT) * kT;
+  const int S = fwd_slice(a.Dp);
+  if (bytes[0] > 232448 || (fsplit != 1 && fsplit != 2 && fsplit != 4 && fsplit != 8) ||
+      fsplit > a.Fp / S)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.x = static_cast<const bf16*>(x);
+  a.wst = static_cast<const uint8_t*>(staged);
+  a.b1 = static_cast<const float*>(b1);
+  a.b2 = static_cast<const float*>(b2);
+  a.y = static_cast<bf16*>(y);
+  a.N = N;
+  a.D = D;
+  a.F = F;
+  a.n_dg = cdiv(D, kGw);
+  a.fsplit = fsplit;
+  a.stages = stages;
+  a.mk = Mask{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
   auto s = static_cast<cudaStream_t>(stream);
-  auto a1 = static_cast<const float*>(w1);
-  auto c1 = static_cast<const float*>(b1);
-  auto a2 = static_cast<const float*>(w2);
-  auto c2 = static_cast<const float*>(b2);
-  return is_bf16 ? launch_fwd<bf16>(x, a1, c1, a2, c2, y, N, D, F, mk, s)
-                 : launch_fwd<float>(x, a1, c1, a2, c2, y, N, D, F, mk, s);
+  auto w1f = static_cast<const float*>(w1);
+  auto w2f = static_cast<const float*>(w2);
+  auto st = static_cast<uint8_t*>(staged);
+  if (a.Dp == kGw) return launch_fwd_tc<64, 4>(a, w1f, w2f, st, s);
+  if (a.Dp == 2 * kGw) return launch_fwd_tc<32, 8>(a, w1f, w2f, st, s);
+  return launch_fwd_tc<32, 16>(a, w1f, w2f, st, s);
 }
 
 // fp32, on the CUDA cores.  dy, dx: (N, D) fp32.  grads: F D + F + D + D F

@@ -65,6 +65,10 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
                "r"(valid ? 16 : 0)
                : "memory");
 }
+// 4 bytes global -> shared, asynchronous (through L1: any 4-byte aligned address)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -135,6 +139,13 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
 // the 128 threads of one warpgroup meet at named barrier `id` (1 .. 15)
 __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+// named barrier `id` over `n` threads: wait there, or only arrive (no wait)
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // The same descriptor with leading-dimension offset lbo bytes: for an
@@ -212,6 +223,36 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(1), "n"(kTA), "n"(kTB));
 }
 
+#define TTS_OUT8(d, o)                                                                      \
+  "=f"(d[o + 0]), "=f"(d[o + 1]), "=f"(d[o + 2]), "=f"(d[o + 3]), "=f"(d[o + 4]),           \
+      "=f"(d[o + 5]), "=f"(d[o + 6]), "=f"(d[o + 7])
+
+// d = A B^T, as wgmma_ss_n64 but d's old values neither read nor kept: the
+// first product of a sum.  (An accumulator that the products read must be
+// defined by a wgmma or before the products in flight began; a move the
+// compiler places to keep old values alive serializes every wgmma, C7515.)
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : TTS_OUT8(d, 0), TTS_OUT8(d, 8), TTS_OUT8(d, 16), TTS_OUT8(d, 24)
+      : "l"(da), "l"(db), "r"(0));
+}
+// d = A B (16 x 32), both K-major, the first product of a sum (as above)
+__device__ __forceinline__ void wgmma_ss_n32_first(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : TTS_OUT8(d, 0), TTS_OUT8(d, 8)
+      : "l"(da), "l"(db), "r"(0));
+}
+
+#undef TTS_OUT8
+
 // d (64 x 256) += A (64 x 16) B (16 x 256), both from shared memory, as
 // wgmma_ss_n32; an MN-major B spans tiles of 64 columns whose distance its
 // descriptor holds (make_desc_lbo)
@@ -245,6 +286,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
       "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : TTS_ACC8(d, 0), TTS_ACC8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 256) += A (64 x 16, registers) B (16 x 256, K-major in shared: the
+// tile's 256 rows are N, its columns the depth, one swizzle atom wide)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : TTS_ACC8(d, 0), TTS_ACC8(d, 8), TTS_ACC8(d, 16), TTS_ACC8(d, 24), TTS_ACC8(d, 32), TTS_ACC8(d, 40), TTS_ACC8(d, 48), TTS_ACC8(d, 56), TTS_ACC8(d, 64), TTS_ACC8(d, 72), TTS_ACC8(d, 80), TTS_ACC8(d, 88), TTS_ACC8(d, 96), TTS_ACC8(d, 104), TTS_ACC8(d, 112), TTS_ACC8(d, 120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

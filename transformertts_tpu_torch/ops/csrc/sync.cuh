@@ -124,4 +124,14 @@ __device__ __forceinline__ void dsmem_store(const float* local, uint32_t rank, f
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v) : "memory");
 }
 
+// v into the shared memory of block `rank` of the cluster, 16 bytes at the
+// offset `local` has in this block (16-byte aligned)
+__device__ __forceinline__ void dsmem_store4(const float* local, uint32_t rank, float4 v) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(shared_addr(local)), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(remote), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
 }  // namespace

@@ -21,15 +21,22 @@ gradients come back in that layout.  (The flax kernels are the transposes:
 (D, F) and (F, D).)
 
 What bounds it on an H100: operations (4 N D F forward, 10 N D F backward).
-The forward and the fp32 backward run them as fp32 FMAs on the CUDA cores,
-rounding and transposing weight tiles on their way into shared memory.  The
-bf16 backward runs five products on the tensor cores (wgmma) in four
-launches: the weights rounded to bf16 once per call into scratch; a kernel
-per row tile that forms dh and hd (written to scratch in bf16) and dx; a
-kernel per (d_ffn slice, chunk of rows) for dW1 and dW2; one reduce.  See
-the source for the tiling.  The parameter gradients go through per-chunk
-partial sums added in chunk order, so two runs give the same bits (no
-atomics).  ``bwd_plan`` sizes the grids, ``bwd_scratch`` the scratch.
+fp32 runs them as fp32 FMAs on the CUDA cores, rounding and transposing
+weight tiles on their way into shared memory (TF32 would lose the fp32
+parity).  bf16 runs them on the tensor cores (wgmma).  The forward in two
+launches: the weights rounded to bf16 once per call into scratch, in the
+order and swizzled layout of the kernel's shared memory; then one kernel in
+which a producer warp bulk-copies each d_ffn slice's weights into a ring
+and two warpgroups, each on its own 64 rows of resident x, form hd at each
+accumulator element and feed it from registers into y's product; the
+blocks of a cluster split d_ffn and add their partial y in rank order
+(``fwd_plan`` sizes the grid and the ring).  The backward in four: the
+weight cast; a kernel per row tile that forms dh and hd (written to scratch
+in bf16) and dx; a kernel per (d_ffn slice, chunk of rows) for dW1 and dW2;
+one reduce.  See the source for the tiling.  The parameter gradients go
+through per-chunk partial sums added in chunk order, so two runs give the
+same bits (no atomics).  ``bwd_plan`` sizes the grids, ``bwd_scratch`` the
+scratch.
 
 What the TPU shaped and this port keeps only as a number: the mask is keyed
 on (row block, local row, column) of the TPU kernel's row blocks
@@ -145,6 +152,68 @@ def bwd_plan(n: int, d: int, f: int) -> dict:
             "fp": slices * _TILE}
 
 
+_SMEM_MAX = 232448  # dynamic shared memory a block may take on an H100
+# blocks of the bf16 forward the card holds at once, by cluster size: one a SM,
+# whole clusters within a GPC (measured: clusters of 8 take two waves for 128)
+_FWD_HELD = {1: _SMS, 2: _SMS, 4: 128, 8: 120}
+_GROUP = 4 * _TILE  # output columns of a block of the bf16 forward
+_LD_RED = _GROUP + 8  # row length of the forward's fp32 partial y in shared memory
+
+
+def fwd_plan(n: int, d: int, f: int) -> dict:
+    """Grid and shared memory of the bf16 forward for (N, D, F).
+
+    A block takes ``wgs`` row tiles of 64 (one warpgroup each: two for
+    d_model up to 256, one above, where a tile's resident x takes up to
+    128 KB), one group of 256 output columns, and one of ``fsplit`` parts of
+    the d_ffn slices of ``s`` columns; the ``fsplit`` blocks of a row block
+    form a cluster that adds their partial y in rank order.  ``fsplit``
+    (1, 2, 4 or 8) minimises a cost calibrated on an H100 (waves of blocks
+    the card holds at once, times a block's start, its slices at ~2.5 us a
+    64-wide slice of 128 rows, and ~6 us of cluster reduction), the smaller
+    on a tie; ``stages`` is the deepest weight ring
+    (at most 4) that fits the shared memory: 2 at d_model up to 256, 3 up to
+    512, 1 above.  Raises above d_model 1,024."""
+    if d > 4 * _GROUP:
+        raise ValueError(f"the bf16 fused FFN forward takes d_model up to {4 * _GROUP}, got {d}")
+    # the kernel is built for d_model 256, 512 and 1,024; x and W1 past d are zeros
+    dp = next(w for w in (_GROUP, 2 * _GROUP, 4 * _GROUP) if d <= w)
+    fp, n_dg = _cdiv(f, _TILE) * _TILE, _cdiv(d, _GROUP)
+    s, wgs = (64, 2) if dp <= _GROUP else (32, 1)
+    slices, row_blocks = fp // s, _cdiv(n, wgs * _TILE)
+
+    def cost(fs):  # us, from the card: a block's slices, start and cluster reduction
+        per_slice = 2.5 * s * wgs / 128
+        start = 3.5 if fs == 1 else 9.0
+        waves = _cdiv(row_blocks * n_dg * fs, _FWD_HELD[fs])
+        return waves * (start + per_slice * _cdiv(slices, fs))
+
+    fsplit = min((fs for fs in (1, 2, 4, 8) if fs <= slices), key=lambda fs: (cost(fs), fs))
+    x_bytes, stage = wgs * _TILE * dp * 2, s * dp * 2 + _GROUP * s * 2
+    red = wgs * _TILE * _LD_RED * 4
+
+    def smem(k):
+        return max(x_bytes + k * stage, red) + 12 * k + 1024  # + an mbarrier, a counter a stage
+
+    stages = max(k for k in (1, 2, 3, 4) if k == 1 or smem(k) <= _SMEM_MAX)
+    return {"s": s, "wgs": wgs, "slices": slices, "groups": n_dg,
+            "fsplit": fsplit, "stages": stages, "smem": smem(stages), "dp": dp, "fp": fp,
+            "staged_bytes": slices * (s * dp * 2 + n_dg * _GROUP * s * 2),
+            "grid": (fsplit, row_blocks, n_dg), "threads": wgs * 128}
+
+
+def fwd_parts(slices: int, fsplit: int) -> list[range]:
+    """The d_ffn slices each block of a cluster takes, by rank (as the
+    kernel splits them)."""
+    return [range(q * slices // fsplit, (q + 1) * slices // fsplit) for q in range(fsplit)]
+
+
+def fwd_reduce_rows(wgs: int, fsplit: int) -> list[range]:
+    """The rows of a block's partial y that block ``rank`` of the cluster
+    adds up (over every rank, in rank order) and stores, by rank."""
+    return [range(q, wgs * _TILE, fsplit) for q in range(fsplit)]
+
+
 def bwd_scratch(n: int, d: int, f: int) -> dict:
     """Byte offset and size of each scratch array of the bf16 backward in
     one buffer (256-byte aligned), and the buffer's size under "total"."""
@@ -168,12 +237,15 @@ def _lib():
     if not getattr(lib, "_argtypes_set", False):
         i, u, f, p = ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p
         tail = [i, f, u, u, i, p]
-        lib.tts_fused_ffn_fwd.argtypes = [i] * 4 + [p] * 6 + tail
+        lib.tts_fused_ffn_fwd.argtypes = [i] * 3 + [p] * 6 + tail
+        lib.tts_fused_ffn_fwd_tc.argtypes = [i] * 3 + [p] * 7 + [i, i] + tail
+        lib.tts_fused_ffn_fwd_tc_bytes.argtypes = [i, i, i, p]
         lib.tts_fused_ffn_bwd.argtypes = [i] * 3 + [p] * 8 + tail
         lib.tts_fused_ffn_bwd_tc.argtypes = [i] * 3 + [p] * 15 + [i] * 4 + tail
         lib.tts_fused_ffn_bwd_chunks.argtypes = [i, i]
         lib.tts_fused_ffn_shared_bytes.argtypes = [i, p]
-        for fn in (lib.tts_fused_ffn_fwd, lib.tts_fused_ffn_bwd, lib.tts_fused_ffn_bwd_tc,
+        for fn in (lib.tts_fused_ffn_fwd, lib.tts_fused_ffn_fwd_tc, lib.tts_fused_ffn_fwd_tc_bytes,
+                   lib.tts_fused_ffn_bwd, lib.tts_fused_ffn_bwd_tc,
                    lib.tts_fused_ffn_bwd_chunks, lib.tts_fused_ffn_shared_bytes):
             fn.restype = i
         lib._argtypes_set = True
@@ -210,14 +282,22 @@ def _mask_args(x, seed, dropout, mask_rows):
 
 
 def fused_ffn_forward(x, w1, b1, w2, b2, seed, dropout, mask_rows):
-    """The forward kernel on contiguous (N, D) CUDA rows: y, or raises."""
+    """The forward kernel on contiguous (N, D) CUDA rows: y, or raises.
+    bf16 launches the tensor-core kernel (after the weights' staging
+    kernel), fp32 the CUDA-core one."""
     _check_cuda_args(x, w1, b1, w2, b2)
     n, d = x.shape
     f = w1.shape[0]
     y = torch.empty_like(x)
-    rc = _lib().tts_fused_ffn_fwd(
-        int(x.dtype == torch.bfloat16), n, d, f, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), b2.data_ptr(), y.data_ptr(), *_mask_args(x, seed, dropout, mask_rows))
+    ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            y.data_ptr())
+    if x.dtype == torch.bfloat16:
+        plan = fwd_plan(n, d, f)
+        staged = torch.empty(plan["staged_bytes"], dtype=torch.uint8, device=x.device)
+        rc = _lib().tts_fused_ffn_fwd_tc(n, d, f, *ptrs, staged.data_ptr(), plan["fsplit"],
+                                         plan["stages"], *_mask_args(x, seed, dropout, mask_rows))
+    else:
+        rc = _lib().tts_fused_ffn_fwd(n, d, f, *ptrs, *_mask_args(x, seed, dropout, mask_rows))
     if rc != 0:
         raise RuntimeError(f"fused FFN forward kernel failed to launch (CUDA error {rc}) "
                            f"for N={n}, D={d}, F={f}, {x.dtype}")
