@@ -85,11 +85,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    synthetic batches of the train phase, then one evaluation step; per
    optimizer step 48 / 24 FFN forwards / backwards beside the 72 / 36
    flash and 120 / 60 LayerNorm ones;
-10. time: the decode-step kernel beside its plain version and its bound
+10. trainer: the user's path preprocess -> train -> checkpoint -> wav.  A
+    seeded corpus of 208 clips of 8.3-8.9 s whose texts are 97-128 phonemes
+    long (every item in bucket (128, 768); 16 in the val split) is
+    preprocessed on the log-mel kernel, ``Trainer.fit`` trains ``Config()``
+    (bf16, full width and depth, 16 x 4 rows, EMA 0.99) for 2 epochs of 3
+    optimizer steps, the second with scheduled sampling, each validated
+    teacher-forced and free-running (batched decode-step kernel, 4 rows of
+    800 frames: the stop threshold is set above 1).  It fails unless flash
+    and LN forward and backward and the decode step launched during
+    ``fit``; the last validation decode equals,
+    bit for bit, the decode of a fresh model restored from the latest
+    checkpoint's eval params; every restored tensor equals the saved one;
+    ``Trainer(resume=True)`` with 3 epochs starts at epoch 2 and adds one
+    history row; and ``cli synthesize --wav`` writes 800 frames' wav through
+    the B = 1 kernel.  It prints per epoch the audio-s/s, the median ms per
+    optimizer step, the share of the epoch blocked on the loader, the
+    validation and checkpoint times, and the restore time;
+11. time: the decode-step kernel beside its plain version and its bound
     at ``Config()`` and ``paper.yaml`` widths, with the host's time per eager
     call and the kernel's time by stage (its global-timer stamps), and
     decode frames/s through ``Synthesizer.synthesize``;
-11. time-train: every training and preprocessing kernel beside its plain
+12. time-train: every training and preprocessing kernel beside its plain
     version, its bound and (where PyTorch has a call or a short chain of
     calls for the same function) that (flash, the LN and the FFN kernels
     also at dropout 0, and flash's host time per eager call; the FFN forward
@@ -127,7 +144,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, published
 ALL_PHASES = ("build", "mask", "kernel", "decode", "serve", "train-parity", "train",
-              "preprocess", "train-ffn", "time", "time-train")
+              "preprocess", "train-ffn", "trainer", "time", "time-train")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max|kernel - plain| / max(1, max|plain|)
 # kernel loop vs plain loop, fp32, 64 fed-back frames: as the CPU test of the
 # port against the JAX loop; the H100 showed at most 1.2e-6 relative
@@ -1482,6 +1499,235 @@ def loader_batch(cfg, prep_dir) -> dict:
     return batch
 
 
+# ------------------------------------------------------------ trainer path
+
+# the trainer phase's corpus: every clip lands in bucket (128 phonemes, 768
+# frames), as bench.py's batches do; the loader drops partial buckets, so a
+# corpus spread over many buckets would yield no batch.  192 train clips are
+# 3 optimizer steps an epoch at Config()'s 16 x 4; 16 clips form the val split
+TRAINER_CLIPS, TRAINER_VAL_CLIPS = 208, 16
+TRAINER_SECONDS = (8.3, 8.9)  # 715-767 frames at hop 256
+TRAINER_PHONEMES = (97, 128)
+# the free-running validation decodes up to this many frames (Config()'s
+# 1,500 doubles the host-side MCD-DTW for no check this phase makes)
+TRAINER_MAX_LEN = 800
+
+
+def trainer_texts(n: int) -> list:
+    """``n`` texts of two ``TEXTS`` sentences whose phoneme sequences are
+    ``TRAINER_PHONEMES`` long under this machine's g2p."""
+    import itertools
+
+    from transformertts_tpu_torch.text import G2p, phonemize
+
+    g2p = G2p()
+    fits = []
+    for a, b in itertools.permutations(TEXTS, 2):
+        text = f"{a} {b}"
+        if TRAINER_PHONEMES[0] <= len(phonemize(text, g2p)[1]) <= TRAINER_PHONEMES[1]:
+            fits.append(text)
+    if not fits:
+        raise AssertionError(f"no pair of sentences has {TRAINER_PHONEMES} phonemes")
+    return [fits[i % len(fits)] for i in range(n)]
+
+
+def write_trainer_corpus(root, seed: int = 1) -> None:
+    from transformertts_tpu_torch.dsp.griffin_lim import write_wav
+
+    rng = np.random.default_rng(seed)
+    (root / "wavs").mkdir(parents=True)
+    lines = []
+    for i, text in enumerate(trainer_texts(TRAINER_CLIPS)):
+        audio_id = (f"LJ00{1 + i % 3}-{i:04d}" if i < TRAINER_VAL_CLIPS
+                    else f"LJ0{10 + i % 40}-{i:04d}")
+        n = int(rng.uniform(*TRAINER_SECONDS) * AUDIO["sample_rate"])
+        write_wav(root / "wavs" / f"{audio_id}.wav", clip_signal(rng, n), AUDIO["sample_rate"])
+        lines.append(f"{audio_id}|{text}|{text}")
+    (root / "metadata.csv").write_text("\n".join(lines), encoding="utf-8")
+
+
+def trainer_config(root, **training):
+    """``Config()`` at full width and depth on the phase's corpus.  With no
+    teacher-forcing warm-up, epoch 0 trains at p_tf 1 and epoch 1 at 0.5
+    (the scheduled-sampling step); a stop threshold above 1 makes every
+    free-running validation decode all ``TRAINER_MAX_LEN`` frames, so the
+    restored model's decode is compared over as many kernel steps."""
+    import dataclasses
+
+    from transformertts_tpu_torch.config import Config
+
+    cfg = Config()
+    return cfg.replace(
+        path=dataclasses.replace(cfg.path, data=str(root / "LJSpeech-1.1"),
+                                 preprocessed=str(root / "preprocessed"),
+                                 experiment=str(root / "exp")),
+        training=dataclasses.replace(cfg.training, **{
+            "num_epochs": 2, "teacher_forcing_warmup_epochs": 0, "ema_decay": 0.99,
+            "log_interval": 1, **training}),
+        runtime=dataclasses.replace(cfg.runtime, infer_max_len=TRAINER_MAX_LEN,
+                                    stop_threshold=2.0))
+
+
+def all_launches() -> dict:
+    from transformertts_tpu_torch.ops.decode_step import decode_step
+    from transformertts_tpu_torch.ops.stft import log_mel
+
+    return {**train_counters(), "decode_b1": decode_step.launches - decode_step.launches_batched,
+            "decode_batched": decode_step.launches_batched, "log_mel": log_mel.launches_fft}
+
+
+def zero_all_launches() -> None:
+    from transformertts_tpu_torch.ops.decode_step import decode_step
+    from transformertts_tpu_torch.ops.stft import log_mel
+
+    zero_train_counters()
+    decode_step.launches = decode_step.launches_batched = 0
+    log_mel.launches = log_mel.launches_fft = log_mel.launches_dense = 0
+
+
+def _equal_tensors(a: dict, b: dict) -> list:
+    """Names whose tensors differ (or are missing) between ``a`` and ``b``."""
+    import torch
+
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or not torch.equal(a[k], b[k]))
+
+
+def phase_trainer(device, root, card: str) -> dict:
+    """The user's path: preprocess -> ``Trainer.fit`` -> checkpoints ->
+    resume -> ``cli synthesize --wav``; returns the launches of its kernels
+    over preprocessing, fit and the CLI."""
+    import json as _json
+
+    import torch
+
+    from transformertts_tpu_torch import cli
+    from transformertts_tpu_torch.data.preprocess import preprocess
+    from transformertts_tpu_torch.infer.decode import make_decode_fn
+    from transformertts_tpu_torch.models import TransformerTTS
+    from transformertts_tpu_torch.models.factory import runtime_model_kwargs
+    from transformertts_tpu_torch.train import create_train_state
+    from transformertts_tpu_torch.train.checkpoint import CheckpointManager, load_eval_weights
+    from transformertts_tpu_torch.train.trainer import Trainer
+    from transformertts_tpu_torch.utils import plot
+
+    t0 = time.perf_counter()
+    write_trainer_corpus(root / "LJSpeech-1.1")
+    cfg = trainer_config(root)
+    t_write = time.perf_counter() - t0
+    launches = {}
+    zero_all_launches()
+    t0 = time.perf_counter()
+    preprocess(cfg, device=device)
+    t_prep = time.perf_counter() - t0
+    launches["preprocess"] = all_launches()
+
+    exp = root / "exp" / "run"
+    zero_all_launches()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, exp, resume=False, device=device)
+    t_build = time.perf_counter() - t0
+    result = trainer.fit()
+    torch.cuda.synchronize()
+    launches["fit"] = fit = all_launches()
+    t_fit = time.perf_counter() - t0 - t_build
+    on_card = device.type == "cuda"  # only a kernel launch counts
+    missing = [k for k in ("flash_fwd", "flash_bwd", "ln_fwd", "ln_bwd", "decode_batched")
+               if fit[k] <= 0 and on_card]
+    if missing or result["epochs"] != 2:
+        raise AssertionError(f"trainer: fit ran {result['epochs']} epochs, launches {fit}")
+    hist = _json.loads((exp / "history.json").read_text())
+    if [h["p_tf"] for h in hist] != [1.0, 0.5]:
+        raise AssertionError(f"trainer: p_tf per epoch {[h['p_tf'] for h in hist]}, "
+                             "wanted teacher forcing then scheduled sampling")
+    log(f"[trainer] corpus of {TRAINER_CLIPS} clips written in {t_write:.1f} s, preprocessed in "
+        f"{t_prep:.1f} s ({launches['preprocess']['log_mel']} log-mel launches); Trainer built "
+        f"in {t_build:.1f} s, fit {result['epochs']} epochs in {t_fit:.1f} s; plots "
+        f"{'written' if plot.available() else 'skipped (no matplotlib)'} [{card}]")
+    for h in hist:
+        log(f"[trainer] epoch {h['epoch']}: p_tf {h['p_tf']:.2f}, loss {h['total']:.4f}, "
+            f"{h['audio_s_per_s']:.0f} audio-s/s, median step {h['step_ms_median']:.1f} ms, "
+            f"loader wait {100 * h['loader_wait_share']:.2f} % of the {h['epoch_s']:.2f} s epoch "
+            f"({h['loader_wait_first_ms']:.1f} ms for the first batch, "
+            f"{1e3 * h['loader_wait_share'] * h['epoch_s'] - h['loader_wait_first_ms']:.1f} ms "
+            f"for the later ones), val loss "
+            f"{h['val_loss']:.4f} (teacher-forced {h['val_tf_ms']:.1f} ms, free-running "
+            f"{h['val_free_ms']:.1f} ms, mcd_dtw {h['val_free_mcd_dtw']:.2f}), checkpoint save "
+            f"{h['ckpt_save_ms']:.1f} ms [{card}]")
+    log(f"[trainer] kernel launches during fit: {fit}")
+
+    # the last validation's free-running decode against a fresh model
+    # restored from the latest checkpoint with its eval params
+    last = trainer.last_free_decode
+    fresh = TransformerTTS(cfg.model, **runtime_model_kwargs(cfg, device))
+    step = load_eval_weights(fresh, cfg, exp / "checkpoints")
+    again = make_decode_fn(fresh, cfg, device=device)(last["phoneme"], last["phoneme_lens"])
+    same = [k for k in ("pred_melspec", "post_melspec", "pred_stop", "n_frames_per_row")
+            if not torch.equal(again[k], last["out"][k])]
+    if same or again["n_frames"] != last["out"]["n_frames"]:
+        raise AssertionError(f"trainer: the validation decode differs from the restored "
+                             f"model's on {same}")
+    log(f"[trainer] last validation decode ({len(last['phoneme'])} rows, "
+        f"{last['out']['n_frames']} frames) equals the decode of checkpoint {step}'s eval "
+        "params bit for bit")
+
+    # every restored tensor equals the saved one
+    state = trainer.state
+    template = create_train_state(TransformerTTS(cfg.model, **runtime_model_kwargs(cfg, device)),
+                                  cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, epoch = CheckpointManager(exp / "checkpoints").restore(template)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    differ = (_equal_tensors(restored.model.state_dict(), state.model.state_dict())
+              + _equal_tensors(restored.opt_state["mu"], state.opt_state["mu"])
+              + _equal_tensors(restored.opt_state["nu"], state.opt_state["nu"])
+              + _equal_tensors(restored.ema_params, state.ema_params))
+    if differ or (restored.step, restored.opt_state["count"], epoch) != (
+            state.step, state.opt_state["count"], 2):
+        raise AssertionError(f"trainer: restore != save on {differ[:5]}")
+    n_tensors = len(state.model.state_dict()) + 3 * len(state.opt_state["mu"])
+    log(f"[trainer] restore of step {state.step}: {n_tensors} tensors equal to the saved ones "
+        f"bit for bit, {restore_ms:.1f} ms [{card}]")
+    del trainer, template, restored, fresh
+
+    # resume with one more epoch
+    zero_all_launches()
+    resumed = Trainer(trainer_config(root, num_epochs=3), exp, resume=True, device=device)
+    if resumed.start_epoch != 2:
+        raise AssertionError(f"trainer: resume starts at epoch {resumed.start_epoch}, not 2")
+    more = resumed.fit()
+    rows = _json.loads((exp / "history.json").read_text())
+    if more["epochs"] != 1 or [h["epoch"] for h in rows] != [0, 1, 2]:
+        raise AssertionError(f"trainer: resume trained {more['epochs']} epochs, history "
+                             f"{[h['epoch'] for h in rows]}")
+    launches["resume"] = all_launches()
+    log(f"[trainer] resumed at epoch 2: one epoch, {rows[2]['audio_s_per_s']:.0f} audio-s/s, "
+        f"history rows {[h['epoch'] for h in rows]}")
+    del resumed
+
+    # cli synthesize --wav on the B = 1 kernel
+    zero_all_launches()
+    sets = [f"path.preprocessed={cfg.path.preprocessed}",
+            f"runtime.infer_max_len={TRAINER_MAX_LEN}", "runtime.stop_threshold=2.0"]
+    t0 = time.perf_counter()
+    cli.main(["synthesize", "--ckpt", str(exp / "checkpoints"), "--text", TEXTS[0],
+              "--out", str(root / "mel.npy"), "--wav", str(root / "out.wav"),
+              *[a for s in sets for a in ("--set", s)]])
+    t_cli = time.perf_counter() - t0
+    launches["cli"] = cli_launches = all_launches()
+    with wave.open(str(root / "out.wav")) as w:
+        n_samples = w.getnframes()
+    if n_samples != (TRAINER_MAX_LEN - 1) * AUDIO["hop_length"] or (
+            on_card and cli_launches["decode_b1"] != TRAINER_MAX_LEN):
+        raise AssertionError(f"cli synthesize: {n_samples} samples, launches {cli_launches}")
+    log(f"[trainer] cli synthesize --wav: {n_samples} samples "
+        f"({n_samples / AUDIO['sample_rate']:.2f} s), {cli_launches['decode_b1']} B=1 decode-step "
+        f"launches, {t_cli:.1f} s with the model's build [{card}]")
+    return launches
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
@@ -1802,6 +2048,10 @@ def main(argv=None) -> int:
             train_ffn = phase_train(
                 with_fused_ffn(cfg), device, card, timed_steps=timed, profile=args.profile,
                 first_batch=loader_batch(cfg, prep["dir"]))
+    trainer = {}
+    if "trainer" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
+            trainer = phase_trainer(device, Path(tmp), card)
     if train and train_ffn and timed:
         log(f"[time] train step, fused FFN off / on: {train['step_ms']:.1f} / "
             f"{train_ffn['step_ms']:.1f} ms [{card}]")
@@ -1816,6 +2066,12 @@ def main(argv=None) -> int:
     src = "transformertts_tpu_torch/ops/csrc/"
     pallas = "transformertts_tpu/ops/pallas/"
     kernels = []
+    # launches of each kernel on the trainer path: preprocessing, fit (train
+    # steps, validation and its free-running decode), the resumed epoch and
+    # cli synthesize, each counted from 0
+    on_trainer = {key: sum(run[key] for run in trainer.values())
+                  for key in ("flash_fwd", "flash_bwd", "ln_fwd", "ln_bwd", "ffn_fwd", "ffn_bwd",
+                              "decode_b1", "decode_batched", "log_mel")}
     for b, name, line, key in ((1, "decode_step", 300, "b1"),
                                (8, "decode_step_batched", 532, "batched")):
         ms, plain, bound, by = rows[("Config()", b, SERVE_MAX_LEN, 64, 200)]
@@ -1825,7 +2081,7 @@ def main(argv=None) -> int:
             "replaces": f"{pallas}decode_step.py:{line}",
             "launches": launches[key], "max_abs_err": worst[b],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            "library_ms": None,
+            "library_ms": None, "launches_trainer": on_trainer[f"decode_{key}"],
             "shapes": {f"{what} n_pos {n_pos} Tp {tp} t {t}": dict(
                 zip(("ms", "plain_ms", "bound_ms", "bound_by"), r))
                 for (what, rb, n_pos, tp, t), r in rows.items() if rb == b},
@@ -1858,11 +2114,14 @@ def main(argv=None) -> int:
             "replaces": pallas + site, "launches": n_launches,
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": lib,
+            "launches_trainer": on_trainer[count or "log_mel"],
             "shapes": {shape: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), r))
                        for (kern, shape), r in train_rows.items() if kern == kernel},
         })
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path was launched no time on the main path")
+    if any(k["launches_trainer"] <= 0 for k in kernels if "ffn" not in k["name"]):
+        raise AssertionError("a kernel of the trainer path was launched no time on it")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,10 @@ import torch
 
 from tests.test_torch_models import configs, jax_model_and_variables
 from transformertts_tpu_torch.convert import torch_state_from_jax
+from transformertts_tpu_torch.dsp.griffin_lim import griffin_lim
 from transformertts_tpu_torch.infer import Synthesizer, make_decode_fn
 from transformertts_tpu_torch.models import TransformerTTS
+from transformertts_tpu_torch.train.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "transformertts_tpu")
@@ -41,7 +43,8 @@ def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"decode_step.py", "api.py", "serving.py", "chip_smoke.py", "g2p.py", "fused_ffn.py",
             "stft.py", "mel.py", "preprocess.py", "dataset.py", "prefetch.py",
-            "audio_io.py"} <= names
+            "audio_io.py", "trainer.py", "checkpoint.py", "griffin_lim.py", "cli.py",
+            "logging.py", "exp.py", "plot.py"} <= names
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):
@@ -55,6 +58,10 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Synthesizer(pcfg, state_dict=model.state_dict())
     assert make_decode_fn(model, pcfg, device="cpu") is not None
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(pcfg, "unused")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        griffin_lim(np.zeros((80, 4), np.float32))
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -107,7 +114,8 @@ def test_convert_layouts():
 @pytest.mark.parametrize("module", ["ops.flash_attention", "ops.fused_ln", "ops.dropout_mask",
                                     "train.train_step", "models.factory", "ops.fused_ffn",
                                     "ops.stft", "dsp.mel", "data.preprocess", "data.dataset",
-                                    "data.prefetch"])
+                                    "data.prefetch", "train.trainer", "train.checkpoint",
+                                    "dsp.griffin_lim", "cli", "utils.plot", "infer.api"])
 def test_each_module_imports_first(module):
     """No import cycle: any module of the training and data slices can be the first
     one a fresh interpreter imports (``models`` imports ``ops``, so ``ops``
@@ -115,4 +123,14 @@ def test_each_module_imports_first(module):
     proc = subprocess.run(
         [sys.executable, "-c", f"import transformertts_tpu_torch.{module}"], cwd=ROOT,
         capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_plots_import_matplotlib_only_when_drawn():
+    """A machine without matplotlib trains: importing the trainer (and its
+    plot module) does not import it."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, transformertts_tpu_torch.train.trainer; "
+         "assert 'matplotlib' not in sys.modules"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -12,6 +12,7 @@ import json
 import threading
 import urllib.error
 import urllib.request
+import wave
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -53,15 +54,19 @@ def test_synthesizer_matches_jax():
 
 def test_synthesizer_weight_sources(synth):
     """A port state dict serves the same mels as the flax variables it came
-    from; an orbax checkpoint dir is refused, naming the ROADMAP."""
+    from; a checkpoint directory that does not exist is refused
+    (``test_torch_checkpoint.py`` reads real ones and refuses orbax ones)."""
     jcfg, pcfg = configs(stop_threshold=2.0)
     again = Synthesizer(pcfg, state_dict=synth.model.state_dict(), stats=STATS, device="cpu")
     np.testing.assert_array_equal(again.synthesize(TEXTS[0], max_len=8)[0],
                                   synth.synthesize(TEXTS[0], max_len=8)[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         Synthesizer(pcfg, checkpoint_dir="ckpt", device="cpu")
     with pytest.raises(ValueError, match="exactly one"):
         Synthesizer(pcfg, device="cpu")
+    with pytest.raises(ValueError, match="exactly one"):
+        Synthesizer(pcfg, checkpoint_dir="ckpt", state_dict=synth.model.state_dict(),
+                    device="cpu")
     assert synth.warmup(batch_sizes=(1, 2), buckets=(16,), max_len=4) == 2
 
 
@@ -108,8 +113,11 @@ def test_http_server(synth):
         for bad in (b"not json", {"text": 3}, {"text": "hi", "format": "flac"}):
             code, body, _ = _request(url + "/synthesize", bad)
             assert code == 400, body
-        code, body, _ = _request(url + "/synthesize", {"text": "hi", "format": "wav"})
-        assert code == 501 and b"ROADMAP" in body
+        code, body, headers = _request(url + "/synthesize", {"text": TEXTS[0], "format": "wav"})
+        assert code == 200 and headers["Content-Type"] == "audio/wav"
+        assert body[:4] == b"RIFF" and body[8:12] == b"WAVE"
+        with wave.open(io.BytesIO(body)) as w:  # (T - 1) * hop samples for T = 8 frames
+            assert (w.getframerate(), w.getnframes()) == (22050, 7 * 256)
         assert _request(url + "/nowhere")[0] == 404
     finally:
         server.shutdown()

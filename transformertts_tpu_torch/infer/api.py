@@ -2,8 +2,8 @@
 
 ``Synthesizer`` packages the serving pipeline — g2p, bucket padding,
 KV-cached decode (the CUDA decode-step kernel on the GPU), mel
-denormalization — behind one object.  Waveforms (Griffin-Lim) and
-streaming come with later slices of the port.
+denormalization, Griffin-Lim waveforms — behind one object.  Streaming
+comes with a later slice of the port (ROADMAP Queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -19,9 +19,11 @@ from transformertts_tpu_torch.convert import torch_state_from_jax
 from transformertts_tpu_torch.data.dataset import load_stats, pick_bucket
 from transformertts_tpu_torch.device import resolve_device
 from transformertts_tpu_torch.dsp import denormalize_mel
+from transformertts_tpu_torch.dsp.griffin_lim import griffin_lim
 from transformertts_tpu_torch.infer.decode import make_decode_fn
 from transformertts_tpu_torch.models import TransformerTTS
 from transformertts_tpu_torch.text import G2p, phonemize
+from transformertts_tpu_torch.train.checkpoint import load_eval_weights
 
 
 class Synthesizer:
@@ -34,23 +36,24 @@ class Synthesizer:
         device: str | torch.device | None = None,
         checkpoint_dir: str | Path | None = None,
     ):
-        """Weights from the JAX package's flax ``variables`` (numpy tree,
-        through ``convert.torch_state_from_jax``) or from this package's
-        ``state_dict``.  ``device`` None means the GPU."""
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "reading an orbax checkpoint needs JAX; the orbax -> torch "
-                "checkpoint converter is ROADMAP Queue 1 work"
-            )
-        if (variables is None) == (state_dict is None):
-            raise ValueError("need exactly one of variables or state_dict")
+        """Weights from one of: a checkpoint directory of this package's
+        trainer (``checkpoint_dir``: its eval params, the EMA copy when the
+        checkpoint carries one, and BatchNorm statistics), the JAX package's
+        flax ``variables`` (numpy tree, through
+        ``convert.torch_state_from_jax``) or this package's ``state_dict``.
+        ``device`` None means the GPU."""
+        if sum(x is not None for x in (checkpoint_dir, variables, state_dict)) != 1:
+            raise ValueError("need exactly one of checkpoint_dir, variables or state_dict")
         self.cfg = cfg
         self.device = resolve_device(device)
         dtype = torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16" else torch.float32
-        if variables is not None:
-            state_dict = torch_state_from_jax(variables, cfg.model)
         self.model = TransformerTTS(cfg.model, dtype=dtype, device=self.device)
-        self.model.load_state_dict(state_dict, strict=True)
+        if checkpoint_dir is not None:
+            load_eval_weights(self.model, cfg, checkpoint_dir)
+        else:
+            if variables is not None:
+                state_dict = torch_state_from_jax(variables, cfg.model)
+            self.model.load_state_dict(state_dict, strict=True)
         self.g2p = G2p()
 
         if stats is None and cfg.audio.normalize_mel:
@@ -134,3 +137,13 @@ class Synthesizer:
             mels.append(mel.astype(np.float32))
         return mels
 
+    def mel_to_wav(self, mel: np.ndarray) -> np.ndarray:
+        """(n_mels, T) log-mel (as ``synthesize`` returns it) -> waveform by
+        Griffin-Lim on this synthesizer's device."""
+        a = self.cfg.audio
+        return griffin_lim(torch.from_numpy(np.ascontiguousarray(mel)).to(self.device),
+                           a.sample_rate, a.n_fft, a.hop_length, a.win_length, a.fmin, a.fmax)
+
+    def synthesize_wav(self, text: str, **kw) -> np.ndarray:
+        """Text -> waveform via Griffin-Lim."""
+        return self.mel_to_wav(self.synthesize(text, **kw)[0])

@@ -79,6 +79,10 @@ def make_decode_fn(
     Frames at positions >= n_frames are zeros before the postnet; so are a
     chunk's frames past its own stop, which lie past its rows' lengths.
 
+    The decode reads the model's weights as they are at each call: the kernel
+    loop's packed copy of the decoder weights is made again whenever a
+    parameter was written since the last pack (``weights_version``).
+
     ``use_kernel``: None picks the kernel loop on CUDA — it raises there
     when ``cfg.runtime.use_pallas_decode_step`` is off, and the kernel
     raises for shapes it cannot take — and the plain loop on the CPU.
@@ -114,7 +118,7 @@ def make_decode_fn(
     if kernel and chunk < 1:
         raise ValueError(f"decode_megakernel_max_batch must be >= 1, got {chunk}")
     n_pos = max_len // r
-    packed_cache: dict = {}
+    packed_cache: dict = {}  # "key": the parameters' versions the packed copy was made from
 
     @torch.inference_mode()
     def decode(phoneme, phoneme_lens) -> dict:
@@ -125,8 +129,10 @@ def make_decode_fn(
         cross_kv = model.build_cross_cache(memory)  # L x ((B, Tp, H, dh) x 2)
         cross_bias = padding_bias(lens, tp)  # (B, 1, 1, Tp)
         if kernel:
-            if "packed" not in packed_cache:
+            key = weights_version(model)
+            if packed_cache.get("key") != key:  # the weights changed since the last pack
                 packed_cache["packed"] = pack_decode_weights(model, model.dtype)
+                packed_cache["key"] = key
             parts = [
                 _kernel_loop(
                     model, cfg, packed_cache["packed"],
@@ -156,6 +162,13 @@ def make_decode_fn(
         }
 
     return decode
+
+
+def weights_version(model) -> tuple:
+    """Identity and in-place version of every parameter: it changes when an
+    optimizer step, ``load_state_dict`` or any other in-place write touches
+    a weight, so a decode closure knows when its packed copy is stale."""
+    return tuple((id(p), p._version) for p in model.parameters())
 
 
 def _state(cfg, b, max_len, dev):

@@ -11,8 +11,8 @@ chunks of 8 rows) instead of B=1 per request.
 - Results are delivered through ``concurrent.futures.Future`` so callers
   (HTTP handler threads, tests, user code) block only on their own item.
 
-The HTTP front end serves mel spectrograms.  ``format: "wav"`` answers 501:
-Griffin-Lim comes with a later slice of the port.
+The HTTP front end serves mel spectrograms, or with ``format: "wav"``
+Griffin-Lim waveforms (``Synthesizer.mel_to_wav``).
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+
+from transformertts_tpu_torch.dsp.griffin_lim import wav_bytes
 
 
 @dataclass
@@ -180,8 +182,8 @@ class DynamicBatcher:
 def make_http_server(batcher: DynamicBatcher, host: str = "127.0.0.1", port: int = 0):
     """A threaded HTTP front-end over the batcher.
 
-    POST /synthesize  {"text": "...", "format": "mel"}
-        -> .npy bytes (mel, shape (n_mels, T)); "wav" -> 501 (not ported yet)
+    POST /synthesize  {"text": "...", "format": "mel"|"wav"}
+        -> .npy bytes (mel, shape (n_mels, T)) or RIFF wav bytes
     GET  /healthz     -> {"ok": true, ...batcher stats}
 
     Handler threads block on their own future while the single worker
@@ -224,18 +226,19 @@ def make_http_server(batcher: DynamicBatcher, host: str = "127.0.0.1", port: int
             except ValueError as e:
                 self._json(400, {"error": f"bad request: {e}"})
                 return
-            if fmt == "wav":
-                self._json(501, {"error": "format 'wav' needs Griffin-Lim, not ported "
-                                          "yet (ROADMAP Queue 1: griffin_lim/dsp)"})
-                return
             try:
                 mel = batcher.synthesize(text)
+                if fmt == "wav":
+                    synth = batcher.synth
+                    payload = wav_bytes(synth.mel_to_wav(mel), synth.cfg.audio.sample_rate)
+                    ctype = "audio/wav"
+                else:
+                    buf = io.BytesIO()
+                    np.save(buf, mel)
+                    payload, ctype = buf.getvalue(), "application/octet-stream"
             except Exception as e:
                 self._json(500, {"error": str(e)})
                 return
-            buf = io.BytesIO()
-            np.save(buf, mel)
-            payload, ctype = buf.getvalue(), "application/octet-stream"
             self.send_response(200)
             self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(payload)))

@@ -1,8 +1,9 @@
-"""The evaluation metrics ``make_eval_step`` reports
-(``transformertts_tpu/train/metrics.py``; MCD-DTW is not ported yet).
+"""The metrics of ``make_eval_step`` and of the trainer's free-running
+validation (``transformertts_tpu/train/metrics.py``).
 
 - Mel-cepstral distortion (MCD): DCT-II of log-mel -> frame-wise L2 over
   cepstra 1..K.
+- MCD under a DTW alignment (``mcd_dtw``), on the host in numpy.
 - Stop-token accuracy / recall at threshold 0.5 over valid frames.
 """
 
@@ -42,6 +43,47 @@ def mel_cepstral_distortion(
     scale = 10.0 * math.sqrt(2.0) / math.log(10.0)
     valid = lengths_to_valid_mask(lengths, dist.shape[1])
     return scale * torch.where(valid, dist, torch.zeros_like(dist)).sum() / valid.sum().clamp(min=1)
+
+
+def mcd_dtw(pred_mel: np.ndarray, true_mel: np.ndarray, n_coeffs: int = 13) -> float:
+    """MCD in dB under a DTW alignment (the standard TTS eval protocol).
+
+    Free-running decode has no ground-truth timing anchor, so the two
+    cepstral sequences are warped onto a monotone common path first (steps
+    (1,1), (1,0), (0,1)); the result measures spectral error net of pacing.
+    Host-side numpy on single utterances (Tp, n_mels) / (Tt, n_mels) log-mel.
+    """
+    n_mels = pred_mel.shape[-1]
+    dct = _dct_matrix(n_mels)[1: n_coeffs + 1].T.astype(np.float64)  # drop c0 (energy)
+    # float64: the ||a||^2+||b||^2-2ab expansion cancels catastrophically
+    # in float32 when a ~ b
+    cp = np.asarray(pred_mel, np.float64) @ dct  # (Tp, K)
+    ct = np.asarray(true_mel, np.float64) @ dct  # (Tt, K)
+    d = np.sqrt(np.maximum(
+        np.sum(cp**2, 1)[:, None] + np.sum(ct**2, 1)[None, :] - 2.0 * (cp @ ct.T), 0.0
+    ) + 1e-12)  # (Tp, Tt)
+    tp, tt = d.shape
+    inf = float("inf")
+    # accumulated cost and path length; ties prefer diagonal, then up, then left
+    prev_a = [0.0] + [inf] * tt
+    prev_p = [0] * (tt + 1)
+    for i in range(1, tp + 1):
+        di = d[i - 1].tolist()
+        cur_a = [inf] * (tt + 1)
+        cur_p = [0] * (tt + 1)
+        for j in range(1, tt + 1):
+            a_diag, a_up, a_left = prev_a[j - 1], prev_a[j], cur_a[j - 1]
+            if a_diag <= a_up and a_diag <= a_left:
+                best, blen = a_diag, prev_p[j - 1]
+            elif a_up <= a_left:
+                best, blen = a_up, prev_p[j]
+            else:
+                best, blen = a_left, cur_p[j - 1]
+            cur_a[j] = di[j - 1] + best
+            cur_p[j] = blen + 1
+        prev_a, prev_p = cur_a, cur_p
+    scale = 10.0 * math.sqrt(2.0) / math.log(10.0)
+    return float(scale * prev_a[tt] / max(prev_p[tt], 1))
 
 
 def stop_token_metrics(
