@@ -6,7 +6,8 @@
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. build: the CUDA kernels of ``transformertts_tpu_torch/ops/csrc`` with
-   nvcc, one process per source, all at once; for the decode-step, flash,
+   nvcc, one process per source, all at once; for the decode-step (without
+   and with prenet dropout), flash,
    fused-FFN, fused-LN and log-mel libraries each kernel's registers and
    spills, ptxas's warnings of serialized wgmma (one on the bf16 FFN forward
    fails the run), the dynamic shared memory at the path shapes (the decode
@@ -24,8 +25,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the serving shape (400 positions, 64 encoder positions); and at
    ``configs/paper.yaml`` widths (d_model 512, 6 layers, 8 heads, d_ffn
    2,048): B in {1, 8}, t in {0, 700, 1,499}, the same positions, output
-   and dtypes.  Each case is called twice for equal bits, and one call
-   under ``torch.profiler`` must be exactly one kernel launch.  The flash
+   and dtypes; and with inference prenet dropout 0.5 (a seed and a first
+   row of 3) at ``Config()``, B in {1, 8}, t in {0, 700}, bf16 and fp32.
+   Each case is called twice for equal bits, and one call (also one with
+   prenet dropout) under ``torch.profiler`` must be exactly one kernel
+   launch.  The flash
    attention and residual+dropout+LayerNorm kernels, forward and every
    gradient, at the training path's shapes (B 16, 4 heads of 64; (128, 128),
    causal (768, 768), (768, 128); 12,288 and 2,048 rows of 256) and at odd
@@ -49,27 +53,39 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    640, each against its plain version and against ``mel_spectrogram_np``,
    and each call checked to have launched the kernel its n_fft selects;
 4. decode: the full decode through the kernel loop against the plain loop,
-   fp32 weights, B = 2 with ragged lengths, 64 forced frames, W = 0 and 2;
+   fp32 weights, B = 2 with ragged lengths, 64 forced frames, W = 0 and 2,
+   without and with inference prenet dropout 0.5 (the same hash masks);
 5. serve: the serving path, ``make_http_server`` -> ``DynamicBatcher`` ->
    ``Synthesizer`` -> kernel loop, with seeded random weights in bf16:
    13 HTTP requests (12 concurrent, then one alone), one batch at the
    default stop threshold and one batch of 12 rows (decoded as kernel
    calls of 8 and 4 rows); the kernel's launch counts are zeroed before
    and read after, and must equal the decode steps run;
-6. train-parity: one micro-batch of 16 rows at full width in fp32, dropout
+6. stream: streaming synthesis at ``Config()`` and at
+   ``configs/fast_serve.yaml`` (reduction factor 2), seeded random weights
+   in bf16, max_len 512, chunk 64, stop threshold 2.0: one text through
+   ``stream_decode`` (its pre-postnet frames equal to the one-shot kernel
+   decode's bit for bit, its postnet frames within ``TOL`` of bf16: the
+   postnet runs in bf16 on windows; one launch a step), ten texts (row chunks of 8 and 2 rows in lockstep, each
+   chunk's launches equal to its steps), ``Synthesizer.stream`` timed (time
+   to the first chunk, time per later chunk, frames/s beside
+   ``Synthesizer.synthesize`` of the same text); then two lines through
+   ``cli serve --wav`` on a checkpoint the phase writes with the port's
+   ``CheckpointManager``, and ``entry()``'s forward once (its shapes);
+7. train-parity: one micro-batch of 16 rows at full width in fp32, dropout
    and scheduled sampling on, once through the kernels and once through
    their plain versions from the same generator seeds (so both drop the
    same elements): the loss and every parameter's gradient are compared;
    then a second micro-batch the same way with
    ``runtime.use_pallas_fused_ffn`` on;
-7. train: the training path, ``create_train_state`` + ``make_train_step``
+8. train: the training path, ``create_train_state`` + ``make_train_step``
    at ``Config()`` (bf16, 4 micro-batches of 16 rows, 768 mel frames, 128
    phonemes, double forward, dropout on) for 3 optimizer steps on seeded
    synthetic batches, then one ``make_eval_step``; the kernels' launch
    counts are zeroed before and read after, and must be what the path
    implies (per step 72 / 36 flash and 120 / 60 LayerNorm forwards /
    backwards), fused FFN off as by default;
-8. preprocess: the preprocessing path.  A seeded corpus of 160 mono 16-bit
+9. preprocess: the preprocessing path.  A seeded corpus of 160 mono 16-bit
    wavs of 2-9 s at 22,050 Hz (moving sines and noise; ids in both splits)
    with a ``metadata.csv`` is written into a temporary directory, the
    port's ``preprocess`` runs on it with ``runtime.use_pallas_mel`` on the
@@ -78,14 +94,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    checked; the log-mel kernels' launch counts are zeroed before, and after
    the FFT kernel's must be twice the number of 32-clip chunks and the dense
    kernel's 0;
-9. train-ffn: the training path with ``runtime.use_pallas_fused_ffn`` on.
+10. train-ffn: the training path with ``runtime.use_pallas_fused_ffn`` on.
    The first optimizer step takes a batch that ``BucketedLoader`` over
    ``LJSpeechDataset`` (through ``prefetch``) reads from what the
    preprocess phase wrote, then 3 checked and 4 timed steps on the
    synthetic batches of the train phase, then one evaluation step; per
    optimizer step 48 / 24 FFN forwards / backwards beside the 72 / 36
    flash and 120 / 60 LayerNorm ones;
-10. trainer: the user's path preprocess -> train -> checkpoint -> wav.  A
+11. trainer: the user's path preprocess -> train -> checkpoint -> wav.  A
     seeded corpus of 208 clips of 8.3-8.9 s whose texts are 97-128 phonemes
     long (every item in bucket (128, 768); 16 in the val split) is
     preprocessed on the log-mel kernel, ``Trainer.fit`` trains ``Config()``
@@ -102,11 +118,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the B = 1 kernel.  It prints per epoch the audio-s/s, the median ms per
     optimizer step, the share of the epoch blocked on the loader, the
     validation and checkpoint times, and the restore time;
-11. time: the decode-step kernel beside its plain version and its bound
+12. time: the decode-step kernel beside its plain version and its bound
     at ``Config()`` and ``paper.yaml`` widths, with the host's time per eager
-    call and the kernel's time by stage (its global-timer stamps), and
-    decode frames/s through ``Synthesizer.synthesize``;
-12. time-train: every training and preprocessing kernel beside its plain
+    call and the kernel's time by stage (its global-timer stamps), at the
+    serving shape also with prenet dropout 0.5, and decode frames/s through
+    ``Synthesizer.synthesize``;
+13. time-train: every training and preprocessing kernel beside its plain
     version, its bound and (where PyTorch has a call or a short chain of
     calls for the same function) that (flash, the LN and the FFN kernels
     also at dropout 0, and flash's host time per eager call; the FFN forward
@@ -143,13 +160,15 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, published
-ALL_PHASES = ("build", "mask", "kernel", "decode", "serve", "train-parity", "train",
+ALL_PHASES = ("build", "mask", "kernel", "decode", "serve", "stream", "train-parity", "train",
               "preprocess", "train-ffn", "trainer", "time", "time-train")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max|kernel - plain| / max(1, max|plain|)
 # kernel loop vs plain loop, fp32, 64 fed-back frames: as the CPU test of the
 # port against the JAX loop; the H100 showed at most 1.2e-6 relative
 DECODE_TOL = 1e-4
 SERVE_MAX_LEN = 400
+STREAM_MAX_LEN, STREAM_CHUNK = 512, 64
+PRENET_DROPOUT = 0.5
 TEXTS = [
     "Printing, in the only sense with which we are at present concerned.",
     "The quick brown fox jumps over the lazy dog.",
@@ -183,6 +202,15 @@ def default_config():
     from transformertts_tpu_torch.config import Config
 
     return Config()
+
+
+def fast_serve_config():
+    """``configs/fast_serve.yaml``: ``Config()``'s widths at reduction factor 2."""
+    from pathlib import Path
+
+    from transformertts_tpu_torch.config import load_config
+
+    return load_config(Path(__file__).resolve().parent / "configs" / "fast_serve.yaml")
 
 
 def paper_config():
@@ -335,7 +363,8 @@ def phase_build() -> None:
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         log(f"[build] {path.name}: {len(regs)} kernels, max {max(regs, default=0)} "
             f"registers/thread, spill lines: {spills[:3] or 'none'}")
-    for name in ("decode_step", "flash_attention", "fused_ffn", "fused_ln", "log_mel"):
+    for name in ("decode_step", "decode_step_dropout", "flash_attention", "fused_ffn", "fused_ln",
+                 "log_mel"):
         kernel_report(name, libs[name])
 
 
@@ -585,7 +614,66 @@ def phase_kernel(cfg, device) -> dict:
                 check_one_launch(
                     lambda: decode_step(200, frame, pe_row, bias, *caches, packed),
                     "decode_step_kernel")
+                check_one_launch(
+                    lambda: decode_step(200, frame, pe_row, bias, *caches, packed,
+                                        **prenet_drop(cfg, 3)), "decode_step_kernel")
+    kernel_prenet_dropout(cfg, device, worst)
     return worst
+
+
+def prenet_drop(cfg, row0: int) -> dict:
+    """The decode step's prenet-dropout arguments at ``PRENET_DROPOUT``, the
+    decode's seed and first row ``row0``."""
+    return {"prenet_dropout": PRENET_DROPOUT, "seed": cfg.training.seed ^ 0x5EED, "row0": row0}
+
+
+def kernel_prenet_dropout(cfg, device, worst: dict) -> None:
+    """The decode step with prenet dropout against its plain version with the
+    same seed and first row, at ``Config()`` widths, 1,500 positions and 192
+    encoder positions, each case twice for equal bits."""
+    import torch
+
+    from transformertts_tpu_torch.ops.decode_step import (
+        decode_step,
+        decode_step_reference,
+        pack_decode_weights,
+    )
+
+    drop = prenet_drop(cfg, 3)
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        model = make_model(cfg, dtype, device, seed=1)
+        packed = pack_decode_weights(model, dtype)
+        alpha = float(model.pe.alpha.detach())
+        del model
+        for b in (1, 8):
+            for t in (0, 700):
+                (frame, pe_row, bias), caches = step_inputs(
+                    cfg, b, t, 1500, 192, dtype, device, seed=b * 1000 + t + 1)
+                pe_row = alpha * pe_row
+                outs = [decode_step(t, frame, pe_row, bias, *[c.clone() for c in caches],
+                                    packed, **drop) for _ in range(2)]
+                torch.cuda.synchronize()
+                if not all(torch.equal(x, y) for x, y in zip(*outs)):
+                    raise AssertionError(f"prenet dropout {dtype_name} B={b} t={t}: a second "
+                                         "call gave other bits")
+                ref = decode_step_reference(t, frame, pe_row, bias, *caches, packed, **drop)
+                kept = decode_step_reference(t, frame, pe_row, bias, *caches, packed)
+                errs = []
+                for name, o, r in zip(("y", "k_new", "v_new"), outs[0], ref):
+                    err, rel = rel_err(o, r)
+                    errs.append(f"{name} {err:.2e}")
+                    worst[b] = max(worst.get(b, 0.0), err)
+                    if not rel <= TOL[dtype_name] or not torch.isfinite(o).all():
+                        raise AssertionError(f"kernel != plain with prenet dropout: {dtype_name} "
+                                             f"B={b} t={t} {name}: rel err {rel:.3g}")
+                moved = rel_err(outs[0][0], kept[0])[1]
+                if not moved > 5 * TOL[dtype_name]:
+                    raise AssertionError(f"prenet dropout {dtype_name} B={b} t={t}: the output "
+                                         f"moved only {moved:.2e} from the undropped one")
+                log(f"[kernel] Config() {dtype_name:8s} B={b} t={t:4d} prenet dropout "
+                    f"{PRENET_DROPOUT} (row0 3): " + ", ".join(errs)
+                    + f", equal bits; {moved:.2e} (relative) from the undropped step")
 
 
 # rows 3-6 against their plain versions: max|kernel - plain| / max(1, max|plain|).
@@ -951,8 +1039,9 @@ def phase_decode(cfg, device) -> None:
     rng = np.random.default_rng(3)
     phoneme = rng.integers(1, 70, (2, 96))
     lens = np.array([96, 61])
-    for window in (0, 2):
-        c = cfg.replace(runtime=dataclasses.replace(cfg.runtime, decode_attn_window=window))
+    for rate, window in ((0.0, 0), (0.0, 2), (PRENET_DROPOUT, 0), (PRENET_DROPOUT, 2)):
+        c = cfg.replace(runtime=dataclasses.replace(cfg.runtime, decode_attn_window=window,
+                                                    infer_prenet_dropout=rate))
         outs = [
             make_decode_fn(model, c, max_len=64, stop_threshold=2.0, use_kernel=k,
                            device=device)(phoneme, lens)
@@ -961,14 +1050,20 @@ def phase_decode(cfg, device) -> None:
         kern, plain = outs
         if not kern["n_frames"] == plain["n_frames"] == 64 or not torch.equal(
                 kern["n_frames_per_row"], plain["n_frames_per_row"]):
-            raise AssertionError(f"W={window}: frame counts differ")
+            raise AssertionError(f"W={window} prenet dropout {rate}: frame counts differ")
+        # how the gap grows along the fed-back frames, by 16 frames
+        gap = (kern["pred_melspec"] - plain["pred_melspec"]).abs().amax(dim=(0, 2))
+        growth = ", ".join(f"{float(gap[i:i + 16].max()):.1e}" for i in range(0, 64, 16))
         msg = []
         for k in ("pred_melspec", "pred_stop", "post_melspec"):
             err, rel = rel_err(kern[k], plain[k])
             msg.append(f"{k} {err:.2e} (rel {rel:.1e})")
             if not rel <= DECODE_TOL:
-                raise AssertionError(f"W={window}: kernel loop != plain loop on {k}: {rel:.3g}")
-        log(f"[decode] fp32 B=2 64 frames W={window}: " + ", ".join(msg))
+                raise AssertionError(f"W={window} prenet dropout {rate}: kernel loop != plain "
+                                     f"loop on {k}: {rel:.3g} (pred_melspec gap by 16 frames: "
+                                     f"{growth})")
+        log(f"[decode] fp32 B=2 64 frames W={window} prenet dropout {rate}: " + ", ".join(msg)
+            + f"; pred_melspec gap by 16 frames {growth}")
 
 
 def _post(url: str, body: dict) -> tuple[int, bytes]:
@@ -1039,6 +1134,210 @@ def phase_serve(cfg, device, synth, default_threshold: float) -> dict:
     return {"b1": launches - batched, "batched": batched}
 
 
+STREAM_STATS = {"mean": -5.0, "std": 2.0}
+CLI_MAX_LEN = 256  # frames a line of ``cli serve`` decodes in the stream phase
+
+
+def padded_texts(synth, texts) -> tuple:
+    """Phonemes of ``texts`` padded to the smallest bucket that holds the
+    longest, and their lengths (as ``Synthesizer`` pads them)."""
+    from transformertts_tpu_torch.data.dataset import pick_bucket
+
+    seqs = [synth.text_to_ids(t) for t in texts]
+    buckets = synth.cfg.runtime.phoneme_buckets
+    bucket = pick_bucket(max(len(q) for q in seqs), buckets) or buckets[-1]
+    phoneme = np.zeros((len(seqs), bucket), np.int32)
+    lens = np.array([min(len(q), bucket) for q in seqs], np.int32)
+    for i, q in enumerate(seqs):
+        phoneme[i, :lens[i]] = q[:bucket]
+    return phoneme, lens
+
+
+def postnet_tol(model) -> float:
+    """Tolerance of streamed postnet frames against the one-shot postnet:
+    the same frames through convolutions of another length, for which cuDNN
+    may pick another algorithm; in bf16 a value then moves by a bf16 ulp
+    (2^-8 relative; 4.1e-3 measured at B = 10 on the H100), so ``TOL`` of the
+    model's dtype rather than the fp32 ``DECODE_TOL``."""
+    return TOL[str(model.dtype).removeprefix("torch.")]
+
+
+def check_stream(what, cfg, synth, texts, device, card: str) -> dict:
+    """One stream of ``texts`` through ``stream_chunks`` against the one-shot
+    kernel decode; returns the decode step's launches (B = 1, B > 1)."""
+    import torch
+
+    from transformertts_tpu_torch.infer.decode import make_decode_fn
+    from transformertts_tpu_torch.infer.streaming import make_stream_fns, stream_chunks
+    from transformertts_tpu_torch.ops.decode_step import decode_step
+
+    b, n_pos = len(texts), STREAM_MAX_LEN // cfg.model.reduction_factor
+    phoneme, lens = padded_texts(synth, texts)
+    # the kernel loop (on the card the default; on the CPU its plain version)
+    one = make_decode_fn(synth.model, cfg, max_len=STREAM_MAX_LEN, use_kernel=True,
+                         device=device)(phoneme, lens)
+    fns = make_stream_fns(synth.model, cfg, max_len=STREAM_MAX_LEN, chunk=STREAM_CHUNK,
+                          use_kernel=True, device=device)
+    on_card = device.type == "cuda"  # only a kernel launch counts
+    decode_step.launches = decode_step.launches_batched = 0
+    state = fns[0](phoneme, lens)
+    chunks = list(stream_chunks(fns, cfg, state, STREAM_MAX_LEN))
+    launches = {"b1": decode_step.launches - decode_step.launches_batched,
+                "batched": decode_step.launches_batched}
+    pre = np.concatenate([c[0] for c in chunks], axis=1)
+    post = np.concatenate([c[1] for c in chunks], axis=1)
+    steps = sum(c[2] for c in chunks)
+    per_chunk = [(rows.b, rows.t, rows.decode_step.launches if on_card else rows.t)
+                 for rows in state.rows]
+    want_rows = [min(8, b - i) for i in range(0, b, 8)]
+    if pre.shape != (b, STREAM_MAX_LEN, cfg.model.n_mels) or one["n_frames"] != STREAM_MAX_LEN:
+        raise AssertionError(f"[stream] {what} B={b}: {pre.shape} streamed, one-shot "
+                             f"{one['n_frames']} frames")
+    if not np.array_equal(pre, one["pred_melspec"].cpu().numpy()):
+        raise AssertionError(f"[stream] {what} B={b}: streamed frames != one-shot frames")
+    err, rel = rel_err(torch.from_numpy(post), one["post_melspec"].cpu())
+    if not rel <= postnet_tol(synth.model) or not np.isfinite(post).all():
+        raise AssertionError(f"[stream] {what} B={b}: postnet chunks off by {rel:.3g}")
+    if ([rb for rb, _, _ in per_chunk] != want_rows
+            or any(t != n_pos or n != n_pos for _, t, n in per_chunk)
+            or (on_card and steps != sum(launches.values()))
+            or steps != n_pos * len(want_rows)):
+        raise AssertionError(f"[stream] {what} B={b}: row chunks (rows, steps, launches) "
+                             f"{per_chunk}, {steps} steps, launches {launches}")
+    log(f"[stream] {what} bf16 B={b}: {len(chunks)} chunks of <= {STREAM_CHUNK} frames, "
+        f"pre-postnet frames equal to the one-shot kernel decode's bit for bit, postnet "
+        f"{err:.2e} (rel {rel:.1e}); row chunks (rows, steps, launches) {per_chunk} in "
+        f"lockstep [{card}]")
+    return launches
+
+
+def time_stream(what, synth, card: str) -> dict:
+    """``Synthesizer.stream`` of one text beside ``Synthesizer.synthesize``
+    (each returns host arrays: the device is drained at each chunk), and the
+    stream's set-up alone (encoder, cross K/V, the prepared decode step)."""
+    import statistics
+
+    import torch
+
+    from transformertts_tpu_torch.infer.streaming import make_stream_fns
+
+    text = TEXTS[0]
+    list(synth.stream(text, chunk=STREAM_CHUNK, max_len=STREAM_MAX_LEN))  # warm
+    synth.synthesize(text, max_len=STREAM_MAX_LEN)
+    init = make_stream_fns(synth.model, synth.cfg, max_len=STREAM_MAX_LEN, chunk=STREAM_CHUNK,
+                           device=synth.device)[0]
+    phoneme, lens = padded_texts(synth, [text])
+    init(phoneme, lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    init(phoneme, lens)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    stamps, mels = [], []
+    t0 = time.perf_counter()
+    for mel in synth.stream(text, chunk=STREAM_CHUNK, max_len=STREAM_MAX_LEN):
+        stamps.append(time.perf_counter() - t0)
+        mels.append(mel)
+    t0 = time.perf_counter()
+    whole = synth.synthesize(text, max_len=STREAM_MAX_LEN)[0]
+    one_s = time.perf_counter() - t0
+    streamed = np.concatenate(mels, axis=1)
+    if streamed.shape != whole.shape or not rel_err(
+            torch.from_numpy(streamed), torch.from_numpy(whole))[1] <= postnet_tol(synth.model):
+        raise AssertionError(f"[stream] {what}: Synthesizer.stream != synthesize")
+    later = [b - a for a, b in zip(stamps, stamps[1:])]
+    frames = streamed.shape[1]
+    out = {"first_ms": stamps[0] * 1e3, "later_ms": statistics.median(later) * 1e3,
+           "fps": frames / stamps[-1], "synth_fps": frames / one_s, "init_ms": init_ms}
+    log(f"[stream] {what} Synthesizer.stream B=1, {frames} frames in chunks of {STREAM_CHUNK}: "
+        f"first chunk after {out['first_ms']:.1f} ms ({init_ms:.1f} ms of it the set-up: "
+        f"encoder, cross K/V, decode step prepared), later chunks every {out['later_ms']:.1f} "
+        f"ms (median; max {max(later) * 1e3:.1f}), {out['fps']:.0f} frames/s; "
+        f"Synthesizer.synthesize of the same text {one_s * 1e3:.1f} ms, {out['synth_fps']:.0f} "
+        f"frames/s [{card}]")
+    return out
+
+
+def phase_stream(device, root, card: str) -> dict:
+    """Streaming synthesis on the decode-step kernel, ``cli serve`` and
+    ``entry()``; returns the decode step's launches of the streams (B = 1,
+    B > 1), each stream's counted from 0."""
+    import dataclasses
+    import wave
+
+    import torch
+
+    from transformertts_tpu_torch import cli
+    from transformertts_tpu_torch.entry import dryrun_multichip, entry
+    from transformertts_tpu_torch.infer import Synthesizer
+    from transformertts_tpu_torch.models import TransformerTTS
+    from transformertts_tpu_torch.ops.decode_step import decode_step
+    from transformertts_tpu_torch.train import create_train_state
+    from transformertts_tpu_torch.train.checkpoint import CheckpointManager
+
+    launches = {"b1": 0, "batched": 0}
+    for what, base in (("Config()", default_config()), ("fast_serve.yaml", fast_serve_config())):
+        cfg = base.replace(runtime=dataclasses.replace(base.runtime, stop_threshold=2.0))
+        gen_model = make_model(cfg, torch.bfloat16, "cpu", seed=6)
+        synth = Synthesizer(cfg, state_dict=gen_model.state_dict(), stats=STREAM_STATS,
+                            device=device)
+        del gen_model
+        for texts in (TEXTS[:1], TEXTS[:10]):
+            for key, n in check_stream(what, cfg, synth, texts, device, card).items():
+                launches[key] += n
+        time_stream(what, synth, card)
+        del synth
+
+    # cli serve --wav: two lines on a checkpoint of the port's format
+    cfg = default_config()
+    model = TransformerTTS(cfg.model, device="cpu", generator=torch.Generator().manual_seed(8))
+    CheckpointManager(root / "ckpt").save(1, create_train_state(model, cfg), epoch=1)
+    del model
+    (root / "lines.txt").write_text(f"{TEXTS[1]}\n\n{TEXTS[2]}\n")
+    decode_step.launches = decode_step.launches_batched = 0
+    t0 = time.perf_counter()
+    cli.main(["serve", "--ckpt", str(root / "ckpt"), "--out-dir", str(root / "served"),
+              "--input", str(root / "lines.txt"), "--wav", "--chunk", str(STREAM_CHUNK),
+              "--device", str(device),
+              *[a for s in (f"runtime.infer_max_len={CLI_MAX_LEN}", "runtime.stop_threshold=2.0",
+                            f"path.preprocessed={root}") for a in ("--set", s)]])
+    t_cli = time.perf_counter() - t0
+    names = sorted(p.name for p in (root / "served").iterdir())
+    if names != ["utt_0000.npy", "utt_0000.wav", "utt_0001.npy", "utt_0001.wav"]:
+        raise AssertionError(f"cli serve wrote {names}")
+    for i in range(2):
+        mel = np.load(root / "served" / f"utt_{i:04d}.npy")
+        with wave.open(str(root / "served" / f"utt_{i:04d}.wav")) as w:
+            n_samples = w.getnframes()
+        if (mel.shape != (cfg.model.n_mels, CLI_MAX_LEN) or not np.isfinite(mel).all()
+                or n_samples != (CLI_MAX_LEN - 1) * AUDIO["hop_length"]):
+            raise AssertionError(f"cli serve line {i}: mel {mel.shape}, {n_samples} samples")
+    if device.type == "cuda" and (decode_step.launches != 2 * CLI_MAX_LEN
+                                  or decode_step.launches_batched):
+        raise AssertionError(f"cli serve: {decode_step.launches} decode-step launches")
+    log(f"[stream] cli serve --wav: 2 lines, {CLI_MAX_LEN} frames and "
+        f"{(CLI_MAX_LEN - 1) * AUDIO['hop_length']} samples each, {decode_step.launches} B=1 "
+        f"decode-step launches, {t_cli:.1f} s with the model's load [{card}]")
+
+    # entry(): the flagship forward
+    fn, args = entry(device)
+    out = fn(*args)
+    m = cfg.model
+    want = {"pred_melspec": (16, 512, m.n_mels), "pred_stop": (16, 512),
+            "post_melspec": (16, 512, m.n_mels),
+            "alignments": (m.decoder_n_layers, 16, m.decoder_n_head, 512, 128)}
+    got = {k: tuple(v.shape) for k, v in out.items()}
+    if got != want or not all(torch.isfinite(v).all() for v in out.values()):
+        raise AssertionError(f"entry(): {got}")
+    try:
+        dryrun_multichip(4)
+        raise AssertionError("dryrun_multichip did not raise")
+    except NotImplementedError:
+        pass
+    log(f"[stream] entry(): the flagship forward gives {got}")
+    return launches
+
+
 def log_stage_times(what, b, t, step_args, packed, card: str, calls: int = 20) -> None:
     """The decode kernel's time by stage at one shape: the median over
     ``calls`` calls of each stage's work (slowest block) and grid-barrier
@@ -1067,7 +1366,10 @@ def log_stage_times(what, b, t, step_args, packed, card: str, calls: int = 20) -
     log("[time]   " + ", ".join(f"{n} {w:.2f}+{x:.2f}" for n, (w, x) in zip(names, med)))
 
 
-def phase_time(cfg, device, synth, card: str) -> dict:
+def phase_time(cfg, device, synth, card: str) -> tuple:
+    """The decode step's times by shape (``rows``) and, at the serving shape,
+    with prenet dropout (``drop_rows``: rate 0, rate ``PRENET_DROPOUT``,
+    rate 0 again, by batch)."""
     import torch
 
     from transformertts_tpu_torch.ops.decode_step import (
@@ -1079,7 +1381,7 @@ def phase_time(cfg, device, synth, card: str) -> dict:
     from transformertts_tpu_torch.ops import decode_step as decode_module
 
     stamps = hasattr(decode_module, "stage_times")  # (an earlier kernel in a same-call A/B has none)
-    rows = {}
+    rows, drop_rows = {}, {}
     for what, wcfg, shapes in (
             ("Config()", cfg, [(1500, 192, 0), (1500, 192, 700), (SERVE_MAX_LEN, 64, 200)]),
             ("paper.yaml", paper_config(), [(1500, 192, 700), (SERVE_MAX_LEN, 64, 200)])):
@@ -1100,6 +1402,14 @@ def phase_time(cfg, device, synth, card: str) -> dict:
                 bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
                 by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS else "operations"
                 rows[(what, b, n_pos, tp, t)] = (ms, plain_ms, bound, by)
+                if (what, n_pos, tp, t) == ("Config()", SERVE_MAX_LEN, 64, 200):
+                    dropped = lambda: decode_step(  # noqa: E731
+                        t, frame, pe_row, bias, *caches, packed, **prenet_drop(cfg, 0))
+                    drop_ms, again_ms = device_ms(dropped), device_ms(kern)
+                    drop_rows[b] = (ms, drop_ms, again_ms)
+                    log(f"[time] Config() bf16 B={b} serving shape, prenet dropout: rate 0 "
+                        f"{ms * 1e3:.1f} / {again_ms * 1e3:.1f} us/step (before / after), rate "
+                        f"{PRENET_DROPOUT} {drop_ms * 1e3:.1f} us/step on the device [{card}]")
                 if (n_pos, tp, t) in ((SERVE_MAX_LEN, 64, 200), (1500, 192, 700)) and stamps:
                     log_stage_times(what, b, t, (frame, pe_row, bias, caches), packed, card)
                 log(f"[time] {what} bf16 B={b} n_pos={n_pos} tp={tp} t={t}: kernel "
@@ -1116,7 +1426,7 @@ def phase_time(cfg, device, synth, card: str) -> dict:
         dt = time.perf_counter() - t0
         log(f"[time] Synthesizer.synthesize B={b}, {SERVE_MAX_LEN} frames/row: {dt:.3f} s, "
             f"{b * SERVE_MAX_LEN / dt:.0f} frames/s, {dt / SERVE_MAX_LEN * 1e3:.3f} ms/step [{card}]")
-    return rows
+    return rows, drop_rows
 
 
 # ------------------------------------------------------------ training path
@@ -2023,7 +2333,11 @@ def main(argv=None) -> int:
     mel_worst = phase_mel_kernel(device) if "kernel" in phases else {}
     if "decode" in phases:
         phase_decode(cfg, device)
-    launches, rows = {}, {}
+    stream_launches = {}
+    if "stream" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+            stream_launches = phase_stream(device, Path(tmp), card)
+    launches, rows, drop_rows = {}, {}, {}
     if phases & {"serve", "time"}:
         scfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime, stop_threshold=2.0))
         gen_model = make_model(scfg, torch.bfloat16, "cpu", seed=5)
@@ -2032,7 +2346,7 @@ def main(argv=None) -> int:
         if "serve" in phases:
             launches = phase_serve(scfg, device, synth, cfg.runtime.stop_threshold)
         if "time" in phases:
-            rows = phase_time(scfg, device, synth, card)
+            rows, drop_rows = phase_time(scfg, device, synth, card)
         del synth, gen_model
     if "train-parity" in phases:
         phase_train_parity(cfg, device)
@@ -2082,6 +2396,8 @@ def main(argv=None) -> int:
             "launches": launches[key], "max_abs_err": worst[b],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None, "launches_trainer": on_trainer[f"decode_{key}"],
+            "launches_stream": stream_launches[key],
+            "ms_prenet_dropout": drop_rows[b][1],
             "shapes": {f"{what} n_pos {n_pos} Tp {tp} t {t}": dict(
                 zip(("ms", "plain_ms", "bound_ms", "bound_by"), r))
                 for (what, rb, n_pos, tp, t), r in rows.items() if rb == b},
@@ -2122,6 +2438,8 @@ def main(argv=None) -> int:
         raise AssertionError("a kernel of the path was launched no time on the main path")
     if any(k["launches_trainer"] <= 0 for k in kernels if "ffn" not in k["name"]):
         raise AssertionError("a kernel of the trainer path was launched no time on it")
+    if any(k.get("launches_stream", 1) <= 0 for k in kernels):
+        raise AssertionError("the decode step was launched no time on the streaming path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

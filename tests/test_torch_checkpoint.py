@@ -208,10 +208,15 @@ def test_cli_synthesize_writes_a_wav(trained, tmp_path, capsys):
     assert "wrote 16 frames" in capsys.readouterr().out
 
 
-def test_cli_refuses_unported_verbs(trained):
+def test_cli_refuses_unported_verbs(trained, tmp_path, capsys):
+    """``train --distributed`` raises; ``serve`` is ported
+    (tests/test_torch_streaming.py) and serves."""
     overrides, run, _ = trained
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        cli.main(["serve", "--ckpt", str(run / "checkpoints"), "--device", "cpu"])
+    (tmp_path / "none.txt").write_text("\n")
+    cli.main(["serve", "--ckpt", str(run / "checkpoints"), "--device", "cpu",
+              "--input", str(tmp_path / "none.txt"), "--out-dir", str(tmp_path / "out"),
+              *[a for o in overrides for a in ("--set", o)]])
+    assert "served 0 utterances" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         cli.main(["train", "--distributed", "--device", "cpu",
                   *[a for o in overrides for a in ("--set", o)]])

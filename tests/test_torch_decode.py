@@ -79,12 +79,16 @@ def test_decode_early_stop(use_kernel):
 
 
 def test_decode_rejects_unported_options():
+    """Speculative decode is not ported and raises; inference prenet dropout
+    is (tests/test_torch_prenet_dropout.py) and decodes."""
     jcfg, pcfg = configs()
     model = port_model(pcfg, jax_model_and_variables(jcfg)[1])
-    for runtime in ({"decode_speculative_k": 4}, {"infer_prenet_dropout": 0.5}):
-        _, cfg = configs(**runtime)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_decode_fn(model, cfg, max_len=8, device="cpu")
+    _, cfg = configs(decode_speculative_k=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_decode_fn(model, cfg, max_len=8, device="cpu")
+    _, cfg = configs(infer_prenet_dropout=0.5)
+    out = make_decode_fn(model, cfg, max_len=8, stop_threshold=2.0, device="cpu")(*_inputs(1))
+    assert out["n_frames"] == 8 and np.isfinite(out["post_melspec"].numpy()).all()
 
 
 @pytest.mark.parametrize("threshold", [2.0, 0.5])

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,9 +45,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``ops/csrc/<name>.cu`` is built, keyed by sources and flags."""
+    """Where ``ops/csrc/<name>.cu`` is built, keyed by sources and flags
+    (the source, every header, and a ``.cu`` file the source includes)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+    main = CSRC / f"{name}.cu"
+    included = re.findall(r'#include "(\w+\.cu)"', main.read_text())
+    for src in [main, *sorted(CSRC.glob("*.cuh")), *[CSRC / f for f in included]]:
         h.update(src.name.encode() + src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

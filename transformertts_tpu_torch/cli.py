@@ -3,11 +3,12 @@
   python -m transformertts_tpu_torch.cli train --config config.yaml
   python -m transformertts_tpu_torch.cli preprocess --config config.yaml
   python -m transformertts_tpu_torch.cli synthesize --ckpt DIR --text "..." [--wav out.wav]
+  python -m transformertts_tpu_torch.cli serve --ckpt DIR [--wav] [--input lines.txt]
   python -m transformertts_tpu_torch.cli serve-http --ckpt DIR
 
 Every verb runs on the GPU unless ``--device cpu`` names the CPU.  Not
-ported yet: the streaming ``serve`` verb (ROADMAP Queue 1 item 2) and
-multi-process training (``train --distributed``, item 6); both raise.
+ported yet: multi-process training (``train --distributed``, ROADMAP
+Queue 1 item 6); it raises.
 """
 
 from __future__ import annotations
@@ -64,6 +65,57 @@ def _synthesizer(cfg, args):
 
 
 def cmd_synthesize(args):
+    """Text -> mel (and wav) as the JAX CLI decodes it: an fp32 model with
+    the checkpoint's eval weights, the phonemes padded to the largest
+    bucket, the mel cut at the decode's global frame count."""
+    import numpy as np
+    import torch
+
+    from transformertts_tpu_torch.config import load_config
+    from transformertts_tpu_torch.data.dataset import load_stats
+    from transformertts_tpu_torch.device import resolve_device
+    from transformertts_tpu_torch.dsp import denormalize_mel
+    from transformertts_tpu_torch.dsp.griffin_lim import griffin_lim, write_wav
+    from transformertts_tpu_torch.infer.decode import make_decode_fn
+    from transformertts_tpu_torch.models import TransformerTTS
+    from transformertts_tpu_torch.text import G2p, phonemize
+    from transformertts_tpu_torch.train.checkpoint import load_eval_weights
+
+    cfg = load_config(args.config, args.overrides)
+    device = resolve_device(args.device)
+    model = TransformerTTS(cfg.model, dtype=torch.float32, device=device)
+    try:
+        load_eval_weights(model, cfg, args.ckpt)
+    except FileNotFoundError as e:
+        sys.exit(f"no checkpoint found: {e}")
+    _, seq = phonemize(args.text, G2p())
+    max_p = cfg.runtime.phoneme_buckets[-1]
+    phoneme = np.zeros((1, max_p), np.int32)
+    phoneme[0, : min(len(seq), max_p)] = seq[:max_p]
+    out = make_decode_fn(model, cfg, device=device)(phoneme, np.array([len(seq)], np.int32))
+    mel = out["post_melspec"][0, : out["n_frames"]].cpu().numpy()  # (T, n_mels)
+    if cfg.audio.normalize_mel:
+        try:
+            stats = load_stats(cfg.path.preprocessed)
+            mel = denormalize_mel(mel, stats["mean"], stats["std"])
+        except FileNotFoundError:
+            print("warning: stats.json not found; mel left normalized")
+    np.save(args.out, mel.T)  # (n_mels, T), the layout preprocess writes
+    print(f"wrote {mel.shape[0]} frames to {args.out}")
+    if args.wav:
+        a = cfg.audio
+        y = griffin_lim(torch.from_numpy(np.ascontiguousarray(mel.T)).to(device),
+                        a.sample_rate, a.n_fft, a.hop_length, a.win_length, a.fmin, a.fmax)
+        write_wav(args.wav, y, a.sample_rate)
+        print(f"wrote {len(y) / a.sample_rate:.2f}s of audio to {args.wav}")
+
+
+def cmd_serve(args):
+    """Piped serving loop: each non-empty line of text in (stdin, or
+    ``--input``) -> ``utt_NNNN.npy`` (and ``.wav``) out, decoded chunk by
+    chunk through ``Synthesizer.stream``."""
+    from pathlib import Path
+
     import numpy as np
 
     from transformertts_tpu_torch.config import load_config
@@ -71,21 +123,33 @@ def cmd_synthesize(args):
 
     cfg = load_config(args.config, args.overrides)
     synth = _synthesizer(cfg, args)
-    if cfg.audio.normalize_mel and synth.stats is None:
-        print("warning: stats.json not found; mel left normalized")
-    mel = synth.synthesize(args.text)[0]  # (n_mels, T), the layout preprocess writes
-    np.save(args.out, mel)
-    print(f"wrote {mel.shape[1]} frames to {args.out}")
-    if args.wav:
-        y = synth.mel_to_wav(mel)
-        write_wav(args.wav, y, cfg.audio.sample_rate)
-        print(f"wrote {len(y) / cfg.audio.sample_rate:.2f}s of audio to {args.wav}")
-
-
-def cmd_serve(args):
-    raise NotImplementedError(
-        "the streaming serve verb needs infer/streaming.py, not ported yet "
-        "(ROADMAP Queue 1 item 2); serve-http serves whole utterances")
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    n = 0
+    src = open(args.input, encoding="utf-8") if args.input else sys.stdin
+    try:
+        for line in src:
+            text = line.strip()
+            if not text:
+                continue
+            chunks = []
+            for chunk in synth.stream(text, chunk=args.chunk):
+                chunks.append(chunk)
+                print(f"\r[{n}] {sum(c.shape[1] for c in chunks)} frames", end="",
+                      file=sys.stderr)
+            print(file=sys.stderr)
+            mel = (np.concatenate(chunks, axis=1) if chunks
+                   else np.zeros((cfg.model.n_mels, 0), np.float32))
+            path = out_dir / f"utt_{n:04d}"
+            np.save(f"{path}.npy", mel)
+            if args.wav:
+                write_wav(f"{path}.wav", synth.mel_to_wav(mel), cfg.audio.sample_rate)
+            print(f"[{n}] {mel.shape[1]} frames -> {path}.npy" + (" + .wav" if args.wav else ""))
+            n += 1
+    finally:
+        if args.input:
+            src.close()
+    print(f"served {n} utterances")
 
 
 def cmd_serve_http(args):
@@ -156,9 +220,15 @@ def build_parser() -> argparse.ArgumentParser:
     p_syn.add_argument("--wav", default=None, help="also write audio via Griffin-Lim inversion")
     p_syn.set_defaults(fn=cmd_synthesize)
 
-    p_srv = sub.add_parser("serve", help="stream-synthesize each stdin line (not ported yet)")
+    p_srv = sub.add_parser("serve", help="stream-synthesize each stdin line")
     _add_common(p_srv)
     p_srv.add_argument("--ckpt", required=True, help="checkpoint directory")
+    p_srv.add_argument("--out-dir", default="served")
+    p_srv.add_argument("--chunk", type=int, default=64)
+    p_srv.add_argument("--wav", action="store_true",
+                       help="also write Griffin-Lim audio per utterance")
+    p_srv.add_argument("--input", default=None,
+                       help="read lines from a file instead of stdin")
     p_srv.set_defaults(fn=cmd_serve)
 
     p_http = sub.add_parser("serve-http", help="dynamic-batching HTTP synthesis server")

@@ -2,8 +2,8 @@
 
 ``Synthesizer`` packages the serving pipeline — g2p, bucket padding,
 KV-cached decode (the CUDA decode-step kernel on the GPU), mel
-denormalization, Griffin-Lim waveforms — behind one object.  Streaming
-comes with a later slice of the port (ROADMAP Queue 1 item 2).
+denormalization, Griffin-Lim waveforms — behind one object, one-shot
+(``synthesize``) or streamed chunk by chunk (``stream``).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from transformertts_tpu_torch.device import resolve_device
 from transformertts_tpu_torch.dsp import denormalize_mel
 from transformertts_tpu_torch.dsp.griffin_lim import griffin_lim
 from transformertts_tpu_torch.infer.decode import make_decode_fn
+from transformertts_tpu_torch.infer.streaming import make_stream_fns, stream_chunks
 from transformertts_tpu_torch.models import TransformerTTS
 from transformertts_tpu_torch.text import G2p, phonemize
 from transformertts_tpu_torch.train.checkpoint import load_eval_weights
@@ -63,6 +64,7 @@ class Synthesizer:
                 stats = None
         self.stats = stats
         self._decoders: dict[tuple, object] = {}
+        self._streams: dict[tuple, tuple] = {}
         self.steps_decoded = 0  # decode steps run, summed over batches and row chunks
 
     def _decode_fn(self, max_len: int, stop_threshold: Optional[float]):
@@ -136,6 +138,43 @@ class Synthesizer:
                 mel = denormalize_mel(mel, self.stats["mean"], self.stats["std"])
             mels.append(mel.astype(np.float32))
         return mels
+
+    def stream(
+        self,
+        text: str,
+        chunk: int = 64,
+        max_len: Optional[int] = None,
+        denormalize: bool = True,
+    ):
+        """Text -> iterator of (n_mels, <= chunk) fp32 mel chunks as they
+        decode.
+
+        Chunks are postnet-final (the one-shot decode's frames, see
+        ``infer/streaming.py``) and arrive at most
+        ceil(postnet_overlap / chunk) chunks behind the decoder.  The row is
+        padded to the smallest bucket that holds it, and ``max_len``
+        (default ``runtime.infer_max_len``) is rounded up to whole chunks:
+        the decode still ends at the stop vote."""
+        seq = self.text_to_ids(text)
+        buckets = self.cfg.runtime.phoneme_buckets
+        bucket = pick_bucket(len(seq), buckets) or buckets[-1]
+        n = min(len(seq), bucket)
+        phoneme = np.zeros((1, bucket), np.int32)
+        phoneme[0, :n] = seq[:n]
+        lens = np.array([n], np.int32)
+        max_len = max_len or self.cfg.runtime.infer_max_len
+        max_len = -(-max_len // chunk) * chunk
+        key = (max_len, chunk)
+        if key not in self._streams:
+            self._streams[key] = make_stream_fns(self.model, self.cfg, max_len=max_len,
+                                                 chunk=chunk, device=self.device)
+        fns = self._streams[key]
+        for _, post, steps in stream_chunks(fns, self.cfg, fns[0](phoneme, lens), max_len):
+            self.steps_decoded += steps
+            mel = post[0].T  # (n_mels, <= chunk)
+            if denormalize and self.stats is not None:
+                mel = denormalize_mel(mel, self.stats["mean"], self.stats["std"])
+            yield mel.astype(np.float32)
 
     def mel_to_wav(self, mel: np.ndarray) -> np.ndarray:
         """(n_mels, T) log-mel (as ``synthesize`` returns it) -> waveform by

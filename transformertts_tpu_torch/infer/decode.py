@@ -12,7 +12,15 @@ Two loops with one result:
   kernel on the GPU, through an ``ops.decode_step.DecodeStep`` prepared
   once per chunk of rows (checks, plan, buffers), so a step costs the host
   one C call.  A batch larger than the kernel takes is decoded as
-  consecutive chunks of rows, each chunk to its own stop.
+  consecutive chunks of rows.
+
+Both are one ``DecodeState``: the encoder's output, the frame buffer, the
+stop logits and votes, and per chunk of rows (``DecodeRows``) its caches,
+its window center and, on the GPU, its prepared step.  The one-shot decode
+(``make_decode_fn``) advances each chunk to its own stop (``run_each``);
+the stream (``infer/streaming.py``) advances every chunk in lockstep, a
+chunk of positions at a time (``run_lockstep``).  The step bodies exist
+once, in ``PlainRows.body`` and ``KernelRows.body``.
 
 On the GPU the kernel loop is the decode path; the plain loop runs there
 only when the caller asks for it by name (``use_kernel=False``), as a
@@ -22,7 +30,12 @@ Both keep the windowed monotone cross-attention (``decode_attn_window``
 W > 0): every layer's cross-attention sees only encoder positions within
 ``[center - W, center + W]``, and the center follows the last layer's
 head-averaged expected position, only ever forward.  With reduction factor
-r > 1 each step emits r frames and feeds back the last one.
+r > 1 each step emits r frames and feeds back the last one.  With
+``runtime.infer_prenet_dropout`` > 0 both drop prenet elements (JAX
+``_prenet_dropout_step``): the plain loop by ``prenet_dropout_step``, the
+kernel loop inside the kernel, with the same counter-hash masks
+(``ops.decode_step.prenet_keep``; seed ``training.seed ^ 0x5EED`` as the
+JAX loop's key).
 
 The loop runs in Python and reads the stop votes back once per step.
 """
@@ -42,6 +55,8 @@ from transformertts_tpu_torch.ops.decode_step import (
     DecodeStep,
     decode_step,
     pack_decode_weights,
+    prenet_drop_args,
+    prenet_keep,
 )
 
 
@@ -60,6 +75,249 @@ def _window_bias(center: torch.Tensor, tp: int, w: int) -> torch.Tensor:
     c = center[:, None]
     inside = (pos >= c - w) & (pos <= c + w)
     return torch.where(inside, 0.0, NEG_INF)
+
+
+def prenet_seed(cfg: Config) -> int:
+    """Seed of the inference prenet-dropout masks (the JAX loop's
+    ``PRNGKey(training.seed ^ 0x5EED)``)."""
+    return int(cfg.training.seed) ^ 0x5EED
+
+
+def prenet_dropout_step(model, frame, t: int, rate: float, seed: int, row0: int = 0,
+                        keep=None) -> torch.Tensor:
+    """Decoder prenet with live dropout, then ``+ alpha * PE[t]`` (JAX
+    ``_prenet_dropout_step``): (B, 1, n_mels) -> (B, 1, D) in the model's
+    dtype.  Each layer's ReLU output keeps an element where its mask is
+    True, scaled by ``1 / (1 - rate)``, and is 0 elsewhere; the PE is added
+    in fp32 to the dropped activation.  ``keep``: (2, B, 1, D) bool masks
+    of the two layers; None takes ``prenet_keep``'s for rows ``row0 ..``."""
+    pn, dtype = model.dec_prenet, model.dtype
+    _, keep_scale = prenet_drop_args(rate)
+    x = frame.to(dtype)
+    for i, layer in enumerate((pn.LinearNorm_0, pn.LinearNorm_1)):
+        x = torch.relu(layer(x))
+        k = keep[i] if keep is not None else prenet_keep(
+            t, i, x.shape[0], x.shape[-1], rate, seed, row0, x.device)[:, None, :]
+        x = torch.where(k, x * keep_scale, torch.zeros_like(x))
+    pe_row = model.pe.pe[t: t + 1]
+    return (x.float() + model.pe.alpha.float() * pe_row).to(dtype)
+
+
+class DecodeRows:
+    """One chunk of rows of a ``DecodeState``: the step body and what only
+    this chunk's steps read (caches, window center).  ``frames``, ``stops``
+    and ``stopped`` are views of the whole state's buffers; ``row0`` is the
+    chunk's first row in the batch."""
+
+    def __init__(self, model, cfg, frames, stops, stopped, cross_kv, cross_bias, n_pos,
+                 stop_threshold, row0, prenet_dropout):
+        m = cfg.model
+        self.model, self.r, self.n_mels = model, m.reduction_factor, m.n_mels
+        self.frames, self.stops, self.stopped = frames, stops, stopped
+        self.cross_kv, self.cross_bias = cross_kv, cross_bias
+        self.n_pos, self.stop_threshold = n_pos, stop_threshold
+        self.attn_win = int(cfg.runtime.decode_attn_window)
+        self.row0, self.prenet_dropout, self.seed = row0, float(prenet_dropout), prenet_seed(cfg)
+        self.b, self.tp = cross_bias.shape[0], cross_bias.shape[-1]
+        self.center = torch.zeros((self.b,), dtype=torch.float32, device=cross_bias.device)
+        self.t = 0
+
+    def body(self, t: int):
+        """The step at position t: (mel (B, r, n_mels) fp32, stop (B, r)
+        fp32, the last layer's expected attention position (B,) or None)."""
+        raise NotImplementedError
+
+    def step(self) -> None:
+        """Run the step at position ``t`` and advance ``t``."""
+        t, r = self.t, self.r
+        mel_t, stop_t, exp_pos = self.body(t)
+        self.frames[:, t * r + 1: t * r + 1 + r] = mel_t
+        self.stops[:, t * r: t * r + r] = stop_t
+        self.stopped |= (torch.sigmoid(stop_t) >= self.stop_threshold).any(dim=1)
+        if exp_pos is not None:
+            self.center = torch.maximum(self.center, exp_pos)
+        self.t += 1
+
+    def run(self, until: int) -> None:
+        """Steps until position ``until`` or until every row has voted."""
+        while self.t < until and not bool(self.stopped.all()):
+            self.step()
+
+
+class PlainRows(DecodeRows):
+    """The XLA loop of the JAX package, step by step in PyTorch ops."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        m = self.model.cfg
+        shape = (m.decoder_n_layers, self.b, self.n_pos, m.decoder_n_head,
+                 m.d_model // m.decoder_n_head)
+        dev = self.cross_bias.device
+        self.self_k = torch.zeros(shape, dtype=self.model.dtype, device=dev)
+        self.self_v = torch.zeros(shape, dtype=self.model.dtype, device=dev)
+        self.pos_f = torch.arange(self.tp, dtype=torch.float32, device=dev)[None, :]
+
+    def body(self, t):
+        model, r, attn_win, n_pos = self.model, self.r, self.attn_win, self.n_pos
+        frame = self.frames[:, t * r: t * r + 1]
+        if self.prenet_dropout > 0.0:
+            x = prenet_dropout_step(model, frame, t, self.prenet_dropout, self.seed, self.row0)
+        else:
+            x = model.prenet_step(frame, t)  # (B, 1, D)
+        cb = self.cross_bias
+        if attn_win > 0:
+            cb = cb + _window_bias(self.center, self.tp, attn_win)[:, None, None, :]
+        self_bias = torch.where(
+            torch.arange(n_pos, device=frame.device) <= t, 0.0, NEG_INF
+        )[None, None, None, :]
+        layers = model.decoder.layers
+        attn_w = None
+        for li, layer in enumerate(layers):
+            k_new, v_new = layer.project_self_kv(x)  # (B, 1, H, dh)
+            self.self_k[li, :, t] = k_new[:, 0]
+            self.self_v[li, :, t] = v_new[:, 0]
+            ck, cv = self.cross_kv[li]
+            if attn_win > 0 and li == len(layers) - 1:
+                x, attn_w = layer.cached_step_attn(
+                    x, self.self_k[li], self.self_v[li], ck, cv, self_bias, cb)
+            else:
+                x = layer.cached_step(x, self.self_k[li], self.self_v[li], ck, cv, self_bias, cb)
+        mel_t, stop_t = model.decode_frame_heads(x)  # (B, r, C), (B, r)
+        exp_pos = None
+        if attn_win > 0:
+            w = attn_w.float().mean(dim=1)[:, 0, :]  # (B, Tp), head mean
+            exp_pos = (w * self.pos_f).sum(1) / torch.clamp(w.sum(1), min=1e-6)
+        return mel_t.float(), stop_t.float(), exp_pos
+
+
+class KernelRows(DecodeRows):
+    """One decode-step launch per step (the megakernel loops of the JAX
+    package); caches in the kernel's (L, H, B, T, dh) layout.  On the GPU
+    the step is a ``DecodeStep`` prepared here; on the CPU
+    ``decode_step``'s plain version."""
+
+    def __init__(self, *args, packed):
+        super().__init__(*args)
+        model, m = self.model, self.model.cfg
+        dev = self.cross_bias.device
+        alpha = model.pe.alpha.float()
+        self.pe_table = (alpha * torch.from_numpy(
+            sinusoid_table(m.max_len, m.d_model)).to(dev)).float()
+        # L x (B, Tp, H, dh) -> (L, H, B, Tp, dh)
+        ck = torch.stack([kv[0] for kv in self.cross_kv]).permute(0, 3, 1, 2, 4).contiguous()
+        cv = torch.stack([kv[1] for kv in self.cross_kv]).permute(0, 3, 1, 2, 4).contiguous()
+        self.cbias = self.cross_bias[:, 0, 0, :].float().contiguous()  # (B, Tp)
+        shape = (m.decoder_n_layers, m.decoder_n_head, self.b, self.n_pos,
+                 m.d_model // m.decoder_n_head)
+        self_k = torch.zeros(shape, dtype=model.dtype, device=dev)
+        self_v = torch.zeros(shape, dtype=model.dtype, device=dev)
+        with_pos = self.attn_win > 0
+        if dev.type == "cuda":
+            self.decode_step = DecodeStep(self_k, self_v, ck, cv, packed, with_attn_pos=with_pos)
+            self._step = self.decode_step
+        else:
+            self.decode_step = None
+
+            def step(t, frame, pe_row, cb, **drop):
+                return decode_step(t, frame, pe_row, cb, self_k, self_v, ck, cv, packed,
+                                   with_attn_pos=with_pos, **drop)
+            self._step = step
+
+    def body(self, t):
+        r, n_mels, b = self.r, self.n_mels, self.b
+        frame = self.frames[:, t * r]  # (B, n_mels), rows apart in the frame buffer
+        pe_row = self.pe_table[t: t + 1]
+        cb_t = self.cbias
+        if self.attn_win > 0:
+            cb_t = (self.cbias + _window_bias(self.center, self.tp, self.attn_win)).contiguous()
+        out = self._step(t, frame, pe_row, cb_t, prenet_dropout=self.prenet_dropout,
+                         seed=self.seed, row0=self.row0)
+        y = out[0]
+        exp_pos = out[3][:, 0] if self.attn_win > 0 else None
+        return y[:, : n_mels * r].reshape(b, r, n_mels), y[:, n_mels * r:], exp_pos
+
+
+class DecodeState:
+    """The state of one decode of a batch: the buffers every chunk of rows
+    writes (``frames`` (B, max_len + 1, n_mels) fp32 with the go frame at
+    0, ``stops`` (B, max_len), ``stopped`` (B,)) and the chunks
+    (``rows``): one ``PlainRows`` for the plain loop, ``KernelRows`` of at
+    most ``chunk`` rows each for the kernel loop."""
+
+    def __init__(self, model, cfg, phoneme, lens, max_len, stop_threshold, kernel, packed,
+                 chunk, prenet_dropout, mask_encoder_source=False):
+        b, tp = phoneme.shape
+        dev, n_mels = phoneme.device, cfg.model.n_mels
+        self.n_pos = max_len // cfg.model.reduction_factor
+        memory = model.encode(phoneme, lens if mask_encoder_source else None)
+        cross_kv = model.build_cross_cache(memory)  # L x ((B, Tp, H, dh) x 2)
+        cross_bias = padding_bias(lens, tp)  # (B, 1, 1, Tp)
+        self.frames = torch.zeros((b, max_len + 1, n_mels), dtype=torch.float32, device=dev)
+        self.stops = torch.full((b, max_len), NEG_INF, dtype=torch.float32, device=dev)
+        self.stopped = torch.zeros((b,), dtype=torch.bool, device=dev)
+        step = chunk if kernel else b
+        self.rows = []
+        for i in range(0, b, step):
+            part = slice(i, i + step)
+            args = (model, cfg, self.frames[part], self.stops[part], self.stopped[part],
+                    [(k[part], v[part]) for k, v in cross_kv], cross_bias[part], self.n_pos,
+                    stop_threshold, i, prenet_dropout)
+            self.rows.append(KernelRows(*args, packed=packed) if kernel else PlainRows(*args))
+
+    @property
+    def t(self) -> int:
+        """Positions decoded: the furthest chunk's."""
+        return max(rows.t for rows in self.rows)
+
+    @property
+    def n_steps(self) -> int:
+        """Steps run, summed over the chunks (kernel launches on the GPU)."""
+        return sum(rows.t for rows in self.rows)
+
+    def run_each(self, until: int) -> None:
+        """Each chunk to position ``until`` or its own rows' votes, in turn."""
+        for rows in self.rows:
+            rows.run(until)
+
+    def run_lockstep(self, until: int) -> None:
+        """Every chunk takes each step, until position ``until`` or until
+        every row of the batch has voted (the JAX stream's global stop)."""
+        while self.t < until and not bool(self.stopped.all()):
+            for rows in self.rows:
+                rows.step()
+
+
+def decode_options(cfg: Config, device: torch.device, use_kernel: Optional[bool]) -> tuple:
+    """(kernel loop?, rows a kernel call) of a decode on ``device``: the
+    kernel loop on CUDA unless ``use_kernel=False`` (and there it needs
+    ``use_pallas_decode_step``), the plain loop on the CPU unless
+    ``use_kernel=True``."""
+    if use_kernel is None and device.type == "cuda" and not cfg.runtime.use_pallas_decode_step:
+        raise ValueError(
+            "on CUDA the decode runs the decode-step kernel; use_pallas_decode_step=False "
+            "has no GPU path (pass use_kernel=False to run the plain reference loop)"
+        )
+    kernel = use_kernel if use_kernel is not None else device.type == "cuda"
+    chunk = min(int(cfg.runtime.decode_megakernel_max_batch), MAX_BATCH)
+    if kernel and chunk < 1:
+        raise ValueError(f"decode_megakernel_max_batch must be >= 1, got {chunk}")
+    return kernel, chunk
+
+
+def weights_packer(model):
+    """``packed()`` -> the decoder weights in the kernel's layout, packed
+    again whenever a parameter was written since the last pack
+    (``weights_version``)."""
+    cache: dict = {}  # "key": the parameters' versions the packed copy was made from
+
+    def packed() -> dict:
+        key = weights_version(model)
+        if cache.get("key") != key:  # the weights changed since the last pack
+            cache["packed"] = pack_decode_weights(model, model.dtype)
+            cache["key"] = key
+        return cache["packed"]
+
+    return packed
 
 
 def make_decode_fn(
@@ -104,51 +362,21 @@ def make_decode_fn(
         raise NotImplementedError(
             "decode_speculative_k > 1 is not ported yet (ROADMAP Queue 1: speculative decode)"
         )
-    if float(cfg.runtime.infer_prenet_dropout) > 0.0:
-        raise NotImplementedError(
-            "infer_prenet_dropout > 0 is not ported yet (ROADMAP Queue 1: prenet dropout)"
-        )
-    if use_kernel is None and device.type == "cuda" and not cfg.runtime.use_pallas_decode_step:
-        raise ValueError(
-            "on CUDA the decode runs the decode-step kernel; use_pallas_decode_step=False "
-            "has no GPU path (pass use_kernel=False to run the plain reference loop)"
-        )
-    kernel = use_kernel if use_kernel is not None else device.type == "cuda"
-    chunk = min(int(cfg.runtime.decode_megakernel_max_batch), MAX_BATCH)
-    if kernel and chunk < 1:
-        raise ValueError(f"decode_megakernel_max_batch must be >= 1, got {chunk}")
+    prenet_dropout = float(cfg.runtime.infer_prenet_dropout)
+    prenet_drop_args(prenet_dropout)  # raises outside [0, 1)
+    kernel, chunk = decode_options(cfg, device, use_kernel)
     n_pos = max_len // r
-    packed_cache: dict = {}  # "key": the parameters' versions the packed copy was made from
+    packed = weights_packer(model)
 
     @torch.inference_mode()
     def decode(phoneme, phoneme_lens) -> dict:
         phoneme = torch.as_tensor(phoneme, dtype=torch.long, device=device)
         lens = torch.as_tensor(phoneme_lens, dtype=torch.long, device=device)
-        b, tp = phoneme.shape
-        memory = model.encode(phoneme, lens if mask_encoder_source else None)
-        cross_kv = model.build_cross_cache(memory)  # L x ((B, Tp, H, dh) x 2)
-        cross_bias = padding_bias(lens, tp)  # (B, 1, 1, Tp)
-        if kernel:
-            key = weights_version(model)
-            if packed_cache.get("key") != key:  # the weights changed since the last pack
-                packed_cache["packed"] = pack_decode_weights(model, model.dtype)
-                packed_cache["key"] = key
-            parts = [
-                _kernel_loop(
-                    model, cfg, packed_cache["packed"],
-                    [(k[i:i + chunk], v[i:i + chunk]) for k, v in cross_kv],
-                    cross_bias[i:i + chunk], n_pos, max_len, stop_threshold,
-                )
-                for i in range(0, b, chunk)
-            ]
-            frames = torch.cat([p[0] for p in parts])
-            stops = torch.cat([p[1] for p in parts])
-            t = max(p[2] for p in parts)
-            n_steps = sum(p[2] for p in parts)
-        else:
-            frames, stops, t = _plain_loop(
-                model, cfg, cross_kv, cross_bias, n_pos, max_len, stop_threshold)
-            n_steps = t
+        state = DecodeState(model, cfg, phoneme, lens, max_len, stop_threshold, kernel,
+                            packed() if kernel else None, chunk, prenet_dropout,
+                            mask_encoder_source)
+        state.run_each(n_pos)
+        frames, stops, t, n_steps = state.frames, state.stops, state.t, state.n_steps
         n_frames = t * r
         pred = frames[:, 1:, :]
         post = model.apply_postnet(pred).float()
@@ -169,101 +397,3 @@ def weights_version(model) -> tuple:
     optimizer step, ``load_state_dict`` or any other in-place write touches
     a weight, so a decode closure knows when its packed copy is stale."""
     return tuple((id(p), p._version) for p in model.parameters())
-
-
-def _state(cfg, b, max_len, dev):
-    n_mels = cfg.model.n_mels
-    frames = torch.zeros((b, max_len + 1, n_mels), dtype=torch.float32, device=dev)  # [0]=go
-    stops = torch.full((b, max_len), NEG_INF, dtype=torch.float32, device=dev)
-    stopped = torch.zeros((b,), dtype=torch.bool, device=dev)
-    return frames, stops, stopped
-
-
-def _plain_loop(model, cfg, cross_kv, cross_bias, n_pos, max_len, stop_threshold):
-    """The XLA loop of the JAX package, step by step in PyTorch ops."""
-    m = cfg.model
-    r, n_heads = m.reduction_factor, m.decoder_n_head
-    b, tp = cross_bias.shape[0], cross_bias.shape[-1]
-    dev, dtype = cross_bias.device, model.dtype
-    attn_win = int(cfg.runtime.decode_attn_window)
-    frames, stops, stopped = _state(cfg, b, max_len, dev)
-    shape = (m.decoder_n_layers, b, n_pos, n_heads, m.d_model // n_heads)
-    self_k = torch.zeros(shape, dtype=dtype, device=dev)
-    self_v = torch.zeros(shape, dtype=dtype, device=dev)
-    center = torch.zeros((b,), dtype=torch.float32, device=dev)
-    pos_f = torch.arange(tp, dtype=torch.float32, device=dev)[None, :]
-    layers = model.decoder.layers
-    t = 0
-    while t < n_pos and not bool(stopped.all()):
-        x = model.prenet_step(frames[:, t * r: t * r + 1], t)  # (B, 1, D)
-        cb = cross_bias
-        if attn_win > 0:
-            cb = cross_bias + _window_bias(center, tp, attn_win)[:, None, None, :]
-        self_bias = torch.where(
-            torch.arange(n_pos, device=dev) <= t, 0.0, NEG_INF
-        )[None, None, None, :]
-        attn_w = None
-        for li, layer in enumerate(layers):
-            k_new, v_new = layer.project_self_kv(x)  # (B, 1, H, dh)
-            self_k[li, :, t] = k_new[:, 0]
-            self_v[li, :, t] = v_new[:, 0]
-            ck, cv = cross_kv[li]
-            if attn_win > 0 and li == len(layers) - 1:
-                x, attn_w = layer.cached_step_attn(
-                    x, self_k[li], self_v[li], ck, cv, self_bias, cb)
-            else:
-                x = layer.cached_step(x, self_k[li], self_v[li], ck, cv, self_bias, cb)
-        mel_t, stop_t = model.decode_frame_heads(x)  # (B, r, C), (B, r)
-        frames[:, t * r + 1: t * r + 1 + r] = mel_t.float()
-        stops[:, t * r: t * r + r] = stop_t.float()
-        stopped |= (torch.sigmoid(stop_t.float()) >= stop_threshold).any(dim=1)
-        if attn_win > 0:
-            w = attn_w.float().mean(dim=1)[:, 0, :]  # (B, Tp), head mean
-            exp_pos = (w * pos_f).sum(1) / torch.clamp(w.sum(1), min=1e-6)
-            center = torch.maximum(center, exp_pos)
-        t += 1
-    return frames, stops, t
-
-
-def _kernel_loop(model, cfg, packed, cross_kv, cross_bias, n_pos, max_len, stop_threshold):
-    """One decode-step launch per step (the megakernel loops of the JAX
-    package); caches in the kernel's (L, H, B, T, dh) layout.  On the CPU
-    the step is ``decode_step``'s plain version."""
-    m = cfg.model
-    r, n_mels, n_heads = m.reduction_factor, m.n_mels, m.decoder_n_head
-    b, tp = cross_bias.shape[0], cross_bias.shape[-1]
-    dev, dtype = cross_bias.device, model.dtype
-    attn_win = int(cfg.runtime.decode_attn_window)
-    frames, stops, stopped = _state(cfg, b, max_len, dev)
-    alpha = model.pe.alpha.float()
-    pe_table = (alpha * torch.from_numpy(sinusoid_table(m.max_len, m.d_model)).to(dev)).float()
-    # L x (B, Tp, H, dh) -> (L, H, B, Tp, dh)
-    ck = torch.stack([kv[0] for kv in cross_kv]).permute(0, 3, 1, 2, 4).contiguous()
-    cv = torch.stack([kv[1] for kv in cross_kv]).permute(0, 3, 1, 2, 4).contiguous()
-    cbias = cross_bias[:, 0, 0, :].float().contiguous()  # (B, Tp)
-    shape = (m.decoder_n_layers, n_heads, b, n_pos, m.d_model // n_heads)
-    self_k = torch.zeros(shape, dtype=dtype, device=dev)
-    self_v = torch.zeros(shape, dtype=dtype, device=dev)
-    center = torch.zeros((b,), dtype=torch.float32, device=dev)
-    if dev.type == "cuda":
-        step = DecodeStep(self_k, self_v, ck, cv, packed, with_attn_pos=attn_win > 0)
-    else:
-        def step(t, frame, pe_row, cb):
-            return decode_step(t, frame, pe_row, cb, self_k, self_v, ck, cv, packed,
-                               with_attn_pos=attn_win > 0)
-    t = 0
-    while t < n_pos and not bool(stopped.all()):
-        frame = frames[:, t * r]  # (B, n_mels), rows apart in the frame buffer
-        pe_row = pe_table[t: t + 1]
-        if attn_win > 0:
-            cb_t = (cbias + _window_bias(center, tp, attn_win)).contiguous()
-            y, _, _, exp_pos = step(t, frame, pe_row, cb_t)
-            center = torch.maximum(center, exp_pos[:, 0])
-        else:
-            y, _, _ = step(t, frame, pe_row, cbias)
-        stop_t = y[:, n_mels * r:]
-        frames[:, t * r + 1: t * r + 1 + r] = y[:, : n_mels * r].reshape(b, r, n_mels)
-        stops[:, t * r: t * r + r] = stop_t
-        stopped |= (torch.sigmoid(stop_t) >= stop_threshold).any(dim=1)
-        t += 1
-    return frames, stops, t

@@ -68,6 +68,20 @@
 //   moved a plain model of it past the bf16 tolerance at sharp attention:
 //   tests/test_torch_decode_plan.py holds the kernel's order instead.)
 //
+// - Inference prenet dropout (the JAX package's _prenet_dropout_step), in
+//   the epilogues of the two prenet stages only: after the ReLU, and in
+//   prenet 2 before + alpha*PE[t], an element is kept when the counter hash
+//   of dropout_mask.cuh passes (salt 2 t + layer, counter = the row's index
+//   in the whole batch * D + column) and scaled by 1 / (1 - rate).  The
+//   kernel is instantiated with and without it (kDrop), each in a library
+//   of its own: this file builds the one without (a launch at rate 0 runs
+//   the code, registers and spills of the kernel before the option
+//   existed), decode_step_dropout.cu includes it to build the one with, so
+//   that the two compile in parallel and the dropout library is built only
+//   when dropout is asked for.  (Code for the option inside the rate-0
+//   kernel moved ptxas's register allocation: up to 1.3 us a step more at
+//   B = 1 and spills at bf16 with 3 rows.)
+//
 // Every buffer offset, the plan and the chunks come from the wrapper; the
 // kernel checks only what it is handed.
 
@@ -78,6 +92,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "dropout_mask.cuh"
 #include "sync.cuh"
 
 namespace {
@@ -211,7 +226,18 @@ struct Step {
   // null, or per block 2 + 2 (2 + 10 L) global-timer stamps (ns): kernel
   // start, (arrival, release) at each cluster barrier, kernel end
   unsigned long long* timeline;
+  // prenet dropout (kDrop): keep threshold, hash seed, batch index of the
+  // launch's row 0, and the kept elements' scale 1 / (1 - rate)
+  uint32_t drop_threshold, drop_seed;
+  int drop_row0;
+  float drop_scale;
 };
+
+#ifdef TTS_DECODE_STEP_DROPOUT
+constexpr bool kLibDrop = true;  // the library of decode_step_dropout.cu
+#else
+constexpr bool kLibDrop = false;
+#endif
 
 template <typename T>
 struct StageW {
@@ -298,6 +324,15 @@ struct Block {
     ++n_sync;
   }
 
+  // x after prenet dropout: element (local row b, column n) of prenet layer
+  // `layer`, kept by the counter hash and scaled, or 0.
+  __device__ float prenet_drop(float x, int b, int n, int layer) const {
+    const uint32_t base = mask_base(s.drop_seed, 2u * static_cast<uint32_t>(s.t) + layer);
+    const uint32_t row = static_cast<uint32_t>(s.drop_row0 + row0 + b);
+    const uint32_t counter = row * static_cast<uint32_t>(c.H * c.dh) + static_cast<uint32_t>(n);
+    return mask_keep(base, counter, s.drop_threshold) ? __fmul_rn(x, s.drop_scale) : 0.f;
+  }
+
   // Store v at element i of buffer b of every block of the cluster (lane r
   // of a warp stores into block r).
   __device__ void share(Buffer b, int i, float v, int lane) const {
@@ -305,7 +340,7 @@ struct Block {
   }
 };
 
-enum Epilogue { kEpiF32, kEpiRelu, kEpiReluPe, kEpiQkv, kEpiScale, kEpiOut };
+enum Epilogue { kEpiF32, kEpiRelu, kEpiReluPe, kEpiDrop1, kEpiDrop2, kEpiQkv, kEpiScale, kEpiOut };
 
 // Column n's value for each of the R rows: to every block's buffer `out`
 // (lane r stores into block r), or to y (kEpiOut); kEpiQkv also writes the
@@ -326,6 +361,11 @@ __device__ __forceinline__ void epilogue(Block<T, R>& blk, Buffer out, int layer
       blk.share(out, b * N + n, round_t<T>(fmaxf(v[b], 0.f)), lane);
     } else if (kEpi == kEpiReluPe) {
       blk.share(out, b * N + n, round_t<T>(fmaxf(v[b], 0.f) + blk.s.pe_row[n]), lane);
+    } else if (kEpi == kEpiDrop1) {  // prenet 1 with dropout
+      blk.share(out, b * N + n, round_t<T>(blk.prenet_drop(fmaxf(v[b], 0.f), b, n, 0)), lane);
+    } else if (kEpi == kEpiDrop2) {  // prenet 2 with dropout, then + alpha * PE[t]
+      const float x = blk.prenet_drop(fmaxf(v[b], 0.f), b, n, 1);
+      blk.share(out, b * N + n, round_t<T>(x + blk.s.pe_row[n]), lane);
     } else if (kEpi == kEpiScale) {
       blk.share(out, b * N + n, v[b] * c.scale, lane);
     } else {  // kEpiQkv: N = 3D, columns q | k | v
@@ -689,7 +729,7 @@ __device__ void combine_rows(Block<T, R>& blk, int nc, bool self, float* pos_out
   }
 }
 
-template <typename T, int R>
+template <typename T, int R, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1) decode_step_kernel(const Config c, const Step s) {
   extern __shared__ __align__(128) uint8_t smem[];
   const int rank = static_cast<int>(cluster_rank());
@@ -751,11 +791,11 @@ __global__ void __launch_bounds__(kThreads, 1) decode_step_kernel(const Config c
   cluster_arrive_relaxed();  // waited for before the first store into another block
 
   cluster_wait();
-  gemv<T, R, kEpiRelu>(blk, 0, kBufXs, kBufAct);
+  gemv<T, R, kDrop ? kEpiDrop1 : kEpiRelu>(blk, 0, kBufXs, kBufAct);
   blk.issue_after(-1);
   blk.sync();
-  // prenet 2: act -> residual = T(ReLU(.) + alpha * PE[t])
-  gemv<T, R, kEpiReluPe>(blk, 1, kBufAct, kBufRa);
+  // prenet 2: act -> residual = T(Drop(ReLU(.)) + alpha * PE[t])
+  gemv<T, R, kDrop ? kEpiDrop2 : kEpiReluPe>(blk, 1, kBufAct, kBufRa);
   blk.sync();
 
   const bool self_attn = s.t > 0;
@@ -826,9 +866,9 @@ __global__ void __launch_bounds__(kThreads, 1) decode_step_kernel(const Config c
   }
 }
 
-template <typename T, int R>
+template <typename T, int R, bool kDrop>
 int launch(const Config& c, const Step& s, cudaStream_t stream) {
-  auto fn = decode_step_kernel<T, R>;
+  auto fn = decode_step_kernel<T, R, kDrop>;
   static int opted = 0;  // dynamic shared memory this instantiation may take
   if (c.smem_bytes > opted) {
     cudaError_t err =
@@ -853,17 +893,17 @@ int launch(const Config& c, const Step& s, cudaStream_t stream) {
   return static_cast<int>(cudaLaunchKernelEx(&cfg, fn, c, s));
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 int dispatch(const Config& c, const Step& s, cudaStream_t stream) {
   switch (c.R) {
-    case 1: return launch<T, 1>(c, s, stream);
-    case 2: return launch<T, 2>(c, s, stream);
-    case 3: return launch<T, 3>(c, s, stream);
-    case 4: return launch<T, 4>(c, s, stream);
-    case 5: return launch<T, 5>(c, s, stream);
-    case 6: return launch<T, 6>(c, s, stream);
-    case 7: return launch<T, 7>(c, s, stream);
-    case 8: return launch<T, 8>(c, s, stream);
+    case 1: return launch<T, 1, kDrop>(c, s, stream);
+    case 2: return launch<T, 2, kDrop>(c, s, stream);
+    case 3: return launch<T, 3, kDrop>(c, s, stream);
+    case 4: return launch<T, 4, kDrop>(c, s, stream);
+    case 5: return launch<T, 5, kDrop>(c, s, stream);
+    case 6: return launch<T, 6, kDrop>(c, s, stream);
+    case 7: return launch<T, 7, kDrop>(c, s, stream);
+    case 8: return launch<T, 8, kDrop>(c, s, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -888,12 +928,14 @@ long tts_decode_step_config_bytes() { return static_cast<long>(sizeof(Config)); 
 int tts_decode_step_max_clusters(int is_bf16, int R, int smem_bytes, int cluster) {
   if (R < 1 || R > kMaxRows || cluster < 1 || cluster > kMaxCluster) return 0;
   void (*fns[2][kMaxRows])(const Config, const Step) = {
-      {decode_step_kernel<float, 1>, decode_step_kernel<float, 2>, decode_step_kernel<float, 3>,
-       decode_step_kernel<float, 4>, decode_step_kernel<float, 5>, decode_step_kernel<float, 6>,
-       decode_step_kernel<float, 7>, decode_step_kernel<float, 8>},
-      {decode_step_kernel<bf16, 1>, decode_step_kernel<bf16, 2>, decode_step_kernel<bf16, 3>,
-       decode_step_kernel<bf16, 4>, decode_step_kernel<bf16, 5>, decode_step_kernel<bf16, 6>,
-       decode_step_kernel<bf16, 7>, decode_step_kernel<bf16, 8>}};
+      {decode_step_kernel<float, 1, kLibDrop>, decode_step_kernel<float, 2, kLibDrop>,
+       decode_step_kernel<float, 3, kLibDrop>, decode_step_kernel<float, 4, kLibDrop>,
+       decode_step_kernel<float, 5, kLibDrop>, decode_step_kernel<float, 6, kLibDrop>,
+       decode_step_kernel<float, 7, kLibDrop>, decode_step_kernel<float, 8, kLibDrop>},
+      {decode_step_kernel<bf16, 1, kLibDrop>, decode_step_kernel<bf16, 2, kLibDrop>,
+       decode_step_kernel<bf16, 3, kLibDrop>, decode_step_kernel<bf16, 4, kLibDrop>,
+       decode_step_kernel<bf16, 5, kLibDrop>, decode_step_kernel<bf16, 6, kLibDrop>,
+       decode_step_kernel<bf16, 7, kLibDrop>, decode_step_kernel<bf16, 8, kLibDrop>}};
   auto fn = fns[is_bf16 ? 1 : 0][R - 1];
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes) !=
           cudaSuccess ||
@@ -917,9 +959,11 @@ int tts_decode_step_max_clusters(int is_bf16, int R, int smem_bytes, int cluster
 
 // One decoder step, one launch.  `config` is the prepared step's Config
 // (host memory); the rest as Step (timeline: null, or B / R * cluster x
-// (6 + 20 L) stamps).  Returns the launch's CUDA error code, or
+// (6 + 20 L) stamps; drop_threshold 0 in this file's library, > 0 in the
+// dropout library).  Returns the launch's CUDA error code, or
 // cudaErrorInvalidValue for arguments the kernel cannot take.
 int tts_decode_step(const void* config, int is_bf16, int t, int self_chunk, int self_nc,
+                    unsigned drop_threshold, float drop_scale, unsigned drop_seed, int drop_row0,
                     const void* frame, int frame_stride, const void* pe_row,
                     const void* cross_bias, void* self_k, void* self_v, const void* cross_k,
                     const void* cross_v, void* y, void* k_new, void* v_new, void* pos,
@@ -931,6 +975,7 @@ int tts_decode_step(const void* config, int is_bf16, int t, int self_chunk, int 
   const int rh = c.R * c.H;
   const int nc_max = c.cluster / rh > 1 ? c.cluster / rh : 1;
   if (c.cluster < 1 || c.cluster > kMaxCluster || c.B < 1 || c.B > kMaxRows || c.R < 1 || c.R > c.B || t < 0 || t >= c.n_pos ||
+      (drop_threshold != 0u) != kLibDrop || drop_row0 < 0 ||
       c.n_pieces > kMaxPieces || c.dh % V != 0 || groups > 32 || (groups & (groups - 1)) != 0 ||
       !chunks_cover(t, self_chunk, self_nc) || !chunks_cover(c.tp, c.cross_chunk, c.cross_nc) ||
       c.nc_max != nc_max || self_nc > nc_max || c.cross_nc > nc_max ||
@@ -945,6 +990,10 @@ int tts_decode_step(const void* config, int is_bf16, int t, int self_chunk, int 
   s.self_chunk = self_chunk;
   s.self_nc = self_nc;
   s.frame_stride = frame_stride;
+  s.drop_threshold = drop_threshold;
+  s.drop_seed = drop_seed;
+  s.drop_row0 = drop_row0;
+  s.drop_scale = drop_scale;
   s.frame = static_cast<const float*>(frame);
   s.pe_row = static_cast<const float*>(pe_row);
   s.cross_bias = static_cast<const float*>(cross_bias);
@@ -958,7 +1007,7 @@ int tts_decode_step(const void* config, int is_bf16, int t, int self_chunk, int 
   s.pos = static_cast<float*>(pos);
   s.timeline = static_cast<unsigned long long*>(timeline);
   auto st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<bf16>(c, s, st) : dispatch<float>(c, s, st);
+  return is_bf16 ? dispatch<bf16, kLibDrop>(c, s, st) : dispatch<float, kLibDrop>(c, s, st);
 }
 
 }  // extern "C"

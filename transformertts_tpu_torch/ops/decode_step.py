@@ -54,6 +54,19 @@ dims become plain (out, in) row-major matrices, q|k|v fused into one.
 The kernel writes the new K/V rows straight into the self-attention
 caches at position ``t``, in place, and also returns them.  The wrapper
 does the same on the CPU path, so both devices leave the caches alike.
+
+Inference prenet dropout (``runtime.infer_prenet_dropout``, the JAX
+package's ``infer/decode.py:_prenet_dropout_step``, which only its XLA loop
+has): with ``prenet_dropout`` > 0 the kernel drops elements of both prenet
+layers after their ReLU (and, in the second, before ``+ alpha * PE[t]``)
+and scales the kept ones by ``1 / (1 - rate)``.  The keep bits come from
+the counter hash of ``ops/dropout_mask.py`` (``prenet_keep``): salt
+``2 t + layer``, counter ``row * d_model + column`` with ``row`` the row's
+index in the whole batch (``row0`` + its index in the call), so a decode
+split into row chunks drops what an unsplit one drops.  A step that drops
+runs the kernel's instantiation with dropout, a library of its own
+(``ops/csrc/decode_step_dropout.cu``) loaded at the first such step; a step
+at rate 0 runs the kernel the option left unchanged.
 """
 
 from __future__ import annotations
@@ -65,6 +78,7 @@ import numpy as np
 import torch
 
 from transformertts_tpu_torch.models.masks import NEG_INF
+from transformertts_tpu_torch.ops.dropout_mask import keep_from_index, threshold_of
 
 # order of the weight pointers handed to the C entry point
 _PACK_ORDER = (
@@ -125,6 +139,26 @@ def pack_decode_weights(model, dtype: torch.dtype = torch.bfloat16) -> dict:
     }
 
 
+def prenet_drop_args(rate: float) -> tuple[int, float]:
+    """(uint32 keep threshold, fp32 scale of the kept elements) of prenet
+    dropout at ``rate``; (0, 1.0) drops nothing."""
+    rate = float(rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"prenet dropout must be in [0, 1), got {rate}")
+    threshold = threshold_of(rate)
+    return threshold, float(np.float32(1.0 / (1.0 - rate))) if threshold else 1.0
+
+
+def prenet_keep(t: int, layer: int, rows: int, d: int, rate: float, seed: int, row0: int = 0,
+                device=None) -> torch.Tensor:
+    """(rows, d) keep bits of prenet layer ``layer`` at decoder position
+    ``t`` for batch rows ``row0 .. row0 + rows - 1``: salt ``2 t + layer``,
+    counter ``row * d + column`` (the kernel's mask)."""
+    r = torch.arange(row0, row0 + rows, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(d, dtype=torch.int64, device=device)[None, :]
+    return keep_from_index(r * d + c, 2 * t + layer, seed, rate)
+
+
 def _layer_norm(x32, g, b, eps=1e-5):
     mu = x32.mean(-1, keepdim=True)
     var = (x32 * x32).mean(-1, keepdim=True) - mu * mu
@@ -143,6 +177,9 @@ def decode_step_reference(
     cross_v: torch.Tensor,
     packed: dict,
     with_attn_pos: bool = False,
+    prenet_dropout: float = 0.0,
+    seed: int = 0,
+    row0: int = 0,
 ):
     """Plain PyTorch version of the kernel, op for op as the TPU ``_kernel``.
 
@@ -150,7 +187,9 @@ def decode_step_reference(
     v_new (L, H, B, dh)) and, with ``with_attn_pos``, the last layer's
     head-averaged expected cross-attention position (B, 1) fp32.  Products
     of ``dtype`` operands are summed in fp32, as
-    ``preferred_element_type=float32`` does.
+    ``preferred_element_type=float32`` does.  ``prenet_dropout`` > 0 drops
+    prenet elements by ``prenet_keep(t, layer, B, D, prenet_dropout, seed,
+    row0)``, as the kernel does.
     """
     n_layers, n_heads, b, n_pos, dh = self_k.shape
     d = n_heads * dh
@@ -161,9 +200,17 @@ def decode_step_reference(
     def dot(a, w):  # w (out, in)
         return a.to(dtype).float() @ w.float().t()
 
+    threshold, keep_scale = prenet_drop_args(prenet_dropout)
+
+    def drop(x, layer):
+        if not threshold:
+            return x
+        keep = prenet_keep(t, layer, b, d, prenet_dropout, seed, row0, x.device)
+        return torch.where(keep, x * keep_scale, torch.zeros_like(x))
+
     x = frame.to(dtype)
-    x = torch.relu(dot(x, p["pw1"]) + p["pb1"].float())
-    x = torch.relu(dot(x, p["pw2"]) + p["pb2"].float())
+    x = drop(torch.relu(dot(x, p["pw1"]) + p["pb1"].float()), 0)
+    x = drop(torch.relu(dot(x, p["pw2"]) + p["pb2"].float()), 1)
     x = (x + pe_row.float()).to(dtype)  # (B, D)
 
     k_new = torch.empty((n_layers, n_heads, b, dh), dtype=self_k.dtype, device=x.device)
@@ -542,13 +589,16 @@ class _StepConfig(ctypes.Structure):
         ("stages", ctypes.c_void_p), ("pieces", ctypes.c_void_p), ("bias", ctypes.c_void_p)]
 
 
-def _lib():
+def _lib(name: str = "decode_step"):
+    """The kernel's library: ``decode_step`` (no prenet dropout) or
+    ``decode_step_dropout`` (the same source instantiated with it)."""
     from transformertts_tpu_torch import _build
 
-    lib = _build.load("decode_step")
+    lib = _build.load(name)
     if not getattr(lib, "_argtypes_set", False):
         i, p = ctypes.c_int, ctypes.c_void_p
-        lib.tts_decode_step.argtypes = [p, i, i, i, i, p, i] + [p] * 12
+        u = ctypes.c_uint32
+        lib.tts_decode_step.argtypes = [p, i, i, i, i, u, ctypes.c_float, u, i, p, i] + [p] * 12
         lib.tts_decode_step.restype = i
         lib.tts_decode_step_max_clusters.argtypes = [i, i, i, i]
         lib.tts_decode_step_config_bytes.restype = ctypes.c_long
@@ -576,6 +626,8 @@ class DecodeStep:
 
     The results are the step's own buffers, overwritten by its next call.
     The new K/V rows are also written into ``self_k`` / ``self_v`` at ``t``.
+    ``launches`` counts this step's kernel launches (each also adds to
+    ``decode_step.launches``).
     """
 
     def __init__(self, self_k, self_v, cross_k, cross_v, packed, with_attn_pos: bool = False):
@@ -619,22 +671,30 @@ class DecodeStep:
         self._fixed = (self_k.data_ptr(), self_v.data_ptr(), cross_k.data_ptr(),
                        cross_v.data_ptr())
         self._call = lib.tts_decode_step
+        self._call_drop = None  # the dropout library's, loaded at the first call that drops
         self._b, self._n_pos, self._tp = b, n_pos, tp
         self._shape = (n_layers, n_heads, dh, d_ffn)
+        self.launches = 0
 
-    def __call__(self, t: int, frame, pe_row, cross_bias, out=None, timeline=None):
+    def __call__(self, t: int, frame, pe_row, cross_bias, out=None, timeline=None,
+                 prenet_dropout: float = 0.0, seed: int = 0, row0: int = 0):
         """The step at position ``t``.  ``out``: (y, k_new, v_new, pos or
         None) to write into instead of the step's own buffers.
         ``timeline``: an int64 tensor from ``timeline_buffer`` that the
-        kernel fills with global-timer stamps (``stage_times`` reads it)."""
+        kernel fills with global-timer stamps (``stage_times`` reads it).
+        ``prenet_dropout``, ``seed``, ``row0``: as ``decode_step_reference``."""
         if not 0 <= t < self._n_pos:
             raise ValueError(f"t={t} outside the cache of {self._n_pos} positions")
         _check_step_args(frame, pe_row, cross_bias, self._keep[0], self._tp, self._keep[4])
+        threshold, keep_scale = prenet_drop_args(prenet_dropout)
+        if threshold and self._call_drop is None:
+            self._call_drop = _lib("decode_step_dropout").tts_decode_step
         y, k_new, v_new, pos = out if out is not None else (self.y, self.k_new, self.v_new,
                                                             self.pos)
         chunk, nc = self._self_chunks[t]
-        rc = self._call(
+        rc = (self._call_drop if threshold else self._call)(
             ctypes.byref(self._cfg), self._is_bf16, t, chunk, nc,
+            threshold, keep_scale, int(seed) & 0xFFFFFFFF, int(row0),
             frame.data_ptr(), frame.stride(0), pe_row.data_ptr(), cross_bias.data_ptr(),
             *self._fixed, y.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
             pos.data_ptr() if pos is not None else None,
@@ -647,6 +707,7 @@ class DecodeStep:
                 f"B={self._b}, L={n_layers}, H={n_heads}, dh={dh}, d_ffn={d_ffn}, "
                 f"n_pos={self._n_pos}, Tp={self._tp}, t={t}")
         decode_step.launches += 1
+        self.launches += 1
         if self._b > 1:
             decode_step.launches_batched += 1
         return (y, k_new, v_new) + ((pos,) if pos is not None else ())
@@ -733,6 +794,9 @@ def decode_step(
     cross_v: torch.Tensor,
     packed: dict,
     with_attn_pos: bool = False,
+    prenet_dropout: float = 0.0,
+    seed: int = 0,
+    row0: int = 0,
 ):
     """One decoder step; arguments and results as ``decode_step_reference``.
 
@@ -747,7 +811,7 @@ def decode_step(
     if self_k.device.type == "cpu":
         out = decode_step_reference(
             t, frame, pe_row, cross_bias, self_k, self_v, cross_k, cross_v,
-            packed, with_attn_pos,
+            packed, with_attn_pos, prenet_dropout, seed, row0,
         )
         self_k[:, :, :, t] = out[1]
         self_v[:, :, :, t] = out[2]
@@ -758,7 +822,8 @@ def decode_step(
     k_new = torch.empty((n_layers, n_heads, b, dh), dtype=self_k.dtype, device=dev)
     v_new = torch.empty_like(k_new)
     pos = torch.empty((b, 1), dtype=torch.float32, device=dev) if with_attn_pos else None
-    return step(t, frame, pe_row, cross_bias, out=(y, k_new, v_new, pos))
+    return step(t, frame, pe_row, cross_bias, out=(y, k_new, v_new, pos),
+                prenet_dropout=prenet_dropout, seed=seed, row0=row0)
 
 
 decode_step.launches = 0  # kernel launches (B = 1 and B > 1)

@@ -147,7 +147,7 @@ def load_eval_weights(model, cfg, directory: str | Path, step: Optional[int] = N
 
     A missing directory or one without a checkpoint raises
     ``FileNotFoundError``; an orbax directory of the JAX package raises
-    ``NotImplementedError``."""
+    ``NotImplementedError`` naming the converter, ``tools/orbax_to_torch.py``."""
     from transformertts_tpu_torch.train.train_step import create_train_state
 
     directory = Path(directory)
@@ -155,8 +155,9 @@ def load_eval_weights(model, cfg, directory: str | Path, step: Optional[int] = N
         raise FileNotFoundError(f"no checkpoint directory {directory}")
     if is_orbax_directory(directory):
         raise NotImplementedError(
-            f"{directory} holds orbax checkpoints of the JAX package; the orbax -> torch "
-            "converter is not ported yet (ROADMAP Queue 1 item 5)")
+            f"{directory} holds orbax checkpoints of the JAX package; convert them into this "
+            f"package's format with `python tools/orbax_to_torch.py {directory} DST` where JAX "
+            "is installed (ROADMAP Queue 1 item 5)")
     mgr = CheckpointManager(directory)
     step = step if step is not None else mgr.latest_step()
     if step is None:
