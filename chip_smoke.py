@@ -7,7 +7,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. build: the CUDA kernels of ``transformertts_tpu_torch/ops/csrc`` with
    nvcc, one process per source, all at once; for the decode-step (without
-   and with prenet dropout), flash,
+   and with prenet dropout, and its verify form), flash,
    fused-FFN, fused-LN and log-mel libraries each kernel's registers and
    spills, ptxas's warnings of serialized wgmma (one on the bf16 FFN forward
    fails the run), the dynamic shared memory at the path shapes (the decode
@@ -15,7 +15,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and the log-mel FFT kernel's plans against the libraries' own sizes), the
    HGMMA (wgmma) instructions in the SASS (where cuobjdump exists; the
    tensor-core kernels must hold some) and the bf16 FFN forward's SASS
-   instructions per intermediate element;
+   instructions per intermediate element; the rate-0 decode-step kernels'
+   registers and spills must equal ``DECODE_STEP_PTXAS``;
 2. mask: the device ``keep_mask`` against its plain version, bit for bit;
 3. kernel: every kernel against its plain PyTorch version on the card.
    The decode-step kernel (``decode_step_reference``) at the full width of
@@ -28,8 +29,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and dtypes; and with inference prenet dropout 0.5 (a seed and a first
    row of 3) at ``Config()``, B in {1, 8}, t in {0, 700}, bf16 and fp32.
    Each case is called twice for equal bits, and one call (also one with
-   prenet dropout) under ``torch.profiler`` must be exactly one kernel
-   launch.  The flash
+   prenet dropout, and one verify pass of speculative decode) under
+   ``torch.profiler`` must be exactly one kernel launch.  The flash
    attention and residual+dropout+LayerNorm kernels, forward and every
    gradient, at the training path's shapes (B 16, 4 heads of 64; (128, 128),
    causal (768, 768), (768, 128); 12,288 and 2,048 rows of 256) and at odd
@@ -72,20 +73,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``Synthesizer.synthesize`` of the same text); then two lines through
    ``cli serve --wav`` on a checkpoint the phase writes with the port's
    ``CheckpointManager``, and ``entry()``'s forward once (its shapes);
-7. train-parity: one micro-batch of 16 rows at full width in fp32, dropout
+7. spec: speculative decode (``runtime.decode_speculative_k``) on the
+   verify form of the decode-step kernel.  The verify kernel against its
+   plain version (``verify_pass_reference``) at ``Config()`` widths, K in
+   {2, 4, 8}, and ``paper.yaml`` widths, K = 4: 400 cache positions and 64
+   encoder positions, t in {0, 200, 400 - K}, bf16 and fp32, every draft
+   accepted (tau 1e9) and tau 0.5 with stop threshold 0.5; outputs within
+   ``TOL``, the acceptance equal to ``accept_reference``'s on the kernel's
+   own outputs, only the accepted frames and the K/V rows t .. t + K - 1
+   written, equal bits from a second call, one launch counted a call (the
+   kernel phase profiles one pass: one kernel, the verify form).  Whole
+   decodes at B = 1, fp32, 64 forced frames: tau 0 against the sequential
+   kernel decode (one pass a group), tau 1e9 in ceil(64 / K) passes at K =
+   4 and 3, the kernel loop against the plain chunk loop.  Then the user's
+   path with K = 4 (counts from 0): ``Synthesizer.synthesize`` of one text
+   (bf16, 400 frames) and ``cli synthesize --set
+   runtime.decode_speculative_k=4`` on a checkpoint the phase writes; every
+   pass one verify launch and no decode-step launch; a two-text batch falls
+   through to the decode-step kernel;
+8. train-parity: one micro-batch of 16 rows at full width in fp32, dropout
    and scheduled sampling on, once through the kernels and once through
    their plain versions from the same generator seeds (so both drop the
    same elements): the loss and every parameter's gradient are compared;
    then a second micro-batch the same way with
    ``runtime.use_pallas_fused_ffn`` on;
-8. train: the training path, ``create_train_state`` + ``make_train_step``
+9. train: the training path, ``create_train_state`` + ``make_train_step``
    at ``Config()`` (bf16, 4 micro-batches of 16 rows, 768 mel frames, 128
    phonemes, double forward, dropout on) for 3 optimizer steps on seeded
    synthetic batches, then one ``make_eval_step``; the kernels' launch
    counts are zeroed before and read after, and must be what the path
    implies (per step 72 / 36 flash and 120 / 60 LayerNorm forwards /
    backwards), fused FFN off as by default;
-9. preprocess: the preprocessing path.  A seeded corpus of 160 mono 16-bit
+10. preprocess: the preprocessing path.  A seeded corpus of 160 mono 16-bit
    wavs of 2-9 s at 22,050 Hz (moving sines and noise; ids in both splits)
    with a ``metadata.csv`` is written into a temporary directory, the
    port's ``preprocess`` runs on it with ``runtime.use_pallas_mel`` on the
@@ -94,14 +113,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    checked; the log-mel kernels' launch counts are zeroed before, and after
    the FFT kernel's must be twice the number of 32-clip chunks and the dense
    kernel's 0;
-10. train-ffn: the training path with ``runtime.use_pallas_fused_ffn`` on.
+11. train-ffn: the training path with ``runtime.use_pallas_fused_ffn`` on.
    The first optimizer step takes a batch that ``BucketedLoader`` over
    ``LJSpeechDataset`` (through ``prefetch``) reads from what the
    preprocess phase wrote, then 3 checked and 4 timed steps on the
    synthetic batches of the train phase, then one evaluation step; per
    optimizer step 48 / 24 FFN forwards / backwards beside the 72 / 36
    flash and 120 / 60 LayerNorm ones;
-11. trainer: the user's path preprocess -> train -> checkpoint -> wav.  A
+12. trainer: the user's path preprocess -> train -> checkpoint -> wav.  A
     seeded corpus of 208 clips of 8.3-8.9 s whose texts are 97-128 phonemes
     long (every item in bucket (128, 768); 16 in the val split) is
     preprocessed on the log-mel kernel, ``Trainer.fit`` trains ``Config()``
@@ -118,12 +137,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the B = 1 kernel.  It prints per epoch the audio-s/s, the median ms per
     optimizer step, the share of the epoch blocked on the loader, the
     validation and checkpoint times, and the restore time;
-12. time: the decode-step kernel beside its plain version and its bound
+13. time: the decode-step kernel beside its plain version and its bound
     at ``Config()`` and ``paper.yaml`` widths, with the host's time per eager
     call and the kernel's time by stage (its global-timer stamps), at the
     serving shape also with prenet dropout 0.5, and decode frames/s through
-    ``Synthesizer.synthesize``;
-13. time-train: every training and preprocessing kernel beside its plain
+    ``Synthesizer.synthesize``; the verify kernel's device time per pass (K
+    2, 4, 8; K 4 at ``paper.yaml``) beside the step's, its plain version's
+    and its bound, and ``Synthesizer.synthesize``'s frames/s at B = 1 with K
+    = 4 at tau 0, 1e9 and the default between two sequential runs;
+14. time-train: every training and preprocessing kernel beside its plain
     version, its bound and (where PyTorch has a call or a short chain of
     calls for the same function) that (flash, the LN and the FFN kernels
     also at dropout 0, and flash's host time per eager call; the FFN forward
@@ -160,8 +182,8 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, published
-ALL_PHASES = ("build", "mask", "kernel", "decode", "serve", "stream", "train-parity", "train",
-              "preprocess", "train-ffn", "trainer", "time", "time-train")
+ALL_PHASES = ("build", "mask", "kernel", "decode", "serve", "stream", "spec", "train-parity",
+              "train", "preprocess", "train-ffn", "trainer", "time", "time-train")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max|kernel - plain| / max(1, max|plain|)
 # kernel loop vs plain loop, fp32, 64 fed-back frames: as the CPU test of the
 # port against the JAX loop; the H100 showed at most 1.2e-6 relative
@@ -363,9 +385,51 @@ def phase_build() -> None:
                   if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         log(f"[build] {path.name}: {len(regs)} kernels, max {max(regs, default=0)} "
             f"registers/thread, spill lines: {spills[:3] or 'none'}")
-    for name in ("decode_step", "decode_step_dropout", "flash_attention", "fused_ffn", "fused_ln",
-                 "log_mel"):
+    for name in ("decode_step", "decode_step_dropout", "decode_step_verify", "flash_attention",
+                 "fused_ffn", "fused_ln", "log_mel"):
         kernel_report(name, libs[name])
+    check_step_ptxas(libs["decode_step"])
+
+
+# The rate-0 decode-step library's kernels, by (type, rows), as they were
+# built before the verify form shared their source: registers and ptxas's
+# spill line.  The verify form (and any later option) must leave them so.
+DECODE_STEP_PTXAS = {
+    ("__nv_bfloat16", 8): (128, "32 bytes stack frame, 64 bytes spill stores, 148 bytes spill loads"),
+    ("__nv_bfloat16", 7): (128, "24 bytes stack frame, 60 bytes spill stores, 156 bytes spill loads"),
+    ("__nv_bfloat16", 6): (128, "24 bytes stack frame, 32 bytes spill stores, 104 bytes spill loads"),
+    ("__nv_bfloat16", 5): (128, "8 bytes stack frame, 8 bytes spill stores, 64 bytes spill loads"),
+    ("__nv_bfloat16", 4): (128, "8 bytes stack frame, 8 bytes spill stores, 56 bytes spill loads"),
+    ("__nv_bfloat16", 3): (128, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("__nv_bfloat16", 2): (126, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("__nv_bfloat16", 1): (118, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 8): (128, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 7): (126, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 6): (122, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 5): (115, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 4): (112, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 3): (110, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 2): (104, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 1): (96, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+}
+
+
+def check_step_ptxas(path) -> None:
+    """The rate-0 decode-step kernels' registers and spills equal
+    ``DECODE_STEP_PTXAS``, kernel by kernel."""
+    import re
+
+    rows = ptxas_kernels(path.with_suffix(".log").read_text())
+    got = {}
+    for short, (_, regs, spill) in zip(demangle([r[0] for r in rows]), rows):
+        found = re.search(r"decode_step_kernel<([\w ]+), (\d+)", short)
+        if found is None:
+            raise AssertionError(f"decode_step: an unexpected kernel {short}")
+        got[(found.group(1), int(found.group(2)))] = (regs, spill)
+    if got != DECODE_STEP_PTXAS:
+        diff = {k: (got.get(k), v) for k, v in DECODE_STEP_PTXAS.items() if got.get(k) != v}
+        raise AssertionError(f"decode_step: registers or spills moved (now, before): {diff}")
+    log(f"[build] decode_step: the {len(got)} rate-0 kernels keep their registers and spills")
 
 
 def ptxas_kernels(text: str) -> list[tuple[str, int, str]]:
@@ -460,6 +524,25 @@ def smem_lines(name: str) -> list[str]:
                         f"{int((real & (pieces[:, :, 3] >= 0)).sum(0).max())} copied after "
                         f"kernel start")
         return out
+    if name == "decode_step_verify":
+        from transformertts_tpu_torch.ops.decode_step import verify_plan
+
+        out = []
+        for what, cfg, ks in (("Config()", default_config(), (2, SPEC_K, 8)),
+                              ("paper.yaml", paper_config(), (SPEC_K,))):
+            m = cfg.model
+            r = m.reduction_factor
+            for itemsize, dtype in ((2, "bfloat16"), (4, "float32")):
+                for k in ks:
+                    _, pieces, lay = verify_plan(
+                        m.decoder_n_layers, m.d_model, m.decoder_d_ffn, m.n_mels,
+                        m.n_mels * r + r, k, r, m.decoder_n_head, SERVE_MAX_LEN + k, 64, itemsize)
+                    real = pieces[:, :, 3] < (1 << 30)
+                    out.append(f"{what} {dtype} K={k}, n_pos {SERVE_MAX_LEN}, Tp 64: one cluster "
+                               f"of 16 blocks, {lay['smem_bytes']} bytes a block "
+                               f"({lay['ring_bytes']} of them the weight ring), "
+                               f"{int(real.sum(0).max())} weight pieces a block")
+        return out
     if name == "log_mel":
         from transformertts_tpu_torch.ops import stft
 
@@ -546,7 +629,7 @@ def check_one_launch(call, name: str) -> None:
                and not any(w in e.name.lower() for w in ("memcpy", "memset"))]
     if len(kernels) != 1 or name not in kernels[0]:
         raise AssertionError(f"one call launched {len(kernels)} kernels: {kernels[:30]}")
-    log(f"[kernel] one decode_step call under the profiler: 1 kernel launch ({kernels[0][:80]})")
+    log(f"[kernel] one call under the profiler: 1 kernel launch ({kernels[0][:80]})")
 
 
 def phase_kernel(cfg, device) -> dict:
@@ -555,6 +638,7 @@ def phase_kernel(cfg, device) -> dict:
     import torch
 
     from transformertts_tpu_torch.ops.decode_step import (
+        DecodeVerify,
         decode_step,
         decode_step_reference,
         pack_decode_weights,
@@ -611,12 +695,26 @@ def phase_kernel(cfg, device) -> dict:
             if what == "Config()" and dtype_name == "bfloat16":
                 (frame, pe_row, bias), caches = step_inputs(
                     wcfg, 1, 200, SERVE_MAX_LEN, 64, dtype, device, seed=5)
-                check_one_launch(
-                    lambda: decode_step(200, frame, pe_row, bias, *caches, packed),
-                    "decode_step_kernel")
-                check_one_launch(
-                    lambda: decode_step(200, frame, pe_row, bias, *caches, packed,
-                                        **prenet_drop(cfg, 3)), "decode_step_kernel")
+                # and the verify form (the spec phase checks it against its
+                # plain version): a pass is one launch of the K = 4 instance
+                vc, rest = verify_inputs(wcfg, SPEC_K, SERVE_MAX_LEN, 64, dtype, device, 9, alpha)
+                verify = DecodeVerify(*vc, packed, *rest, k=SPEC_K, r=wcfg.model.reduction_factor,
+                                      n_pos=SERVE_MAX_LEN, tau=1e9, stop_threshold=2.0)
+                calls = [
+                    (lambda: decode_step(200, frame, pe_row, bias, *caches, packed),
+                     "decode_step_kernel"),
+                    (lambda: decode_step(200, frame, pe_row, bias, *caches, packed,
+                                         **prenet_drop(cfg, 3)), "decode_step_kernel"),
+                    (lambda: verify(200), f"decode_step_kernel<__nv_bfloat16, {SPEC_K}, false, true>"),
+                ]
+                # every library loaded before the first profiler session: on
+                # the card the profiler showed no kernel of the verify
+                # library when it was first loaded after two sessions
+                for call, _ in calls:
+                    call()
+                for call, name in calls:
+                    check_one_launch(call, name)
+                del vc, rest, verify
     kernel_prenet_dropout(cfg, device, worst)
     return worst
 
@@ -1338,32 +1436,44 @@ def phase_stream(device, root, card: str) -> dict:
     return launches
 
 
-def log_stage_times(what, b, t, step_args, packed, card: str, calls: int = 20) -> None:
-    """The decode kernel's time by stage at one shape: the median over
-    ``calls`` calls of each stage's work (slowest block) and grid-barrier
-    wait, from the kernel's global-timer stamps."""
+def log_stage_times(what: str, names: list, run, card: str, calls: int = 20) -> None:
+    """A decode kernel's time by stage: the median over ``calls`` calls of
+    each stage's work (slowest block) and cluster-barrier wait, from the
+    kernel's global-timer stamps; ``run()`` makes one call and returns the
+    timeline it stamped."""
     import statistics
 
     import torch
 
-    from transformertts_tpu_torch.ops.decode_step import _prepared_step, stage_times
+    from transformertts_tpu_torch.ops.decode_step import stage_times
 
-    frame, pe_row, bias, caches = step_args
-    step = _prepared_step(*caches, packed, False)
-    names = step.stages(t)
     runs = []
     for _ in range(calls):
-        tl = step.timeline_buffer()
-        step(t, frame, pe_row, bias, timeline=tl)
+        tl = run()
         torch.cuda.synchronize()
         runs.append(stage_times(tl, len(names) - 1))
     med = [(statistics.median(r[i][0] for r in runs), statistics.median(r[i][1] for r in runs))
            for i in range(len(names))]
     work, wait = sum(m[0] for m in med), sum(m[1] for m in med)
-    log(f"[time] {what} bf16 B={b} t={t} by stage (median of {calls} calls, global timer): "
+    log(f"[time] {what} by stage (median of {calls} calls, global timer): "
         f"{len(names)} stages, work {work:.1f} us, barrier waits {wait:.1f} us "
         f"({wait / max(1, len(names) - 1):.2f} us each) [{card}]")
     log("[time]   " + ", ".join(f"{n} {w:.2f}+{x:.2f}" for n, (w, x) in zip(names, med)))
+
+
+def step_stage_times(what, b, t, step_args, packed, card: str) -> None:
+    """``log_stage_times`` of the decode step at one shape."""
+    from transformertts_tpu_torch.ops.decode_step import _prepared_step
+
+    frame, pe_row, bias, caches = step_args
+    step = _prepared_step(*caches, packed, False)
+
+    def run():
+        tl = step.timeline_buffer()
+        step(t, frame, pe_row, bias, timeline=tl)
+        return tl
+
+    log_stage_times(f"{what} bf16 B={b} t={t}", step.stages(t), run, card)
 
 
 def phase_time(cfg, device, synth, card: str) -> tuple:
@@ -1411,7 +1521,7 @@ def phase_time(cfg, device, synth, card: str) -> tuple:
                         f"{ms * 1e3:.1f} / {again_ms * 1e3:.1f} us/step (before / after), rate "
                         f"{PRENET_DROPOUT} {drop_ms * 1e3:.1f} us/step on the device [{card}]")
                 if (n_pos, tp, t) in ((SERVE_MAX_LEN, 64, 200), (1500, 192, 700)) and stamps:
-                    log_stage_times(what, b, t, (frame, pe_row, bias, caches), packed, card)
+                    step_stage_times(what, b, t, (frame, pe_row, bias, caches), packed, card)
                 log(f"[time] {what} bf16 B={b} n_pos={n_pos} tp={tp} t={t}: kernel "
                     f"{ms * 1e3:.1f} us/step on the device ({call * 1e3:.1f} us per eager call "
                     f"back to back, {host:.1f} us of host time), plain {plain_ms * 1e3:.1f} "
@@ -1427,6 +1537,368 @@ def phase_time(cfg, device, synth, card: str) -> tuple:
         log(f"[time] Synthesizer.synthesize B={b}, {SERVE_MAX_LEN} frames/row: {dt:.3f} s, "
             f"{b * SERVE_MAX_LEN / dt:.0f} frames/s, {dt / SERVE_MAX_LEN * 1e3:.3f} ms/step [{card}]")
     return rows, drop_rows
+
+
+# ------------------------------------------------------- speculative decode
+
+SPEC_K = 4  # the main path's drafted positions a pass
+SPEC_TAU_MID = 0.5  # the kernel check's second acceptance tolerance (stop threshold 0.5)
+
+
+def spec_config(cfg, k: int = SPEC_K, tau=None, **runtime):
+    """``cfg`` with speculative decode on: K = ``k``, tau ``tau`` (None keeps
+    the config's)."""
+    import dataclasses
+
+    rt = cfg.runtime
+    return cfg.replace(runtime=dataclasses.replace(
+        rt, decode_speculative_k=k,
+        decode_speculative_tau=rt.decode_speculative_tau if tau is None else tau, **runtime))
+
+
+def verify_inputs(cfg, k, n_pos, tp, dtype, device, seed, alpha):
+    """Seeded state of one utterance's verify pass, in ``DecodeVerify``'s
+    order after the packed weights: caches of n_pos + K positions, cross
+    K/V, a ragged cross bias (1, Tp), alpha * PE, a frame buffer of random
+    frames and the stop buffer (drawn on the device, in bulk)."""
+    import torch
+
+    from transformertts_tpu_torch.models.masks import NEG_INF
+    from transformertts_tpu_torch.models.modules import sinusoid_table
+
+    m = cfg.model
+    L, H, dh, r = m.decoder_n_layers, m.decoder_n_head, m.d_model // m.decoder_n_head, m.reduction_factor
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(tp // 2, tp + 1))
+    bias = torch.from_numpy(np.where(np.arange(tp)[None, :] < n, 0.0, NEG_INF).astype(np.float32))
+    pe = torch.from_numpy(alpha * sinusoid_table(n_pos + k, m.d_model)).float()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    caches = [torch.randn((L, H, 1, c, dh), generator=gen, device=device).to(dtype)
+              for c in (n_pos + k, n_pos + k, tp, tp)]
+    frames = torch.randn((n_pos * r + 1, m.n_mels), generator=gen, device=device)
+    stops = torch.full((n_pos * r,), NEG_INF, device=device)
+    return caches, [x.to(device) for x in (bias, pe)] + [frames, stops]
+
+
+def check_verify_kernel(what, cfg, ks, device, worst: dict) -> None:
+    """The verify kernel against its plain version (``verify_pass_reference``)
+    on the same state: K in ``ks``, t in {0, n_pos / 2, n_pos - K} at the
+    serving shape (400 positions, 64 encoder positions), bf16 and fp32, at
+    (tau 1e9, stop threshold 2.0: every draft accepted) and (tau
+    ``SPEC_TAU_MID``, threshold 0.5).  Outputs within ``TOL``, the
+    acceptance exactly ``accept_reference``'s of the kernel's own outputs,
+    the accepted frames and stop logits written and nothing else, the K/V
+    rows written at t .. t + K - 1 and nothing else, equal bits from a
+    second call on the same state, and one launch counted a call (the
+    kernel phase checks under the profiler that a call is one kernel)."""
+    import torch
+
+    from transformertts_tpu_torch.ops.decode_step import (
+        DecodeVerify,
+        accept_reference,
+        draft_frames,
+        pack_decode_weights,
+        verify_pass_reference,
+    )
+
+    n_pos, tp, r, nm = SERVE_MAX_LEN, 64, cfg.model.reduction_factor, cfg.model.n_mels
+    for dtype_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dtype_name)
+        model = make_model(cfg, dtype, device, seed=1)
+        packed = pack_decode_weights(model, dtype)
+        alpha = float(model.pe.alpha.detach())
+        del model
+        for k in ks:
+            for t in (0, n_pos // 2, n_pos - k):
+                caches, rest = verify_inputs(cfg, k, n_pos, tp, dtype, device, 10 * k + t, alpha)
+                for tau, thr in ((1e9, 2.0), (SPEC_TAU_MID, 0.5)):
+                    opts = dict(k=k, r=r, n_pos=n_pos, tau=tau, stop_threshold=thr)
+                    state = [c.clone() for c in caches] + [x.clone() for x in rest]
+                    verify = DecodeVerify(*state[:4], packed, *state[4:], **opts)
+                    runs, before = [], DecodeVerify.launches_total
+                    for _ in range(2):  # the same state twice: equal bits
+                        for dst, src in zip(state, caches + rest):
+                            dst.copy_(src)
+                        code = int(verify(t))
+                        runs.append([code] + [x.clone() for x in
+                                              (verify.y, verify.k_new, verify.v_new, *state)])
+                    if device.type == "cuda" and DecodeVerify.launches_total - before != 2:
+                        raise AssertionError("a verify call did not count one launch")
+                    if runs[0][0] != runs[1][0] or not all(
+                            torch.equal(a, b) for a, b in zip(runs[0][1:], runs[1][1:])):
+                        raise AssertionError(f"verify {what} {dtype_name} K={k} t={t}: a second "
+                                             f"call gave other bits")
+                    code, y, kn, vn, sk, sv, _, _, _, _, frames, stops = runs[0]
+                    plain = [c.clone() for c in caches] + [x.clone() for x in rest]
+                    p_code, *ref = verify_pass_reference(t, *plain[:4], packed, *plain[4:],
+                                                         **opts)
+                    errs = []
+                    for name, o, rr in zip(("y", "k_new", "v_new"), (y, kn, vn), ref):
+                        err, rel = rel_err(o, rr)
+                        errs.append(f"{name} {err:.2e}")
+                        worst[k] = max(worst.get(k, 0.0), err)
+                        if not rel <= TOL[dtype_name] or not torch.isfinite(o).all():
+                            raise AssertionError(f"verify kernel != plain: {what} {dtype_name} "
+                                                 f"K={k} t={t} tau={tau} {name}: rel {rel:.3g}")
+                    drafts = draft_frames(rest[2], t, r, k)
+                    want = int(accept_reference(y[:, :nm * r], y[:, nm * r:], drafts, r, tau,
+                                                thr, n_pos - t))
+                    m = code // 2
+                    rows = slice(t * r + 1, t * r + 1 + m * r)
+                    kept = torch.ones(frames.shape[0], dtype=torch.bool, device=device)
+                    kept[rows] = False
+                    if (code != want or not 1 <= m <= min(k, n_pos - t)
+                            or not torch.equal(frames[rows], y[:, :nm * r].reshape(-1, nm)[:m * r])
+                            or not torch.equal(frames[kept], rest[2][kept])
+                            or not torch.equal(stops[t * r: t * r + m * r],
+                                               y[:, nm * r:].reshape(-1)[:m * r])
+                            or not torch.equal(stops[t * r + m * r:], rest[3][t * r + m * r:])):
+                        raise AssertionError(f"verify {what} {dtype_name} K={k} t={t} tau={tau}: "
+                                             f"code {code} (of its own outputs {want}) or the "
+                                             f"frames / stops it wrote")
+                    if tau == 1e9 and code != int(p_code):
+                        raise AssertionError(f"verify {what} {dtype_name} K={k} t={t}: code {code}"
+                                             f" != plain {int(p_code)} accepting every draft")
+                    pos = torch.arange(n_pos + k, device=device)
+                    own = (pos >= t) & (pos < t + k)
+                    for c, new, orig in ((sk, kn, caches[0]), (sv, vn, caches[1])):
+                        if not torch.equal(c[:, :, 0, own], new) or not torch.equal(
+                                c[:, :, 0, ~own], orig[:, :, 0, ~own]):
+                            raise AssertionError("verify kernel wrote cache rows other than "
+                                                 "t .. t + K - 1, or not those")
+                    log(f"[spec] {what} {dtype_name:8s} K={k} t={t:3d} tau={tau:g} thr={thr}: "
+                        + ", ".join(errs) + f", m {m} vote {code & 1} (plain m {int(p_code) // 2} vote {int(p_code) & 1}), "
+                        f"equal bits")
+                del caches, rest
+
+
+def check_spec_decode(cfg, device, card: str) -> None:
+    """Whole speculative decodes at B = 1, ``Config()``, fp32, 64 forced
+    frames: tau 0 against the sequential kernel decode (one group a pass),
+    tau 1e9 at K = 4 (16 passes) and K = 3 (22, the last one cut at n_pos)
+    and the kernel loop against the plain chunk loop at tau 1e9; at the
+    default tau the groups a pass on these seeded weights (not a quality
+    figure).  On the card each pass is one verify launch."""
+    import math
+
+    import torch
+
+    from transformertts_tpu_torch.infer.decode import make_decode_fn
+    from transformertts_tpu_torch.ops.decode_step import DecodeVerify, decode_step
+
+    model = make_model(cfg, torch.float32, device, seed=2)
+    rng = np.random.default_rng(3)
+    phoneme, lens, frames = rng.integers(1, 70, (1, 96)), np.array([96]), 64
+
+    def run(c, use_kernel=None):
+        DecodeVerify.launches_total = decode_step.launches = 0
+        out = make_decode_fn(model, c, max_len=frames, stop_threshold=2.0, use_kernel=use_kernel,
+                             device=device)(phoneme, lens)
+        if device.type == "cuda" and use_kernel is not False and (
+                DecodeVerify.launches_total != out.get("n_verify_passes", 0)
+                or decode_step.launches != (0 if "n_verify_passes" in out else out["n_steps"])):
+            raise AssertionError(f"{DecodeVerify.launches_total} verify and "
+                                 f"{decode_step.launches} step launches for {out['n_steps']} steps")
+        if out["n_frames"] != frames:
+            raise AssertionError(f"a forced decode gave {out['n_frames']} frames")
+        return out
+
+    def close(a, b, what):
+        msg = []
+        for key in ("pred_melspec", "pred_stop", "post_melspec"):
+            err, rel = rel_err(a[key], b[key])
+            msg.append(f"{key} {err:.2e} (rel {rel:.1e})")
+            if not rel <= DECODE_TOL:
+                raise AssertionError(f"{what}: {key} off by {rel:.3g}")
+        return ", ".join(msg)
+
+    seq = run(cfg)
+    for k, tau, passes in ((SPEC_K, 0.0, frames), (SPEC_K, 1e9, frames // SPEC_K),
+                           (3, 1e9, math.ceil(frames / 3))):
+        out = run(spec_config(cfg, k, tau))
+        if out["n_verify_passes"] != passes:
+            raise AssertionError(f"K={k} tau={tau}: {out['n_verify_passes']} passes, want {passes}")
+        msg = close(out, seq, f"K={k} tau 0 against the sequential decode") if tau == 0.0 else ""
+        if tau == 1e9 and k == SPEC_K:
+            msg = "against the plain chunk loop " + close(
+                out, run(spec_config(cfg, k, tau), use_kernel=False), "kernel vs plain chunk loop")
+        log(f"[spec] decode fp32 B=1 {frames} frames K={k} tau={tau:g}: {passes} verify passes"
+            + (f", against the sequential kernel decode {msg}" if tau == 0.0 else f", {msg}")
+            + f" [{card}]")
+    out = run(spec_config(cfg))
+    log(f"[spec] decode fp32 B=1 {frames} frames K={SPEC_K} default tau "
+        f"{cfg.runtime.decode_speculative_tau}: {out['n_verify_passes']} passes, "
+        f"{frames / out['n_verify_passes']:.2f} groups a pass (seeded random weights)")
+
+
+def phase_spec(cfg, device, root, card: str) -> dict:
+    """The verify kernel against its plain version at ``Config()`` (K 2, 4,
+    8) and ``paper.yaml`` widths (K 4), whole decodes, then the path a user
+    takes with ``runtime.decode_speculative_k=4``: ``Synthesizer.synthesize``
+    of one text (bf16, 400 frames) and ``cli synthesize`` on a checkpoint
+    the phase writes; returns the verify launches of that path, counted from
+    0, and the kernel check's max errors by K."""
+    import dataclasses
+
+    import torch
+
+    from transformertts_tpu_torch import cli
+    from transformertts_tpu_torch.infer import Synthesizer
+    from transformertts_tpu_torch.models import TransformerTTS
+    from transformertts_tpu_torch.ops.decode_step import DecodeVerify, decode_step
+    from transformertts_tpu_torch.train import create_train_state
+    from transformertts_tpu_torch.train.checkpoint import CheckpointManager
+
+    worst: dict[int, float] = {}
+    check_verify_kernel("Config()", cfg, (2, SPEC_K, 8), device, worst)
+    check_verify_kernel("paper.yaml", paper_config(), (SPEC_K,), device, worst)
+    check_spec_decode(cfg, device, card)
+
+    scfg = spec_config(cfg.replace(runtime=dataclasses.replace(cfg.runtime, stop_threshold=2.0)))
+    gen_model = make_model(scfg, torch.bfloat16, "cpu", seed=5)
+    synth = Synthesizer(scfg, state_dict=gen_model.state_dict(), stats=STREAM_STATS,
+                        device=device)
+    del gen_model
+    ckpt_cfg = default_config()  # what cli synthesize builds without --config
+    model = TransformerTTS(ckpt_cfg.model, device="cpu",
+                           generator=torch.Generator().manual_seed(8))
+    CheckpointManager(root / "ckpt").save(1, create_train_state(model, ckpt_cfg), epoch=1)
+    del model
+    sets = [f"runtime.decode_speculative_k={SPEC_K}", f"runtime.infer_max_len={CLI_MAX_LEN}",
+            "runtime.stop_threshold=2.0", f"path.preprocessed={root}"]
+    # the main path: counts from 0 just before, read just after
+    DecodeVerify.launches_total = decode_step.launches = decode_step.launches_batched = 0
+    synth.steps_decoded = 0
+    mel = synth.synthesize(TEXTS[0], max_len=SERVE_MAX_LEN)[0]
+    passes = synth.steps_decoded
+    cli.main(["synthesize", "--ckpt", str(root / "ckpt"), "--text", TEXTS[1],
+              "--out", str(root / "mel.npy"), "--device", str(device),
+              *[a for s in sets for a in ("--set", s)]])
+    launches, steps = DecodeVerify.launches_total, decode_step.launches
+    cli_mel = np.load(root / "mel.npy")
+    if (mel.shape != (cfg.model.n_mels, SERVE_MAX_LEN) or not np.isfinite(mel).all()
+            or cli_mel.shape != (cfg.model.n_mels, CLI_MAX_LEN) or not np.isfinite(cli_mel).all()):
+        raise AssertionError(f"speculative synthesize {mel.shape}, cli {cli_mel.shape}")
+    if device.type == "cuda" and (steps != 0 or launches <= passes or passes <= 0):
+        raise AssertionError(f"the speculative path launched {launches} verify kernels "
+                             f"({passes} passes in synthesize) and {steps} decode steps")
+    log(f"[spec] Synthesizer.synthesize bf16 K={SPEC_K} default tau: {SERVE_MAX_LEN} frames in "
+        f"{passes} verify passes; cli synthesize --set runtime.decode_speculative_k={SPEC_K}: "
+        f"{cli_mel.shape[1]} frames; {launches} verify launches, {steps} decode-step launches "
+        f"[{card}]")
+    # a batch falls through to the step kernel
+    DecodeVerify.launches_total = decode_step.launches = decode_step.launches_batched = 0
+    synth.synthesize(TEXTS[:2], max_len=64)
+    if device.type == "cuda" and (DecodeVerify.launches_total or decode_step.launches_batched != 64):
+        raise AssertionError("a B = 2 batch did not fall through to the decode-step kernel")
+    return {"launches": launches, "worst": worst}
+
+
+def verify_bytes_flops(packed, k, t, tp, cfg):
+    """Least bytes a verify pass must move (the weights, the cache prefix and
+    the cross K/V once for all K rows; the inputs, the K/V rows, the outputs
+    and the accepted frames once) and the operations it must do."""
+    m = cfg.model
+    L, H, dh, r = m.decoder_n_layers, m.decoder_n_head, m.d_model // m.decoder_n_head, m.reduction_factor
+    es = packed["pw1"].element_size()
+    n_w = sum(p.numel() for p in packed.values())
+    w_bytes = sum(p.numel() * p.element_size() for p in packed.values())
+    cache = 2 * L * H * (t + tp) * dh * es
+    d_out = packed["head_w"].shape[0]
+    io_bytes = (4 * (2 * m.n_mels + k * m.d_model + tp + k * d_out + k * r * (m.n_mels + 1) + 1)
+                + 2 * 2 * L * H * k * dh * es)  # K/V rows into the cache and out
+    flops = 2 * k * n_w + 4 * L * H * dh * (k * (t + tp) + k * (k + 1) // 2)
+    return w_bytes + cache + io_bytes, flops
+
+
+def time_spec(cfg, device, synth, card: str) -> dict:
+    """The verify kernel's device time per pass by CUDA-graph replay at the
+    serving shape (400 positions, 64 encoder positions, t 200; K 2, 4, 8 at
+    ``Config()``, K 4 at ``paper.yaml`` widths), beside the sequential step's
+    at B = 1, its plain version's (eager: it reads the acceptance back) and
+    its bound, with the host's time per eager call; then frames/s of
+    ``Synthesizer.synthesize`` (B = 1, 400 frames) with K = 4 at tau 0, 1e9
+    and the default, between two runs of the sequential decode (``synth``).
+    Returns the kernel's rows by (widths, K)."""
+    import torch
+
+    from transformertts_tpu_torch.infer import Synthesizer
+    from transformertts_tpu_torch.ops.decode_step import (
+        DecodeVerify,
+        decode_step,
+        pack_decode_weights,
+        verify_pass_reference,
+    )
+
+    rows, t, n_pos, tp = {}, 200, SERVE_MAX_LEN, 64
+    for what, wcfg, ks in (("Config()", cfg, (2, SPEC_K, 8)), ("paper.yaml", paper_config(), (SPEC_K,))):
+        model = make_model(wcfg, torch.bfloat16, device, seed=1)
+        packed = pack_decode_weights(model, torch.bfloat16)
+        alpha = float(model.pe.alpha.detach())
+        del model
+        (frame, pe_row, bias), step_caches = step_inputs(wcfg, 1, t, n_pos, tp, torch.bfloat16,
+                                                         device, seed=7)
+        step_ms = device_ms(lambda: decode_step(t, frame, pe_row, bias, *step_caches, packed))
+        del step_caches
+        for k in ks:
+            caches, rest = verify_inputs(wcfg, k, n_pos, tp, torch.bfloat16, device, 7, alpha)
+            opts = dict(k=k, r=wcfg.model.reduction_factor, n_pos=n_pos, tau=1e9,
+                        stop_threshold=2.0)
+            verify = DecodeVerify(*caches, packed, *rest, **opts)
+            ms = device_ms(lambda: verify(t))
+            host = host_us(lambda: verify(t))
+            plain_ms = time_ms(lambda: verify_pass_reference(t, *caches, packed, *rest, **opts), 5, 1)
+            nbytes, flops = verify_bytes_flops(packed, k, t, tp, wcfg)
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
+            by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS else "operations"
+            rows[(what, k)] = (ms, plain_ms, bound, by)
+
+            def run():
+                tl = verify.timeline_buffer()
+                verify(t, timeline=tl)
+                return tl
+
+            log_stage_times(f"{what} bf16 verify pass K={k} t={t}", verify.stages(t), run, card)
+            log(f"[time] {what} bf16 verify pass K={k} n_pos={n_pos} tp={tp} t={t}: kernel "
+                f"{ms * 1e3:.1f} us/pass on the device ({ms * 1e3 / k:.1f} us a position; the "
+                f"B=1 step {step_ms * 1e3:.1f} us), {host:.1f} us of host time per eager call, "
+                f"plain {plain_ms * 1e3:.1f} us/pass (eager), bound {bound * 1e3:.2f} us ({by}, "
+                f"{nbytes / 1e6:.2f} MB) [{card}]")
+            del caches, rest, verify
+
+    def frames_per_s(s, what):
+        """400 frames, then SPEC_K frames (the set-up and one pass, or
+        SPEC_K steps): frames/s and ms a launch of the loop, by difference."""
+        s.synthesize(TEXTS[0], max_len=32)  # warm
+        walls, launches = [], []
+        for n in (SERVE_MAX_LEN, SPEC_K):
+            torch.cuda.synchronize()
+            s.steps_decoded = 0
+            t0 = time.perf_counter()
+            s.synthesize(TEXTS[0], max_len=n)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append(s.steps_decoded)
+        dt = walls[0]
+        loop = (walls[0] - walls[1]) / (launches[0] - launches[1]) * 1e3
+        log(f"[time] Synthesizer.synthesize B=1 {what}: {SERVE_MAX_LEN} frames in "
+            f"{launches[0]} launches, {dt:.3f} s, {SERVE_MAX_LEN / dt:.0f} frames/s; "
+            f"{SPEC_K} frames {walls[1] * 1e3:.1f} ms; the loop {loop:.3f} ms a launch "
+            f"[{card}]")
+        return SERVE_MAX_LEN / dt
+
+    state = synth.model.state_dict()
+    fps = {"sequential": frames_per_s(synth, "sequential")}
+    for tau in (0.0, 1e9, cfg.runtime.decode_speculative_tau):
+        spec = Synthesizer(spec_config(cfg, SPEC_K, tau), state_dict=state, stats=synth.stats,
+                           device=device)
+        DecodeVerify.launches_total = 0
+        fps[f"tau {tau:g}"] = frames_per_s(spec, f"speculative K={SPEC_K} tau {tau:g}")
+        del spec
+    fps["sequential again"] = frames_per_s(synth, "sequential, again")
+    log(f"[time] frames/s at B=1 by decode: " + ", ".join(f"{k} {v:.0f}" for k, v in fps.items())
+        + f" [{card}]")
+    return rows
 
 
 # ------------------------------------------------------------ training path
@@ -2337,7 +2809,11 @@ def main(argv=None) -> int:
     if "stream" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
             stream_launches = phase_stream(device, Path(tmp), card)
-    launches, rows, drop_rows = {}, {}, {}
+    spec = {}
+    if "spec" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_spec_") as tmp:
+            spec = phase_spec(cfg, device, Path(tmp), card)
+    launches, rows, drop_rows, spec_rows = {}, {}, {}, {}
     if phases & {"serve", "time"}:
         scfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime, stop_threshold=2.0))
         gen_model = make_model(scfg, torch.bfloat16, "cpu", seed=5)
@@ -2347,6 +2823,7 @@ def main(argv=None) -> int:
             launches = phase_serve(scfg, device, synth, cfg.runtime.stop_threshold)
         if "time" in phases:
             rows, drop_rows = phase_time(scfg, device, synth, card)
+            spec_rows = time_spec(scfg, device, synth, card)
         del synth, gen_model
     if "train-parity" in phases:
         phase_train_parity(cfg, device)
@@ -2402,6 +2879,18 @@ def main(argv=None) -> int:
                 zip(("ms", "plain_ms", "bound_ms", "bound_by"), r))
                 for (what, rb, n_pos, tp, t), r in rows.items() if rb == b},
         })
+    # row 1's verify form on the speculative path (B = 1, K = 4)
+    ms, plain, bound, by = spec_rows[("Config()", SPEC_K)]
+    kernels.append({
+        "name": f"decode_step_verify (K={SPEC_K}, bf16, n_pos {SERVE_MAX_LEN}, Tp 64, t 200)",
+        "route": "cuda", "source": src + "decode_step_verify.cu",
+        "replaces": f"{pallas}decode_step.py:300",
+        "verifies": "transformertts_tpu/infer/decode.py:307",
+        "launches": spec["launches"], "max_abs_err": max(spec["worst"].values()),
+        "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "shapes": {f"{what} K {k}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), r))
+                   for (what, k), r in spec_rows.items()},
+    })
     # rows 3-9: the record's numbers are those of the largest shape on the
     # path; "shapes" holds every shape of the path
     for kernel, source, site, count, err, main_shape, what in (
@@ -2436,7 +2925,8 @@ def main(argv=None) -> int:
         })
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path was launched no time on the main path")
-    if any(k["launches_trainer"] <= 0 for k in kernels if "ffn" not in k["name"]):
+    if any(k["launches_trainer"] <= 0 for k in kernels
+           if "ffn" not in k["name"] and "verify" not in k["name"]):
         raise AssertionError("a kernel of the trainer path was launched no time on it")
     if any(k.get("launches_stream", 1) <= 0 for k in kernels):
         raise AssertionError("the decode step was launched no time on the streaming path")

@@ -79,16 +79,21 @@ def test_decode_early_stop(use_kernel):
 
 
 def test_decode_rejects_unported_options():
-    """Speculative decode is not ported and raises; inference prenet dropout
-    is (tests/test_torch_prenet_dropout.py) and decodes."""
+    """Speculative decode (tests/test_torch_speculative.py) and inference
+    prenet dropout (tests/test_torch_prenet_dropout.py) each decode; the
+    options that do not combine with speculation, prenet dropout and the
+    attention window, raise as in JAX."""
     jcfg, pcfg = configs()
     model = port_model(pcfg, jax_model_and_variables(jcfg)[1])
-    _, cfg = configs(decode_speculative_k=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_decode_fn(model, cfg, max_len=8, device="cpu")
-    _, cfg = configs(infer_prenet_dropout=0.5)
-    out = make_decode_fn(model, cfg, max_len=8, stop_threshold=2.0, device="cpu")(*_inputs(1))
-    assert out["n_frames"] == 8 and np.isfinite(out["post_melspec"].numpy()).all()
+    for extra in ({"infer_prenet_dropout": 0.5}, {"decode_attn_window": 2}):
+        _, cfg = configs(decode_speculative_k=4, **extra)
+        with pytest.raises(ValueError, match="incompatible"):
+            make_decode_fn(model, cfg, max_len=8, device="cpu")
+    for runtime in ({"infer_prenet_dropout": 0.5}, {"decode_speculative_k": 4}):
+        _, cfg = configs(**runtime)
+        out = make_decode_fn(model, cfg, max_len=8, stop_threshold=2.0, device="cpu")(*_inputs(1))
+        assert out["n_frames"] == 8 and np.isfinite(out["post_melspec"].numpy()).all()
+        assert ("n_verify_passes" in out) == ("decode_speculative_k" in runtime)
 
 
 @pytest.mark.parametrize("threshold", [2.0, 0.5])

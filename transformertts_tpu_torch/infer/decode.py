@@ -38,6 +38,13 @@ kernel loop inside the kernel, with the same counter-hash masks
 JAX loop's key).
 
 The loop runs in Python and reads the stop votes back once per step.
+
+Speculative decode (``runtime.decode_speculative_k`` K > 1, one utterance:
+JAX ``_speculative_decode``) is ``SpeculativeDecode``: each pass drafts K -
+1 inputs, verifies the K positions at once and advances by the accepted
+groups, reading back one integer a pass; on the GPU a pass is one launch of
+the verify kernel (``ops.decode_step.DecodeVerify``), which also drafts,
+accepts and writes the frames.
 """
 
 from __future__ import annotations
@@ -53,7 +60,10 @@ from transformertts_tpu_torch.models.modules import sinusoid_table
 from transformertts_tpu_torch.ops.decode_step import (
     MAX_BATCH,
     DecodeStep,
+    DecodeVerify,
+    accept_reference,
     decode_step,
+    draft_frames,
     pack_decode_weights,
     prenet_drop_args,
     prenet_keep,
@@ -287,6 +297,95 @@ class DecodeState:
                 rows.step()
 
 
+class SpeculativeDecode:
+    """The draft-and-verify decode of one utterance (JAX
+    ``_speculative_decode``, ``transformertts_tpu/infer/decode.py:307-457``).
+
+    Each pass drafts the next K - 1 decoder inputs from the frame buffer
+    (``"linear"``: f0 + j (f0 - prev); ``"hold"``: f0), runs the decoder once
+    over the K positions t .. t + K - 1 (row j writes its K/V at t + j and
+    attends to positions <= t + j), accepts the leading run of drafts within
+    ``decode_speculative_tau`` of the previous group's last frame (cut at
+    the first group with a stop vote and at n_pos), writes the accepted m
+    groups' frames and stop logits and advances t by m >= 1.  Row 0's input
+    is the true frame, so tau = 0 decodes as the sequential loop does, one
+    group a pass.  The pass's result, 2 m + vote, is read back once a pass.
+
+    The kernel loop runs each pass as ONE launch of the verify kernel
+    (``ops.decode_step.DecodeVerify``; its plain version on the CPU), which
+    also drafts, accepts and writes the frames.  The plain loop runs the
+    JAX loop's ops through the model's modules (``prenet_step`` over K
+    positions, ``project_self_kv``, ``cached_step`` with the per-row causal
+    bias, ``decode_frame_heads``) and ``accept_reference``."""
+
+    def __init__(self, model, cfg, phoneme, lens, max_len, stop_threshold, kernel, packed,
+                 mask_encoder_source=False):
+        m, rt = cfg.model, cfg.runtime
+        dev, tp = phoneme.device, phoneme.shape[1]
+        self.model, self.r, self.n_mels = model, m.reduction_factor, m.n_mels
+        self.k, self.n_pos = int(rt.decode_speculative_k), max_len // m.reduction_factor
+        self.tau, self.stop_threshold = float(rt.decode_speculative_tau), stop_threshold
+        self.linear = rt.decode_speculative_draft == "linear"
+        memory = model.encode(phoneme, lens if mask_encoder_source else None)
+        self.cross_kv = model.build_cross_cache(memory)  # L x ((1, Tp, H, dh) x 2)
+        self.cross_bias = padding_bias(lens, tp)  # (1, 1, 1, Tp)
+        self.frames = torch.zeros((1, max_len + 1, m.n_mels), dtype=torch.float32, device=dev)
+        self.stops = torch.full((1, max_len), NEG_INF, dtype=torch.float32, device=dev)
+        cap = self.n_pos + self.k  # the chunk's rows past n_pos stay in the caches
+        L, H, dh = m.decoder_n_layers, m.decoder_n_head, m.d_model // m.decoder_n_head
+        if kernel:
+            ck = torch.stack([kv[0] for kv in self.cross_kv]).permute(0, 3, 1, 2, 4).contiguous()
+            cv = torch.stack([kv[1] for kv in self.cross_kv]).permute(0, 3, 1, 2, 4).contiguous()
+            self_k = torch.zeros((L, H, 1, cap, dh), dtype=model.dtype, device=dev)
+            pe_table = (model.pe.alpha.float() * torch.from_numpy(
+                sinusoid_table(m.max_len, m.d_model)).to(dev)).float()
+            self.verify = DecodeVerify(
+                self_k, torch.zeros_like(self_k), ck, cv, packed,
+                self.cross_bias[:, 0, 0, :].float().contiguous(), pe_table, self.frames[0],
+                self.stops[0], k=self.k, r=self.r, n_pos=self.n_pos, tau=self.tau,
+                stop_threshold=stop_threshold, linear=self.linear)
+            self.pass_ = self.verify
+        else:
+            self.self_k = torch.zeros((L, 1, cap, H, dh), dtype=model.dtype, device=dev)
+            self.self_v = torch.zeros_like(self.self_k)
+            self.rows = torch.arange(self.k, device=dev)[:, None]
+            self.cols = torch.arange(cap, device=dev)[None, :]
+            self.pass_ = self.plain_pass
+        self.t = self.passes = 0
+
+    def plain_pass(self, t: int) -> int:
+        """One pass through the model's modules; returns 2 m + vote."""
+        model, r, k, n_mels = self.model, self.r, self.k, self.n_mels
+        frames = self.frames[0]
+        drafts = draft_frames(frames, t, r, k, self.linear)  # (K, n_mels)
+        x = model.prenet_step(drafts[None], t)  # (1, K, D)
+        bias = torch.where(self.cols <= t + self.rows, 0.0, NEG_INF)[None, None]  # (1, 1, K, cap)
+        for li, layer in enumerate(model.decoder.layers):
+            k_new, v_new = layer.project_self_kv(x)  # (1, K, H, dh)
+            self.self_k[li, :, t:t + k] = k_new
+            self.self_v[li, :, t:t + k] = v_new
+            ck, cv = self.cross_kv[li]
+            x = layer.cached_step(x, self.self_k[li], self.self_v[li], ck, cv, bias,
+                                  self.cross_bias)
+        mel, stop = model.decode_frame_heads(x)  # (1, K r, n_mels), (1, K r)
+        mel, stop = mel.float().reshape(k, r * n_mels), stop.float().reshape(k, r)
+        code = int(accept_reference(mel, stop, drafts, r, self.tau, self.stop_threshold,
+                                    self.n_pos - t))
+        m = code // 2
+        frames[t * r + 1: t * r + 1 + m * r] = mel.reshape(k * r, n_mels)[:m * r]
+        self.stops[0, t * r: t * r + m * r] = stop.reshape(-1)[:m * r]
+        return code
+
+    def run(self) -> None:
+        """Passes until position n_pos or a stop vote."""
+        stopped = False
+        while self.t < self.n_pos and not stopped:
+            code = int(self.pass_(self.t))  # the pass's one readback
+            self.t += code // 2
+            stopped = bool(code & 1)
+            self.passes += 1
+
+
 def decode_options(cfg: Config, device: torch.device, use_kernel: Optional[bool]) -> tuple:
     """(kernel loop?, rows a kernel call) of a decode on ``device``: the
     kernel loop on CUDA unless ``use_kernel=False`` (and there it needs
@@ -347,6 +446,18 @@ def make_decode_fn(
     True forces the kernel loop (on the CPU the step wrapper then runs its
     plain version); False forces the plain loop.  The kernel loop decodes
     at most ``min(decode_megakernel_max_batch, 8)`` rows per kernel call.
+
+    ``runtime.decode_speculative_k`` K > 1, as the JAX function gates it:
+    one utterance (B = 1) decodes speculatively (``SpeculativeDecode``, K
+    positions a verify pass) and the result adds ``n_verify_passes``
+    (``n_steps`` counts the passes too); a batch falls through to the decode
+    above, unchanged.  K > 1 raises with ``infer_prenet_dropout`` > 0 or
+    ``decode_attn_window`` > 0, whatever B is, and at B = 1 when max_len / r
+    + K - 1 > ``model.max_len``.  One difference from JAX: JAX refuses its
+    Pallas step (``use_megakernel=True``) with speculation and runs the XLA
+    chunk loop, while here ``use_kernel`` picks the verify kernel (its plain
+    version on the CPU) or the plain chunk loop as for the decode above: on
+    CUDA the kernel is the path.
     """
     device = resolve_device(device)
     if model.device != device:
@@ -358,12 +469,12 @@ def make_decode_fn(
     r = cfg.model.reduction_factor
     if max_len % r:
         raise ValueError(f"max_len ({max_len}) must be a multiple of reduction_factor ({r})")
-    if int(cfg.runtime.decode_speculative_k) > 1:
-        raise NotImplementedError(
-            "decode_speculative_k > 1 is not ported yet (ROADMAP Queue 1: speculative decode)"
-        )
     prenet_dropout = float(cfg.runtime.infer_prenet_dropout)
     prenet_drop_args(prenet_dropout)  # raises outside [0, 1)
+    spec_k = int(cfg.runtime.decode_speculative_k)
+    if spec_k > 1 and (prenet_dropout > 0.0 or int(cfg.runtime.decode_attn_window) > 0):
+        raise ValueError("decode_speculative_k is incompatible with "
+                         "infer_prenet_dropout / decode_attn_window")
     kernel, chunk = decode_options(cfg, device, use_kernel)
     n_pos = max_len // r
     packed = weights_packer(model)
@@ -372,24 +483,40 @@ def make_decode_fn(
     def decode(phoneme, phoneme_lens) -> dict:
         phoneme = torch.as_tensor(phoneme, dtype=torch.long, device=device)
         lens = torch.as_tensor(phoneme_lens, dtype=torch.long, device=device)
+        if spec_k > 1 and phoneme.shape[0] == 1:  # one utterance; batches fall through
+            if n_pos + spec_k - 1 > cfg.model.max_len:
+                # the pass reads PE rows [t, t + K): past the table's end they
+                # would shift even position 0's encoding, which is always accepted
+                raise ValueError(f"max_len/r + decode_speculative_k - 1 ({n_pos + spec_k - 1}) "
+                                 f"must be <= model.max_len ({cfg.model.max_len})")
+            spec = SpeculativeDecode(model, cfg, phoneme, lens, max_len, stop_threshold, kernel,
+                                     packed() if kernel else None, mask_encoder_source)
+            spec.run()
+            return _result(model, spec.frames, spec.stops, spec.t * r, stop_threshold,
+                           spec.passes, n_verify_passes=spec.passes)
         state = DecodeState(model, cfg, phoneme, lens, max_len, stop_threshold, kernel,
                             packed() if kernel else None, chunk, prenet_dropout,
                             mask_encoder_source)
         state.run_each(n_pos)
-        frames, stops, t, n_steps = state.frames, state.stops, state.t, state.n_steps
-        n_frames = t * r
-        pred = frames[:, 1:, :]
-        post = model.apply_postnet(pred).float()
-        return {
-            "pred_melspec": pred,
-            "post_melspec": post,
-            "pred_stop": stops,
-            "n_frames": n_frames,
-            "n_frames_per_row": per_row_lengths(stops, n_frames, stop_threshold),
-            "n_steps": n_steps,
-        }
+        return _result(model, state.frames, state.stops, state.t * r, stop_threshold,
+                       state.n_steps)
 
     return decode
+
+
+def _result(model, frames, stops, n_frames: int, stop_threshold: float, n_steps: int,
+            **extra) -> dict:
+    """``make_decode_fn``'s dict from a decode's buffers."""
+    pred = frames[:, 1:, :]
+    return {
+        "pred_melspec": pred,
+        "post_melspec": model.apply_postnet(pred).float(),
+        "pred_stop": stops,
+        "n_frames": n_frames,
+        "n_frames_per_row": per_row_lengths(stops, n_frames, stop_threshold),
+        "n_steps": n_steps,
+        **extra,
+    }
 
 
 def weights_version(model) -> tuple:

@@ -67,6 +67,18 @@ split into row chunks drops what an unsplit one drops.  A step that drops
 runs the kernel's instantiation with dropout, a library of its own
 (``ops/csrc/decode_step_dropout.cu``) loaded at the first such step; a step
 at rate 0 runs the kernel the option left unchanged.
+
+The verify pass of speculative decoding (the JAX package's
+``infer/decode.py:_speculative_decode``, XLA only there) is the same kernel
+in a verify form (``ops/csrc/decode_step_verify.cu``, a library of its
+own): the K rows of one cluster are the positions t .. t + K - 1 of ONE
+utterance, fed the drafted frames ``draft_frames``; row j attends to the
+cache prefix [0, t) and to the chunk's own positions t .. t + j, and writes
+its K/V at t + j.  The pass ends in the kernel with the acceptance
+(``accept_reference``): it writes the accepted frames and stop logits into
+the decode's buffers and one integer, 2 m + vote.  ``DecodeVerify``
+prepares a pass once per decode; ``decode_verify_reference`` and
+``verify_pass_reference`` are its plain version.
 """
 
 from __future__ import annotations
@@ -264,6 +276,148 @@ def decode_step_reference(
 
     y = dot(x, p["head_w"]) + p["head_b"].float()
     return (y, k_new, v_new) + ((pos,) if with_attn_pos else ())
+
+
+def draft_frames(frames: torch.Tensor, t: int, r: int, k: int, linear: bool = True) -> torch.Tensor:
+    """(K, n_mels) fp32 inputs of a verify pass at position t from the frame
+    buffer ``frames`` (T, n_mels) (the go frame at 0): row j is f0 + j
+    (f0 - prev), f0 = ``frames[t r]`` the true input and prev =
+    ``frames[max(t r - r, 0)]`` the one before it ("linear"), or f0 itself
+    ("hold": every row f0), as the JAX loop drafts."""
+    f0 = frames[t * r]
+    prev = frames[max(t * r - r, 0)] if linear else f0
+    j = torch.arange(k, dtype=torch.float32, device=frames.device)[:, None]
+    return f0 + j * (f0 - prev)
+
+
+@torch.no_grad()
+def decode_verify_reference(
+    t: int,
+    frames: torch.Tensor,  # (K, n_mels) fp32 — drafted inputs, row 0 the true frame
+    pe_rows: torch.Tensor,  # (K, D) fp32 — alpha * PE[t .. t + K - 1]
+    cross_bias: torch.Tensor,  # (1, Tp) fp32 additive key bias
+    self_k: torch.Tensor,  # (L, H, 1, n_pos, dh) — positions < t are valid
+    self_v: torch.Tensor,
+    cross_k: torch.Tensor,  # (L, H, 1, Tp, dh)
+    cross_v: torch.Tensor,
+    packed: dict,
+):
+    """Plain PyTorch version of the verify kernel, op for op: the K
+    positions t .. t + K - 1 of one utterance, each as
+    ``decode_step_reference`` computes a step, except that row j attends to
+    the cached prefix [0, t) and, in closed form with the fp32 q, k and v,
+    to the chunk's own positions t .. t + j.
+
+    Pure: returns (y (K, n_mels*r + r) fp32, k_new (L, H, K, dh), v_new
+    (L, H, K, dh)); row j's K/V belong at position t + j of the caches."""
+    n_layers, n_heads, _, _, dh = self_k.shape
+    k = frames.shape[0]
+    d = n_heads * dh
+    dtype = packed["pw1"].dtype
+    scale = dh ** -0.5
+    p = packed
+
+    def dot(a, w):  # w (out, in)
+        return a.to(dtype).float() @ w.float().t()
+
+    x = frames.to(dtype)
+    x = torch.relu(dot(x, p["pw1"]) + p["pb1"].float())
+    x = torch.relu(dot(x, p["pw2"]) + p["pb2"].float())
+    x = (x + pe_rows.float()).to(dtype)  # (K, D)
+
+    k_new = torch.empty((n_layers, n_heads, k, dh), dtype=self_k.dtype, device=x.device)
+    v_new = torch.empty_like(k_new)
+    own = torch.tril(torch.ones((k, k), dtype=torch.bool, device=x.device))[:, None, :]  # i <= j
+
+    for li in range(n_layers):
+        # ---------------- self-attention over the cached prefix + the chunk
+        resid = x.float()
+        qkv = dot(x, p["sWqkv"][li]) + p["sbqkv"][li].float()  # (K, 3D)
+        q = (qkv[:, :d] * scale).reshape(k, n_heads, dh)
+        kn = qkv[:, d:2 * d].reshape(k, n_heads, dh)
+        vn = qkv[:, 2 * d:].reshape(k, n_heads, dh)
+        k_new[li] = kn.transpose(0, 1).to(self_k.dtype)
+        v_new[li] = vn.transpose(0, 1).to(self_v.dtype)
+        keys, vals = self_k[li, :, 0, :t].float(), self_v[li, :, 0, :t].float()  # (H, t, dh)
+        s = torch.einsum("khd,hpd->khp", q.to(dtype).float(), keys)
+        s_cur = torch.einsum("jhd,ihd->jhi", q, kn)  # (K, H, K): row j's q . row i's k, fp32
+        s_cur = torch.where(own, s_cur, torch.full_like(s_cur, NEG_INF))
+        m = s_cur.max(-1, keepdim=True).values
+        if t > 0:
+            m = torch.maximum(s.max(-1, keepdim=True).values, m)
+        e = torch.exp(s - m)
+        e_cur = torch.where(own, torch.exp(s_cur - m), torch.zeros_like(s_cur))
+        denom = e.sum(-1, keepdim=True) + e_cur.sum(-1, keepdim=True)
+        ctx = torch.einsum("khp,hpd->khd", e.to(dtype).float(), vals)
+        ctx = (ctx + torch.einsum("jhi,ihd->jhd", e_cur, vn)) / denom
+        o = dot(ctx.reshape(k, d), p["sWo"][li]) + p["sbo"][li].float()
+        x32 = _layer_norm(resid + o, p["ln_g"][li, 0], p["ln_b"][li, 0])
+        x = x32.to(dtype)
+
+        # ---------------- cross-attention over the utterance's encoder memory
+        resid = x32
+        q = ((dot(x, p["cWq"][li]) + p["cbq"][li].float()) * scale).reshape(k, n_heads, dh)
+        s = torch.einsum("khd,hpd->khp", q.to(dtype).float(), cross_k[li, :, 0].float())
+        s = s + cross_bias.float()[:, None, :]
+        e = torch.exp(s - s.max(-1, keepdim=True).values)
+        ctx = torch.einsum("khp,hpd->khd", e.to(dtype).float(),
+                           cross_v[li, :, 0].float()) / e.sum(-1, keepdim=True)
+        o = dot(ctx.reshape(k, d), p["cWo"][li]) + p["cbo"][li].float()
+        x32 = _layer_norm(resid + o, p["ln_g"][li, 1], p["ln_b"][li, 1])
+        x = x32.to(dtype)
+
+        # ---------------- FFN
+        h1 = torch.relu(dot(x, p["W1"][li]) + p["B1"][li].float())
+        h2 = dot(h1, p["W2"][li]) + p["B2"][li].float()
+        x32 = _layer_norm(x32 + h2, p["ln_g"][li, 2], p["ln_b"][li, 2])
+        x = x32.to(dtype)
+
+    y = dot(x, p["head_w"]) + p["head_b"].float()
+    return y, k_new, v_new
+
+
+def accept_reference(mel: torch.Tensor, stop: torch.Tensor, drafts: torch.Tensor, r: int,
+                     tau: float, stop_threshold: float, limit: int) -> torch.Tensor:
+    """The acceptance of a verify pass (JAX ``_speculative_decode``), on the
+    device, as one integer 2 m + vote (a 0-dim int64 tensor).
+
+    ``mel`` (K, r n_mels) and ``stop`` (K, r) fp32 are the K groups' outputs,
+    ``drafts`` (K, n_mels) their inputs.  Row j >= 1 is accepted while its
+    draft is within ``tau`` (max-abs over mel bins, fp32) of group j - 1's
+    last frame and group j - 1 did not vote to stop (``sigmoid(stop) >=
+    stop_threshold`` in any of its r frames); m (>= 1) counts the accepted
+    groups, at most ``limit``; the vote is the last accepted group's before
+    that cut."""
+    n_mels = drafts.shape[1]
+    last = mel[:-1, (r - 1) * n_mels:]  # the last frame of groups 0 .. K - 2
+    ok = (drafts[1:] - last).abs().amax(1) <= float(np.float32(tau))
+    vote = (torch.sigmoid(stop) >= float(np.float32(stop_threshold))).any(1)  # (K,)
+    m = 1 + torch.cumprod((ok & ~vote[:-1]).long(), 0).sum()
+    voted = vote[m - 1].long()
+    return 2 * torch.clamp(m, max=limit) + voted
+
+
+def verify_pass_reference(t, self_k, self_v, cross_k, cross_v, packed, cross_bias, pe_table,
+                          frames, stops, *, k: int, r: int, n_pos: int, tau: float,
+                          stop_threshold: float, linear: bool = True):
+    """The whole verify pass in plain PyTorch, as the kernel does it:
+    ``draft_frames``, ``decode_verify_reference``, the K/V rows written at t
+    .. t + K - 1, ``accept_reference`` (read back), and the m r accepted
+    frames and stop logits written into ``frames`` (T, n_mels) from row t r
+    + 1 and ``stops`` (T - 1,) from t r.  Arguments as ``DecodeVerify``'s;
+    returns (code (1,) int32 = 2 m + vote, y, k_new, v_new)."""
+    n_mels = frames.shape[1]
+    drafts = draft_frames(frames, t, r, k, linear)
+    y, k_new, v_new = decode_verify_reference(t, drafts, pe_table[t:t + k], cross_bias, self_k,
+                                              self_v, cross_k, cross_v, packed)
+    self_k[:, :, 0, t:t + k] = k_new
+    self_v[:, :, 0, t:t + k] = v_new
+    mel, stop = y[:, :n_mels * r], y[:, n_mels * r:]
+    code = int(accept_reference(mel, stop, drafts, r, tau, stop_threshold, n_pos - t))
+    m = code // 2
+    frames[t * r + 1: t * r + 1 + m * r] = mel.reshape(k * r, n_mels)[:m * r]
+    stops[t * r: t * r + m * r] = stop.reshape(-1)[:m * r]
+    return torch.tensor([code], dtype=torch.int32, device=frames.device), y, k_new, v_new
 
 
 def _packed_shapes(n_layers: int, d: int, d_ffn: int, n_mels: int, d_out: int) -> dict:
@@ -589,6 +743,36 @@ class _StepConfig(ctypes.Structure):
         ("stages", ctypes.c_void_p), ("pieces", ctypes.c_void_p), ("bias", ctypes.c_void_p)]
 
 
+def _launch_config(plan, packed: dict, cluster: int, b: int, rows: int, n_heads: int, n_pos: int,
+                   tp: int) -> tuple:
+    """The kernel's ``Config`` for ``plan`` (``decode_plan``'s result) with
+    clusters of ``cluster`` blocks decoding ``rows`` rows each, ``b`` batch
+    rows of caches of ``n_pos`` and ``tp`` positions, and the plan's
+    tensors on the weights' device that it points to (keep them alive)."""
+    stage_rows, piece_rows, layout = plan
+    n_layers, d, dev = packed["sWo"].shape[0], packed["pw1"].shape[0], packed["pw1"].device
+    dh = d // n_heads
+    # each rank's rows contiguous, for one bulk copy each
+    stages = torch.from_numpy(stage_rows.transpose(1, 0, 2).copy()).to(dev)
+    pieces = torch.from_numpy(piece_rows.transpose(1, 0, 2).copy()).to(dev)
+    bias = bias_table(stage_biases(packed, n_layers), stage_rows, piece_rows,
+                      layout["n_bias"]).to(dev)
+    cross_chunk, cross_nc = attn_chunks(tp, rows, n_heads, cluster)
+    cfg = _StepConfig(
+        cluster=cluster, B=b, R=rows, L=n_layers, H=n_heads, dh=dh, F=packed["W1"].shape[1],
+        n_mels=packed["pw1"].shape[1], d_out=packed["head_w"].shape[0], n_pos=n_pos, tp=tp,
+        cross_chunk=cross_chunk, cross_nc=cross_nc, nc_max=chunks_max(rows, n_heads, cluster),
+        max_keys=max(n_pos, tp), n_pieces=piece_rows.shape[0], n_bias=layout["n_bias"],
+        smem_bytes=layout["smem_bytes"],
+        off=(ctypes.c_int * len(SMEM_BUFFERS))(*[layout[k] for k in SMEM_BUFFERS]),
+        first_piece=((ctypes.c_int * 2) * MAX_CLUSTER)(
+            *[(ctypes.c_int * 2)(*piece_rows[0, g, :2]) for g in range(cluster)]),
+        scale=dh ** -0.5,
+        w=(ctypes.c_void_p * len(_PACK_ORDER))(*[packed[k].data_ptr() for k in _PACK_ORDER]),
+        stages=stages.data_ptr(), pieces=pieces.data_ptr(), bias=bias.data_ptr())
+    return (stages, pieces, bias), cfg
+
+
 def _lib(name: str = "decode_step"):
     """The kernel's library: ``decode_step`` (no prenet dropout) or
     ``decode_step_dropout`` (the same source instantiated with it)."""
@@ -638,34 +822,16 @@ class DecodeStep:
         d, d_ffn = n_heads * dh, packed["W1"].shape[1]
         n_mels, d_out = packed["pw1"].shape[1], packed["head_w"].shape[0]
         is_bf16 = int(packed["pw1"].dtype == torch.bfloat16)
-        cluster, rows, (stage_rows, piece_rows, layout) = card_plan(
+        cluster, rows, plan = card_plan(
             n_layers, d, d_ffn, n_mels, d_out, b, n_heads, n_pos, tp, packed["pw1"].dtype)
-        # each rank's rows contiguous, for one bulk copy each
-        self._stages = torch.from_numpy(stage_rows.transpose(1, 0, 2).copy()).to(dev)
-        self._pieces = torch.from_numpy(piece_rows.transpose(1, 0, 2).copy()).to(dev)
-        self._bias = bias_table(stage_biases(packed, n_layers), stage_rows, piece_rows,
-                                layout["n_bias"]).to(dev)
+        self._plan, self._cfg = _launch_config(plan, packed, cluster, b, rows, n_heads, n_pos, tp)
         self.y = torch.empty((b, d_out), dtype=torch.float32, device=dev)
         self.k_new = torch.empty((n_layers, n_heads, b, dh), dtype=self_k.dtype, device=dev)
         self.v_new = torch.empty_like(self.k_new)
         self.pos = torch.empty((b, 1), dtype=torch.float32, device=dev) if with_attn_pos else None
-        cross_chunk, cross_nc = attn_chunks(tp, rows, n_heads, cluster)
         self._self_chunks = [attn_chunks(t, rows, n_heads, cluster) for t in range(n_pos)]
-        self.layout, self.rows, self.cluster = layout, rows, cluster
+        self.layout, self.rows, self.cluster = plan[2], rows, cluster
         self.blocks = b // rows * cluster
-        self._cfg = _StepConfig(
-            cluster=cluster, B=b, R=rows, L=n_layers, H=n_heads, dh=dh, F=d_ffn, n_mels=n_mels, d_out=d_out,
-            n_pos=n_pos, tp=tp, cross_chunk=cross_chunk, cross_nc=cross_nc,
-            nc_max=chunks_max(rows, n_heads, cluster), max_keys=max(n_pos, tp),
-            n_pieces=piece_rows.shape[0], n_bias=layout["n_bias"],
-            smem_bytes=layout["smem_bytes"],
-            off=(ctypes.c_int * len(SMEM_BUFFERS))(*[layout[k] for k in SMEM_BUFFERS]),
-            first_piece=((ctypes.c_int * 2) * MAX_CLUSTER)(
-                *[(ctypes.c_int * 2)(*piece_rows[0, g, :2]) for g in range(cluster)]),
-            scale=dh ** -0.5,
-            w=(ctypes.c_void_p * len(_PACK_ORDER))(*[packed[k].data_ptr() for k in _PACK_ORDER]),
-            stages=self._stages.data_ptr(), pieces=self._pieces.data_ptr(),
-            bias=self._bias.data_ptr())
         self._keep = (self_k, self_v, cross_k, cross_v, packed)  # the pointers stay valid
         self._is_bf16 = is_bf16
         self._fixed = (self_k.data_ptr(), self_v.data_ptr(), cross_k.data_ptr(),
@@ -720,6 +886,154 @@ class DecodeStep:
         """Room for one call's stamps: per block the kernel's start, the
         arrival at and release from each cluster barrier, and its end."""
         return torch.zeros((self.blocks, 6 + 20 * self._shape[0]), dtype=torch.int64,
+                           device=self.y.device)
+
+
+def verify_plan(n_layers: int, d: int, d_ffn: int, n_mels: int, d_out: int, k: int, r: int,
+                n_heads: int, cap: int, tp: int, itemsize: int) -> tuple:
+    """``decode_plan`` of the verify kernel: one cluster of ``CLUSTER``
+    blocks whose rows are the K positions of a pass, over a cache of ``cap``
+    positions.  Raises for a K or a head the kernel does not take, and with
+    the plan's message when the plan does not fit a block."""
+    if not 2 <= k <= MAX_BATCH or d_out != r * (n_mels + 1) or d_out > max(d, d_ffn):
+        raise ValueError(f"decode_verify kernel takes 2 <= K <= {MAX_BATCH} and a head of "
+                         f"r (n_mels + 1) <= max(d_model, d_ffn) columns; got K={k}, "
+                         f"d_out={d_out}, r={r}")
+    return decode_plan(n_layers, d, d_ffn, n_mels, d_out, k, n_heads, cap, tp, itemsize, CLUSTER)
+
+
+def _verify_lib():
+    """The verify kernel's library (``ops/csrc/decode_step_verify.cu``)."""
+    from transformertts_tpu_torch import _build
+
+    lib = _build.load("decode_step_verify")
+    if not getattr(lib, "_argtypes_set", False):
+        i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+        lib.tts_decode_verify.argtypes = [p, i, i, i, i] + [p] * 14 + [f, f, i, i, p, p]
+        lib.tts_decode_verify.restype = i
+        lib.tts_decode_step_config_bytes.restype = ctypes.c_long
+        if lib.tts_decode_step_config_bytes() != ctypes.sizeof(_StepConfig):
+            raise RuntimeError("decode_verify: _StepConfig does not mirror the CUDA Config")
+        lib._argtypes_set = True
+    return lib
+
+
+class DecodeVerify:
+    """The verify pass of speculative decoding for one utterance, prepared
+    once per decode for fixed caches, weights and buffers.
+
+        verify = DecodeVerify(self_k, self_v, cross_k, cross_v, packed, cross_bias,
+                              pe_table, frames, stops, k=K, r=r, n_pos=n_pos, tau=tau,
+                              stop_threshold=threshold, linear=True)
+        code = verify(t)  # (1,) int32 on the device: 2 m + vote
+
+    ``self_k`` / ``self_v`` (L, H, 1, n_pos + K, dh) and ``cross_k`` /
+    ``cross_v`` (L, H, 1, Tp, dh) in the kernel's layout, ``cross_bias``
+    (1, Tp) fp32, ``pe_table`` (>= n_pos + K - 1, D) fp32 alpha * PE,
+    ``frames`` (n_pos r + 1, n_mels) fp32 with the go frame at 0 and
+    ``stops`` (n_pos r,) fp32: the decode's buffers of this utterance, which
+    the pass writes (the accepted m groups' frames and stop logits) as it
+    writes the caches (rows t .. t + K - 1).  ``y``, ``k_new``, ``v_new``
+    hold the last pass's outputs (as ``decode_verify_reference``'s).
+
+    On CUDA tensors each call is one C call and one launch of the verify
+    kernel, or it raises: it never falls back.  2 <= K <= 8, and the
+    kernel's plan must fit a block (``decode_plan(rows=K)``: at
+    ``configs/paper.yaml`` widths K <= 4).  On CPU tensors the call runs
+    ``verify_pass_reference``.  ``launches`` counts this pass's launches,
+    ``DecodeVerify.launches_total`` every instance's."""
+
+    launches_total = 0
+
+    def __init__(self, self_k, self_v, cross_k, cross_v, packed, cross_bias, pe_table, frames,
+                 stops, *, k: int, r: int, n_pos: int, tau: float, stop_threshold: float,
+                 linear: bool = True):
+        n_layers, n_heads, _, cap, dh = self_k.shape
+        tp, dev = cross_k.shape[3], self_k.device
+        d, d_ffn = n_heads * dh, packed["W1"].shape[1]
+        n_mels, d_out = packed["pw1"].shape[1], packed["head_w"].shape[0]
+        if cap < n_pos + k - 1 or pe_table.shape[0] < n_pos + k - 1:
+            raise ValueError(f"decode_verify: a cache of {cap} positions and a PE table of "
+                             f"{pe_table.shape[0]} rows cannot take K={k} from t={n_pos - 1}")
+        if frames.shape[0] < n_pos * r + 1 or stops.shape[0] < n_pos * r:
+            raise ValueError(f"decode_verify: buffers of {frames.shape[0]} frames and "
+                             f"{stops.shape[0]} stops are short of n_pos={n_pos} groups of {r}")
+        self.k, self.r, self.n_pos, self.linear = k, r, n_pos, linear
+        self.tau, self.stop_threshold = float(np.float32(tau)), float(np.float32(stop_threshold))
+        self._args = (self_k, self_v, cross_k, cross_v, packed, cross_bias, pe_table, frames, stops)
+        self.launches = 0
+        self.y = self.k_new = self.v_new = None
+        if dev.type == "cpu":
+            return
+        _check_fixed_args(self_k, self_v, cross_k, cross_v, packed)
+        _check_tensors({"cross_bias": (cross_bias, torch.float32, (1, tp)),
+                        "pe_table": (pe_table, torch.float32, (pe_table.shape[0], d)),
+                        "frames": (frames, torch.float32, (frames.shape[0], n_mels)),
+                        "stops": (stops, torch.float32, (stops.shape[0],))}, dev)
+        plan = verify_plan(
+            n_layers, d, d_ffn, n_mels, d_out, k, r, n_heads, cap, tp, packed["pw1"].element_size())
+        lib = _verify_lib()
+        # B = 1: the caches' one row, which every row of the pass reads
+        self._plan, self._cfg = _launch_config(plan, packed, CLUSTER, 1, k, n_heads, cap, tp)
+        self.y = torch.empty((k, d_out), dtype=torch.float32, device=dev)
+        self.k_new = torch.empty((n_layers, n_heads, k, dh), dtype=self_k.dtype, device=dev)
+        self.v_new = torch.empty_like(self.k_new)
+        self.code = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self._self_chunks = [attn_chunks(t, k, n_heads, CLUSTER) for t in range(n_pos)]
+        self.layout = plan[2]
+        self._is_bf16 = int(packed["pw1"].dtype == torch.bfloat16)
+        self._row = n_mels * 4  # bytes of a frame
+        self._d4 = d * 4  # bytes of a PE row
+        self._ptr = (frames.data_ptr(), stops.data_ptr(), pe_table.data_ptr())
+        self._fixed = (cross_bias.data_ptr(), self_k.data_ptr(), self_v.data_ptr(),
+                       cross_k.data_ptr(), cross_v.data_ptr(), self.y.data_ptr(),
+                       self.k_new.data_ptr(), self.v_new.data_ptr())
+        self._call = lib.tts_decode_verify
+        self._shape = (n_layers, n_heads, dh, d_ffn, tp)
+
+    def __call__(self, t: int, timeline=None) -> torch.Tensor:
+        """The pass at position t: (1,) int32 2 m + vote, on the device.
+        ``timeline``: a tensor from ``timeline_buffer`` that the kernel fills
+        with global-timer stamps (``stage_times`` reads it)."""
+        if not 0 <= t < self.n_pos:
+            raise ValueError(f"t={t} outside the decode's {self.n_pos} positions")
+        k, r = self.k, self.r
+        if self._args[0].device.type == "cpu":
+            out = verify_pass_reference(
+                t, *self._args, k=k, r=r, n_pos=self.n_pos, tau=self.tau,
+                stop_threshold=self.stop_threshold, linear=self.linear)
+            self.y, self.k_new, self.v_new = out[1:]
+            return out[0]
+        frames, stops, pe = self._ptr
+        f0 = frames + t * r * self._row
+        prev = f0 - r * self._row if self.linear and t > 0 else f0
+        chunk, nc = self._self_chunks[t]
+        cb, sk, sv, ck, cv, y, kn, vn = self._fixed
+        rc = self._call(
+            ctypes.byref(self._cfg), self._is_bf16, t, chunk, nc, f0, prev, pe + t * self._d4,
+            cb, sk, sv, ck, cv, y, kn, vn, f0 + self._row, stops + t * r * 4,
+            self.code.data_ptr(), self.tau, self.stop_threshold, self.n_pos - t, r,
+            timeline.data_ptr() if timeline is not None else None,
+            _current_stream(self.y.device))
+        if rc != 0:
+            n_layers, n_heads, dh, d_ffn, tp = self._shape
+            raise RuntimeError(
+                f"decode_verify kernel refused or failed to launch (CUDA error {rc}) for "
+                f"K={k}, L={n_layers}, H={n_heads}, dh={dh}, d_ffn={d_ffn}, "
+                f"n_pos={self.n_pos}, Tp={tp}, t={t}")
+        DecodeVerify.launches_total += 1
+        self.launches += 1
+        return self.code
+
+    def stages(self, t: int) -> list:
+        """``step_stages`` of a pass at position t, then the acceptance."""
+        return step_stages(self._shape[0], self._self_chunks[t][1], self._cfg.cross_nc) + [
+            "accept"]
+
+    def timeline_buffer(self) -> torch.Tensor:
+        """Room for one pass's stamps (a step's and two for the acceptance's
+        barrier, per block)."""
+        return torch.zeros((CLUSTER, 8 + 20 * self._shape[0]), dtype=torch.int64,
                            device=self.y.device)
 
 
