@@ -137,7 +137,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     the B = 1 kernel.  It prints per epoch the audio-s/s, the median ms per
     optimizer step, the share of the epoch blocked on the loader, the
     validation and checkpoint times, and the restore time;
-13. time: the decode-step kernel beside its plain version and its bound
+13. parallel: data, tensor and sequence parallelism (``parallel/``).
+    ``configs/large_tp.yaml`` at full width (d_model 1,024, 16 heads, d_ffn
+    4,096, 6 + 6 layers), seeded weights, bf16, one micro-batch of 16 rows
+    at 768 frames, dropout, scheduled sampling and guided attention on: one
+    optimizer step in one process, then the same step in two processes on
+    the one card at (1 data x 2 model) with sequence parallelism (gloo with
+    CUDA tensors: NCCL refuses two ranks on one device); the loss, grad norm,
+    every gradient (Adam's first moment) and every parameter after the step
+    within bf16's ``TRAIN_TOL``, and the flash and LN launch counts of each
+    rank what the path implies (8 heads, 6,144 decoder rows a rank); each
+    step's ms per step (2 timed steps); then ``entry.dryrun_multichip`` over
+    NCCL on every card, and rows 3-8 at PERF.md's shapes at offset 0 and at
+    a shard's mask offsets, in turns;
+14. time: the decode-step kernel beside its plain version and its bound
     at ``Config()`` and ``paper.yaml`` widths, with the host's time per eager
     call and the kernel's time by stage (its global-timer stamps), at the
     serving shape also with prenet dropout 0.5, and decode frames/s through
@@ -145,7 +158,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     2, 4, 8; K 4 at ``paper.yaml``) beside the step's, its plain version's
     and its bound, and ``Synthesizer.synthesize``'s frames/s at B = 1 with K
     = 4 at tau 0, 1e9 and the default between two sequential runs;
-14. time-train: every training and preprocessing kernel beside its plain
+15. time-train: every training and preprocessing kernel beside its plain
     version, its bound and (where PyTorch has a call or a short chain of
     calls for the same function) that (flash, the LN and the FFN kernels
     also at dropout 0, and flash's host time per eager call; the FFN forward
@@ -183,7 +196,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, published
 ALL_PHASES = ("build", "mask", "kernel", "decode", "serve", "stream", "spec", "train-parity",
-              "train", "preprocess", "train-ffn", "trainer", "time", "time-train")
+              "train", "preprocess", "train-ffn", "trainer", "parallel", "time", "time-train")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max|kernel - plain| / max(1, max|plain|)
 # kernel loop vs plain loop, fp32, 64 fed-back frames: as the CPU test of the
 # port against the JAX loop; the H100 showed at most 1.2e-6 relative
@@ -1162,6 +1175,51 @@ def phase_decode(cfg, device) -> None:
                                      f"{growth})")
         log(f"[decode] fp32 B=2 64 frames W={window} prenet dropout {rate}: " + ", ".join(msg)
             + f"; pred_melspec gap by 16 frames {growth}")
+    check_naive_decode(device)
+
+
+NAIVE_FRAMES = 32
+
+
+def check_naive_decode(device) -> None:
+    """The kernel decode at ``large_tp.yaml`` widths (d_model 1,024, 16
+    heads, d_ffn 4,096, 6 layers), fp32, B = 1 and 8, against the cacheless
+    ``naive_decode`` over 32 fed-back frames, within ``DECODE_TOL``; logs the
+    cluster plan the kernel took (``card_plan``)."""
+    import torch
+
+    from transformertts_tpu_torch.infer.decode import make_decode_fn, naive_decode
+    from transformertts_tpu_torch.ops import decode_step
+
+    cfg = large_tp_config()
+    model = make_model(cfg, torch.float32, device, seed=4)
+    rng = np.random.default_rng(8)
+    for b in (1, 8):
+        phoneme = rng.integers(1, 70, (b, 64))
+        lens = rng.integers(32, 65, b)
+        lens[0] = 64
+        kern = make_decode_fn(model, cfg, max_len=NAIVE_FRAMES, stop_threshold=2.0,
+                              device=device)(phoneme, lens)
+        naive = naive_decode(model, phoneme, lens, NAIVE_FRAMES, stop_threshold=2.0)
+        if not kern["n_frames"] == naive["n_frames"] == NAIVE_FRAMES:
+            raise AssertionError(f"large_tp B={b}: frame counts {kern['n_frames']} / "
+                                 f"{naive['n_frames']}")
+        msg = []
+        for k in ("pred_melspec", "pred_stop", "post_melspec"):
+            err, rel = rel_err(kern[k], naive[k])
+            msg.append(f"{k} {err:.2e} (rel {rel:.1e})")
+            if not rel <= DECODE_TOL:
+                raise AssertionError(f"large_tp B={b}: kernel decode != naive_decode on {k}: "
+                                     f"{rel:.3g}")
+        m = cfg.model
+        plans = [decode_step.card_plan(m.decoder_n_layers, m.d_model, m.decoder_d_ffn, m.n_mels,
+                                       m.n_mels * m.reduction_factor + m.reduction_factor, b,
+                                       m.decoder_n_head, n_pos, 64, dtype)[:2]
+                 for n_pos, dtype in ((NAIVE_FRAMES, torch.float32),
+                                      (SERVE_MAX_LEN, torch.bfloat16))]
+        log(f"[decode] large_tp.yaml fp32 B={b} {NAIVE_FRAMES} frames, kernel decode vs "
+            f"naive_decode: {', '.join(msg)}; (blocks a cluster, rows a cluster): {plans[0]} "
+            f"(bf16 at {SERVE_MAX_LEN} positions: {plans[1]})")
 
 
 def _post(url: str, body: dict) -> tuple[int, bytes]:
@@ -1366,7 +1424,7 @@ def phase_stream(device, root, card: str) -> dict:
     import torch
 
     from transformertts_tpu_torch import cli
-    from transformertts_tpu_torch.entry import dryrun_multichip, entry
+    from transformertts_tpu_torch.entry import entry
     from transformertts_tpu_torch.infer import Synthesizer
     from transformertts_tpu_torch.models import TransformerTTS
     from transformertts_tpu_torch.ops.decode_step import decode_step
@@ -1427,11 +1485,6 @@ def phase_stream(device, root, card: str) -> dict:
     got = {k: tuple(v.shape) for k, v in out.items()}
     if got != want or not all(torch.isfinite(v).all() for v in out.values()):
         raise AssertionError(f"entry(): {got}")
-    try:
-        dryrun_multichip(4)
-        raise AssertionError("dryrun_multichip did not raise")
-    except NotImplementedError:
-        pass
     log(f"[stream] entry(): the flagship forward gives {got}")
     return launches
 
@@ -2510,6 +2563,249 @@ def phase_trainer(device, root, card: str) -> dict:
     return launches
 
 
+PARALLEL_SEED, PARALLEL_TIMED = 7, 2  # weights; timed steps after the checked one
+# (1 x 2) + SP against one process, bf16: the loss and the norm relative; a
+# gradient (Adam's first moment after one step) as the norm of its error
+# against its own norm, with a floor of 1e-3 of the global norm for tensors
+# whose true gradient is (near) zero, such as the key-projection biases
+PARALLEL_TOL, PARALLEL_GRAD_FLOOR = TRAIN_TOL["bfloat16"][1], 1e-3
+
+
+def large_tp_config(**runtime):
+    """``configs/large_tp.yaml``: d_model 1,024, 16 heads, d_ffn 4,096, 6 + 6
+    layers, bf16, guided attention, ``mesh_model: 2``."""
+    import dataclasses
+    from pathlib import Path
+
+    from transformertts_tpu_torch.config import load_config
+
+    cfg = load_config(Path(__file__).resolve().parent / "configs" / "large_tp.yaml")
+    return cfg.replace(runtime=dataclasses.replace(cfg.runtime, **runtime))
+
+
+def parallel_batch() -> dict:
+    """One micro-batch of 16 rows at 768 mel frames and 128 phonemes."""
+    return synthetic_batch(np.random.default_rng(21), 1, TRAIN_B)
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def parallel_run(model, cfg, state, batch, timed: int) -> dict:
+    """The checked step (counts from 0), then ``timed`` more: metrics, the
+    launches of the checked step, ms per timed step, and the whole tensors."""
+    import torch
+
+    from transformertts_tpu_torch.parallel.mesh import gather_state
+    from transformertts_tpu_torch.train import make_train_step
+
+    step = make_train_step(model, cfg)
+    zero_train_counters()
+    state, metrics = step(state, batch, 0.5, torch.Generator().manual_seed(9))
+    sync(model.device)
+    counts = train_counters()
+    whole = gather_state(state)
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "launches": counts,
+           "model": {k: v.to("cpu", torch.float32, copy=True) for k, v in whole["model"].items()},
+           "mu": {k: v.to("cpu", copy=True) for k, v in whole["mu"].items()}}
+    t0 = time.perf_counter()
+    for i in range(timed):
+        state, _ = step(state, batch, 0.5, torch.Generator().manual_seed(10 + i))
+    sync(model.device)
+    out["step_ms"] = 1e3 * (time.perf_counter() - t0) / max(timed, 1)
+    return out
+
+
+def _parallel_worker(rank: int, port: int, out_dir: str, device_type: str, cfg, batch) -> None:
+    """One of the two processes of the (1 x 2) + SP step on the one card
+    (gloo with CUDA tensors: NCCL refuses two ranks on one device)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from transformertts_tpu_torch.parallel import collectives, make_mesh, shard_batch, shard_state
+    from transformertts_tpu_torch.train import create_train_state
+
+    device = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    try:
+        cfg = cfg.replace(runtime=dataclasses.replace(cfg.runtime, shard_sequence=True))
+        mesh = make_mesh(1, 2)
+        model = train_model(cfg, device, seed=PARALLEL_SEED)
+        state = shard_state(create_train_state(model, cfg), mesh, shard_sequence=True)
+        batch = shard_batch(batch, mesh, shard_sequence=True)
+        out = parallel_run(model, cfg, state, batch, PARALLEL_TIMED)
+        out["staged"] = sorted(collectives.STAGED)
+        if rank:
+            out = {k: out[k] for k in ("launches", "step_ms", "staged")}
+        torch.save(out, f"{out_dir}/parallel_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def check_parallel(got: dict, ref: dict) -> str:
+    """The sharded step against the one-process step; the worst ratios."""
+    for name in ("total", "grad_norm", "pred_mel", "post_mel", "stop", "guided_attn"):
+        rel = abs(got["metrics"][name] - ref["metrics"][name]) / max(abs(ref["metrics"][name]),
+                                                                     1e-12)
+        if not rel <= PARALLEL_TOL:
+            raise AssertionError(f"parallel: {name} sharded {got['metrics'][name]} != one "
+                                 f"process {ref['metrics'][name]} ({rel:.3g} relative)")
+    floor = PARALLEL_GRAD_FLOOR * 0.1 * ref["metrics"]["grad_norm"]  # mu = 0.1 * gradient
+    worst = (0.0, "")
+    for name, want in ref["mu"].items():
+        ratio = float((got["mu"][name] - want).norm()) / max(float(want.norm()), floor)
+        worst = max(worst, (ratio, name))
+        if not ratio <= PARALLEL_TOL:
+            raise AssertionError(f"parallel: gradient of {name} off by {ratio:.3g} of its norm")
+    p_err = max(rel_err(got["model"][k], v)[1] for k, v in ref["model"].items())
+    if not p_err <= PARALLEL_TOL:
+        raise AssertionError(f"parallel: a parameter after the step off by {p_err:.3g}")
+    return (f"worst gradient {worst[0]:.2e} of its norm ({worst[1]}), parameters and "
+            f"BatchNorm statistics after the step within {p_err:.1e}")
+
+
+def time_mask_offsets(device, card: str) -> None:
+    """Rows 3-8 at PERF.md's shapes (bf16, p 0.1): each kernel at a shard's
+    mask offsets against its plain version at the same offsets (the
+    kernel phase holds offset 0), then device time per call at offset 0
+    (the one-device call) and at the shard's offsets, in turns (0, offset,
+    offset, 0): the offsets change only integers of the mask."""
+    import torch
+
+    from transformertts_tpu_torch.ops import flash_attention as fa
+    from transformertts_tpu_torch.ops import fused_ffn as ffn
+    from transformertts_tpu_torch.ops import fused_ln as ln
+
+    dtype, p = torch.bfloat16, 0.1
+    b, h, dh, d, f = TRAIN_B, TRAIN_H, TRAIN_DH, TRAIN_D, TRAIN_F
+    q, k, v, dout, bias = attn_inputs(b, h, 768, 768, dh, dtype, device, seed=5)
+    fargs = (dh ** -0.5, True, p, fa.pick_block(768, 768))
+    out, m, l = fa.flash_forward(q, k, v, bias, 99, *fargs)
+    n = LN_ROWS["decoder"]
+    x, hh, g, be, dy = ln_inputs(n, d, dtype, device, seed=6)
+    rows_ln = ln.pick_rows(n, d)
+    fx, w1, b1, w2, b2, fdy = ffn_inputs(n, d, f, dtype, device, seed=7)
+    rows_ffn = ffn.pick_rows(n, d, f, 2)
+    # a shard of twice the batch, heads, rows and d_ffn
+    shard = {"flash": {"mask_bh": (b, 2 * h, h)},
+             "ln": {"row_map": (768, 1536, b * 1536 + 768)},
+             "ffn": {"row_map": (768, 768, n), "col_map": (2 * f, f)}}
+    calls = {
+        "flash_fwd": lambda o: fa.flash_forward(q, k, v, bias, 99, *fargs, **o.get("flash", {})),
+        "flash_bwd": lambda o: fa.flash_backward(q, k, v, bias, 99, out, dout, m, l, *fargs,
+                                                 **o.get("flash", {})),
+        "ln_fwd": lambda o: ln.fused_ln_forward(x, hh, g, be, 99, p, 1e-5, rows_ln,
+                                                **o.get("ln", {})),
+        "ln_bwd": lambda o: ln.fused_ln_backward(x, hh, g, dy, 99, p, 1e-5, rows_ln,
+                                                 **o.get("ln", {})),
+        "ffn_fwd": lambda o: ffn.fused_ffn_forward(fx, w1, b1, w2, b2, 99, p, rows_ffn,
+                                                   **o.get("ffn", {})),
+        "ffn_bwd": lambda o: ffn.fused_ffn_backward(fx, w1, b1, w2, fdy, 99, p, rows_ffn,
+                                                    **o.get("ffn", {})),
+    }
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+    plain = {
+        "flash_fwd": lambda: [t(fa.flash_attention_reference(
+            t(q), t(k), t(v), bias, 99, *fargs, **shard["flash"])[0])],
+        "flash_bwd": lambda: [t(grad) for grad in fa.flash_attention_backward_reference(
+            t(q), t(k), t(v), bias, 99, t(out), t(dout), m, l, *fargs, **shard["flash"])],
+        "ln_fwd": lambda: [ln.residual_dropout_layernorm_reference(
+            x, hh, g, be, 99, p, 1e-5, rows_ln, **shard["ln"])],
+        "ln_bwd": lambda: ln.residual_dropout_layernorm_backward_reference(
+            x, hh, g, dy, 99, p, 1e-5, rows_ln, **shard["ln"]),
+        "ffn_fwd": lambda: [ffn.fused_ffn_reference(fx, w1, b1, w2, b2, 99, p, rows_ffn,
+                                                    **shard["ffn"])],
+        "ffn_bwd": lambda: ffn.fused_ffn_backward_reference(fx, w1, b1, w2, fdy, 99, p, rows_ffn,
+                                                            **shard["ffn"]),
+    }
+    # the kernel's forward under the shard's offsets: the same output as
+    # under its own only where the mask agrees, so the out, m, l the flash
+    # backward reads are the shard's
+    out, m, l = fa.flash_forward(q, k, v, bias, 99, *fargs, **shard["flash"])
+    for name, call in calls.items():
+        got = call(shard)
+        got = [got] if torch.is_tensor(got) else list(got)
+        if name == "flash_fwd":
+            got = got[:1]
+        errs = [rel_err(a, b)[1] for a, b in zip(got, plain[name]())]
+        if not max(errs) <= TOL["bfloat16"]:
+            raise AssertionError(f"{name} at shard offsets != its plain version: {errs}")
+        log(f"[parallel] {name} at shard offsets {shard[name.split('_')[0]]}: kernel vs plain "
+            f"at the same offsets, worst relative error {max(errs):.1e}")
+    out, m, l = fa.flash_forward(q, k, v, bias, 99, *fargs)
+    for name, call in calls.items():
+        times = [device_ms(lambda o=o: call(o), n=10, reps=5) for o in ({}, shard, shard, {})]
+        log(f"[parallel] {name} at PERF.md's shape, offset 0 / shard offsets / shard offsets / "
+            f"offset 0: " + " / ".join(f"{ms * 1e3:.1f}" for ms in times) + f" us [{card}]")
+
+
+def phase_parallel(device, root, card: str, cfg=None, batch=None) -> dict:
+    """DP / TP / SP on the card: the ``large_tp.yaml`` step at full width,
+    bf16, (1 x 2) + SP in two processes against the one-process step on the
+    same inputs; ``entry.dryrun_multichip`` over NCCL on every card; rows
+    3-8 at offset 0 and at shard offsets.  Returns the launch counts of the
+    sharded step (per rank) and the ms per step."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from transformertts_tpu_torch.entry import dryrun_multichip
+    from transformertts_tpu_torch.train import create_train_state
+
+    cfg = cfg or large_tp_config()
+    batch = batch or parallel_batch()
+    model = train_model(cfg, device, seed=PARALLEL_SEED)
+    ref = parallel_run(model, cfg, create_train_state(model, cfg), batch, PARALLEL_TIMED)
+    del model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.start_processes(_parallel_worker, args=(port, str(root), device.type, cfg, batch),
+                       nprocs=2, start_method="spawn")
+    runs = [torch.load(root / f"parallel_{r}.pt", weights_only=False) for r in (0, 1)]
+    note = check_parallel(runs[0], ref)
+    # two forwards and one backward; with guided attention the second
+    # forward's cross-attention keeps its weights (the plain path)
+    m = cfg.model
+    attn = m.encoder_n_layers + m.decoder_n_layers
+    ln_calls = 2 * m.encoder_n_layers + 3 * m.decoder_n_layers
+    want = {"flash_fwd": 2 * attn + m.decoder_n_layers, "flash_bwd": attn,
+            "ln_fwd": 2 * ln_calls, "ln_bwd": ln_calls, "ffn_fwd": 0, "ffn_bwd": 0}
+    for r, run in enumerate([ref, *runs]):
+        if device.type == "cuda" and run["launches"] != want:
+            raise AssertionError(f"parallel {'rank ' + str(r - 1) if r else 'one process'}: "
+                                 f"launches {run['launches']}, expected {want}")
+    b, t = batch["melspec"].shape[1:3]
+    log(f"[parallel] large_tp.yaml (d_model {m.d_model}, {m.encoder_n_head} heads, d_ffn "
+        f"{m.encoder_d_ffn}, {m.encoder_n_layers} + {m.decoder_n_layers} layers) "
+        f"{cfg.runtime.compute_dtype}, B={b} x {t} frames, (1 x 2) + SP over gloo: loss "
+        f"{runs[0]['metrics']['total']:.5f} vs one process {ref['metrics']['total']:.5f}, "
+        f"grad_norm {runs[0]['metrics']['grad_norm']:.4f} vs {ref['metrics']['grad_norm']:.4f}; "
+        f"{note}; flash / LN launches per rank {runs[0]['launches']} at "
+        f"{m.encoder_n_head // 2} heads and {b * t // 2} decoder rows; "
+        f"collectives staged through host memory: {runs[0]['staged'] or 'none'}")
+    log(f"[time] large_tp.yaml step (1 micro-batch of {b} rows): one process "
+        f"{ref['step_ms']:.1f} ms, (1 x 2) + SP ranks {runs[0]['step_ms']:.1f} / "
+        f"{runs[1]['step_ms']:.1f} ms (two processes on one card, gloo) [{card}]")
+    if device.type == "cuda":
+        dryrun_multichip(torch.cuda.device_count())
+        time_mask_offsets(device, card)
+    return {"launches": [run["launches"] for run in runs], "ref_ms": ref["step_ms"],
+            "step_ms": [run["step_ms"] for run in runs]}
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
@@ -2843,6 +3139,10 @@ def main(argv=None) -> int:
     if "trainer" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_") as tmp:
             trainer = phase_trainer(device, Path(tmp), card)
+    parallel = {}
+    if "parallel" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+            parallel = phase_parallel(device, Path(tmp), card)
     if train and train_ffn and timed:
         log(f"[time] train step, fused FFN off / on: {train['step_ms']:.1f} / "
             f"{train_ffn['step_ms']:.1f} ms [{card}]")
@@ -2920,6 +3220,8 @@ def main(argv=None) -> int:
             "max_abs_err": max_err, "ms": ms, "plain_ms": plain, "bound_ms": bound,
             "bound_by": by, "library_ms": lib,
             "launches_trainer": on_trainer[count or "log_mel"],
+            # the (1 x 2) + SP step of large_tp.yaml, both ranks
+            "launches_parallel": sum(r[count] for r in parallel["launches"]) if count else 0,
             "shapes": {shape: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), r))
                        for (kern, shape), r in train_rows.items() if kern == kernel},
         })
@@ -2930,6 +3232,8 @@ def main(argv=None) -> int:
         raise AssertionError("a kernel of the trainer path was launched no time on it")
     if any(k.get("launches_stream", 1) <= 0 for k in kernels):
         raise AssertionError("the decode step was launched no time on the streaming path")
+    if any(k.get("launches_parallel", 1) <= 0 for k in kernels if k["name"][:3] in ("fla", "ln_")):
+        raise AssertionError("flash or LN was launched no time on the sharded path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -208,15 +208,18 @@ def test_cli_synthesize_writes_a_wav(trained, tmp_path, capsys):
     assert "wrote 16 frames" in capsys.readouterr().out
 
 
-def test_cli_refuses_unported_verbs(trained, tmp_path, capsys):
-    """``train --distributed`` raises; ``serve`` is ported
-    (tests/test_torch_streaming.py) and serves."""
+def test_cli_refuses_unported_verbs(trained, tmp_path, capsys, monkeypatch):
+    """``serve`` is ported (tests/test_torch_streaming.py) and serves;
+    ``train --distributed`` is ported (tests/test_torch_parallel.py) and,
+    outside torchrun's environment, exits naming what is missing."""
     overrides, run, _ = trained
     (tmp_path / "none.txt").write_text("\n")
     cli.main(["serve", "--ckpt", str(run / "checkpoints"), "--device", "cpu",
               "--input", str(tmp_path / "none.txt"), "--out-dir", str(tmp_path / "out"),
               *[a for o in overrides for a in ("--set", o)]])
     assert "served 0 utterances" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    for name in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(SystemExit, match="torchrun's environment; RANK, WORLD_SIZE"):
         cli.main(["train", "--distributed", "--device", "cpu",
                   *[a for o in overrides for a in ("--set", o)]])

@@ -21,10 +21,12 @@ import pytest
 
 from tests.test_torch_models import assert_close, configs, jax_model_and_variables, port_model
 from transformertts_tpu.infer.decode import make_decode_fn as jax_make_decode_fn
-from transformertts_tpu_torch.infer.decode import make_decode_fn
+from transformertts_tpu.infer.decode import naive_decode as jax_naive_decode
+from transformertts_tpu_torch.infer.decode import make_decode_fn, naive_decode
 
 TOL = 1e-4
 FRAMES = 12  # decoded frames per row when the stop never fires
+NAIVE_FRAMES = 6  # the cacheless JAX loop compiles once per group
 
 
 def _inputs(b):
@@ -76,6 +78,33 @@ def test_decode_early_stop(use_kernel):
     out = _check(1, 0, 1, 0.0, use_kernel)
     assert out["n_frames"] == 1
     assert not out["pred_melspec"][:, 1:].any()  # frames past n_frames stay zero
+
+
+@pytest.mark.parametrize("threshold", [2.0, 0.5])
+@pytest.mark.parametrize("r", [1, 2])
+def test_naive_decode_matches_jax_and_the_cached_loop(r, threshold):
+    """The cacheless oracle (the reference's loop) against the JAX
+    ``naive_decode`` and the port's cached plain loop: fp32, 1e-5 (one
+    decoder over a prefix is the same arithmetic as the cached steps, up to
+    summation order); equal frame counts.  The postnet (kernel 5) sees the
+    cached loop's zero frames past an early stop, so the postnet frames are
+    compared with the cached loop's only at full length."""
+    jcfg, pcfg = configs(r)
+    jmodel, variables = jax_model_and_variables(jcfg)
+    phoneme, lens = _inputs(2)
+    frames = NAIVE_FRAMES * r
+    ref = jax.device_get(jax_naive_decode(jmodel, variables, phoneme, lens, frames, threshold))
+    model = port_model(pcfg, variables)
+    out = naive_decode(model, phoneme, lens, frames, threshold)
+    n = out["n_frames"]
+    assert n == int(ref["n_frames"]) and (threshold < 1.0 or n == frames)
+    for k in ("pred_melspec", "post_melspec", "pred_stop"):
+        assert_close(out[k], ref[k], 1e-5, k)
+    cached = make_decode_fn(model, pcfg, max_len=frames, stop_threshold=threshold,
+                            use_kernel=False, device="cpu")(phoneme, lens)
+    assert cached["n_frames"] == n
+    for k in ("pred_melspec", "pred_stop") + (("post_melspec",) if n == frames else ()):
+        assert_close(out[k], cached[k][:, :n], 1e-5, k)
 
 
 def test_decode_rejects_unported_options():

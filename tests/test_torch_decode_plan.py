@@ -134,6 +134,21 @@ def test_ring_and_buffers_fit(widths, b):
                 spans.append((i, off, off + nbytes))
 
 
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("cluster", [16, 12, 8])
+def test_plan_takes_large_tp_widths(cluster, itemsize):
+    """``configs/large_tp.yaml``'s decoder (d_model 1,024, 16 heads, d_ffn
+    4,096, 6 layers), one row a cluster: fp32 needs 682 weight pieces a
+    block in clusters of 16 and 1,364 in clusters of 8, which the cap of 512
+    pieces refused (the fp32 decode of ``cli synthesize`` at these widths
+    raised on the GPU); the table fits the block's shared memory."""
+    stage_rows, piece_rows, layout = decode_plan(6, 1024, 4096, 80, 81, 1, 16, 400, 64,
+                                                 itemsize, cluster)
+    assert layout["smem_bytes"] <= SMEM_LIMIT and piece_rows.shape[0] <= MAX_PIECES
+    if itemsize == 4:
+        assert piece_rows.shape[0] == {16: 682, 12: 919, 8: 1364}[cluster]
+
+
 def test_ring_placement_refills():
     """A ring that holds two of three pieces: the third waits for the first."""
     assert ring_placement([100, 100, 100], 208) == [(0, -1), (100, -1), (0, 0)]

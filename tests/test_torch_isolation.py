@@ -4,6 +4,7 @@ bridge refuses trees that do not fit the model."""
 
 import ast
 import copy
+import importlib
 import os
 import subprocess
 import sys
@@ -31,6 +32,49 @@ def _imports(path: Path):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             yield node.module
+
+
+def _imported_names(path: Path) -> list:
+    return [a.asname or a.name for node in ast.walk(ast.parse(path.read_text(), str(path)))
+            if isinstance(node, ast.ImportFrom) for a in node.names]
+
+
+# every __init__.py of the JAX package that exports names, but ``native``
+# (the threaded C++ npz reader: ROADMAP Queue 1 item 9, gated on a measurement)
+EXPORTING = [p for p in sorted((ROOT / "transformertts_tpu").rglob("__init__.py"))
+             if _imported_names(p) and p.parent.name != "native"]
+# counterparts under another name or module: a name that says its framework,
+# and the Pallas kernels' entries, whose CUDA counterparts live in ``ops/``
+COUNTERPART = {
+    ("transformertts_tpu.dsp", "mel_spectrogram_jax"):
+        ("transformertts_tpu_torch.dsp", "mel_spectrogram_torch"),
+    ("transformertts_tpu.ops.pallas", "flash_attention"):
+        ("transformertts_tpu_torch.ops.flash_attention", "flash_attention"),
+    ("transformertts_tpu.ops.pallas", "log_mel_pallas"):
+        ("transformertts_tpu_torch.ops.stft", "log_mel"),
+}
+
+
+@pytest.mark.parametrize("init", EXPORTING, ids=lambda p: str(p.parent.relative_to(ROOT)))
+def test_port_exports_what_the_jax_package_exports(init):
+    """Each name a JAX ``__init__.py`` imports can be imported from the
+    port's counterpart package (``COUNTERPART``: from another module or under
+    another name)."""
+    jax_mod = ".".join(init.parent.relative_to(ROOT).parts)
+    missing = []
+    for name in _imported_names(init):
+        default = (jax_mod.replace("transformertts_tpu", "transformertts_tpu_torch", 1), name)
+        module, port_name = COUNTERPART.get((jax_mod, name), default)
+        if not hasattr(importlib.import_module(module), port_name):
+            missing.append(f"{module}.{port_name}")
+    assert not missing, f"the port lacks {missing}"
+
+
+def test_the_jax_packages_exporting_are_found():
+    names = {str(p.parent.relative_to(ROOT)) for p in EXPORTING}
+    assert {"transformertts_tpu", "transformertts_tpu/infer", "transformertts_tpu/parallel",
+            "transformertts_tpu/train", "transformertts_tpu/models"} <= names
+    assert "transformertts_tpu/native" not in names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))

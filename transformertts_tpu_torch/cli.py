@@ -6,9 +6,12 @@
   python -m transformertts_tpu_torch.cli serve --ckpt DIR [--wav] [--input lines.txt]
   python -m transformertts_tpu_torch.cli serve-http --ckpt DIR
 
-Every verb runs on the GPU unless ``--device cpu`` names the CPU.  Not
-ported yet: multi-process training (``train --distributed``, ROADMAP
-Queue 1 item 6); it raises.
+Every verb runs on the GPU unless ``--device cpu`` names the CPU.
+``train --distributed`` (or ``TTS_DISTRIBUTED`` set) trains one process per
+device over the mesh of ``runtime.mesh_data`` / ``mesh_model``, started by
+torchrun (``torchrun --nproc-per-node N -m transformertts_tpu_torch.cli
+train --distributed ...``): NCCL with ``cuda:LOCAL_RANK``, or gloo with
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -25,19 +28,61 @@ def _add_common(p):
                    help="torch device (default: the GPU; 'cpu' runs on the CPU)")
 
 
+def _init_distributed(device) -> None:
+    """``init_process_group`` from torchrun's environment: NCCL on
+    ``cuda:LOCAL_RANK``, gloo when the device is the CPU."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    missing = [k for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+               if k not in os.environ]
+    if missing:
+        sys.exit(f"train --distributed takes its processes from torchrun's environment; "
+                 f"{', '.join(missing)} unset (start it with torchrun --nproc-per-node N)")
+    if device is not None and str(device).startswith("cpu"):
+        dist.init_process_group("gloo")
+    else:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+
+
 def cmd_train(args):
+    import os
+
+    distributed = args.distributed or bool(os.environ.get("TTS_DISTRIBUTED"))
+    if distributed:
+        _init_distributed(args.device)
+    try:
+        _train(args)
+    finally:
+        if distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(args) -> None:
+    import torch.distributed as dist
+
     from transformertts_tpu_torch.config import load_config
     from transformertts_tpu_torch.train.trainer import Trainer
     from transformertts_tpu_torch.utils import increment_path
 
-    if args.distributed:
-        raise NotImplementedError(
-            "multi-process training is not ported yet (ROADMAP Queue 1 item 6, parallel/mesh.py)")
     cfg = load_config(args.config, args.overrides)
-    exp_dir = args.exp_dir or increment_path(cfg.path.experiment)
+    exp_dir = args.exp_dir
+    if exp_dir is None:  # one run directory, picked by rank 0, for every rank
+        box = [increment_path(cfg.path.experiment)
+               if not dist.is_initialized() or dist.get_rank() == 0 else None]
+        if dist.is_initialized():
+            dist.broadcast_object_list(box, src=0)
+        exp_dir = box[0]
     trainer = Trainer(cfg, exp_dir, resume=not args.no_resume,
                       profile_steps=args.profile_steps, device=args.device)
     result = trainer.fit()
+    if not trainer.rank0:
+        return
     if result["epochs"] == 0:
         print("nothing to do: training already completed (resume found "
               f"epoch {trainer.start_epoch} >= num_epochs)")
@@ -203,7 +248,8 @@ def build_parser() -> argparse.ArgumentParser:
     p_train.add_argument("--exp-dir", default=None)
     p_train.add_argument("--no-resume", action="store_true")
     p_train.add_argument("--distributed", action="store_true",
-                         help="multi-process training (not ported yet: raises)")
+                         help="one process per device, started by torchrun (also with "
+                              "TTS_DISTRIBUTED set): NCCL, or gloo with --device cpu")
     p_train.add_argument("--profile-steps", type=int, default=0,
                          help="write a torch.profiler trace of N steps to <exp-dir>/profile")
     p_train.set_defaults(fn=cmd_train)

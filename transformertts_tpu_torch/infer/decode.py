@@ -57,6 +57,7 @@ from transformertts_tpu_torch.config import Config
 from transformertts_tpu_torch.device import resolve_device
 from transformertts_tpu_torch.models.masks import NEG_INF, padding_bias
 from transformertts_tpu_torch.models.modules import sinusoid_table
+from transformertts_tpu_torch.models.tts import shift_right
 from transformertts_tpu_torch.ops.decode_step import (
     MAX_BATCH,
     DecodeStep,
@@ -502,6 +503,42 @@ def make_decode_fn(
                        state.n_steps)
 
     return decode
+
+
+@torch.inference_mode()
+def naive_decode(model, phoneme, phoneme_lens, max_len: int, stop_threshold: float = 0.5) -> dict:
+    """Cacheless re-compute decode mirroring the reference's inference loop
+    (model/model.py:354-374), generalised to reduction_factor, as the JAX
+    ``naive_decode``: at every group the whole decoder runs over the emitted
+    prefix through ``model.decode`` and ``decode_frame_heads``, and the loop
+    ends when every row has voted stop or at ``max_len``.  Plain PyTorch on
+    the model's device; slow: the equivalence oracle of the cached loops.
+    Returns ``pred_melspec`` / ``post_melspec`` (B, n_frames, n_mels),
+    ``pred_stop`` (B, n_frames) and ``n_frames``."""
+    cfg, device = model.cfg, model.device
+    r = cfg.reduction_factor
+    if max_len % r:
+        raise ValueError(f"max_len ({max_len}) must be a multiple of reduction_factor ({r})")
+    phoneme = torch.as_tensor(phoneme, dtype=torch.long, device=device)
+    lens = torch.as_tensor(phoneme_lens, dtype=torch.long, device=device)
+    memory = model.encode(phoneme, None)  # unmasked encoder, as the reference
+    b = phoneme.shape[0]
+    mel = torch.zeros((b, 0, cfg.n_mels), dtype=torch.float32, device=device)
+    stops = []
+    for g in range(1, max_len // r + 1):
+        # the whole decoder over the emitted prefix, grouped as shift_right groups it
+        pad = torch.zeros((b, g * r - mel.shape[1], cfg.n_mels), device=device)
+        tgt_in = shift_right(torch.cat([mel, pad], dim=1), r)
+        tgt_out, _ = model.decode(memory, tgt_in, lens,
+                                  torch.full((b,), g * r, dtype=torch.long, device=device),
+                                  return_alignments=False)
+        mel_g, stop_g = model.decode_frame_heads(tgt_out[:, -1:, :])
+        mel = torch.cat([mel, mel_g.float()], dim=1)
+        stops.append(stop_g.float())
+        if bool((torch.sigmoid(stop_g.float()) >= stop_threshold).any(dim=1).all()):
+            break
+    return {"pred_melspec": mel, "post_melspec": model.apply_postnet(mel).float(),
+            "pred_stop": torch.cat(stops, dim=1), "n_frames": mel.shape[1]}
 
 
 def _result(model, frames, stops, n_frames: int, stop_threshold: float, n_steps: int,

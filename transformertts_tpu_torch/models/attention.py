@@ -13,6 +13,13 @@ Two compute paths, as in the JAX module:
 
 The projections are exposed on their own so the KV-cached decoder can build
 its caches once.
+
+Under tensor parallelism (``parallel/mesh.py``) the module holds
+``n_heads / n_model`` heads: the input is entered once (f, or a gather on
+time under sequence parallelism), the out-projection's partial product
+leaves through one all-reduce (or a reduce-scatter on time), and its bias
+is added after it.  A cross-attention's ``kv_in`` comes entered already
+(``Decoder.forward`` enters the memory once for all its layers).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from transformertts_tpu_torch.models.initializers import torch_linear_, xavier_u
 from transformertts_tpu_torch.models.masks import causal_bias
 from transformertts_tpu_torch.models.modules import DropoutRng, Linear, dropout
 from transformertts_tpu_torch.ops.flash_attention import flash_attention
+from transformertts_tpu_torch.parallel.mesh import SINGLE
 
 
 def split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -47,16 +55,18 @@ def dot_product_attention(
     dropout_rate: float = 0.0,
     train: bool = False,
     rng: Optional[DropoutRng] = None,
+    layout=SINGLE,
 ):
     """softmax(q k^T / sqrt(dh) + bias) v with the products of the operands
     accumulated in fp32 (``preferred_element_type=float32`` in JAX).  The
-    returned weights are those before dropout."""
+    returned weights are those before dropout; on a sharded ``layout`` the
+    batch rows and heads are this rank's part."""
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
         scores = scores + bias.float()
     weights = torch.softmax(scores, dim=-1)
-    dropped = dropout(weights, dropout_rate, train, rng)
+    dropped = dropout(weights, dropout_rate, train, rng, layout, ("data", "model"))
     out = torch.einsum(
         "bhqk,bkhd->bqhd", dropped.to(v.dtype).float(), v.float()
     ).to(v.dtype)
@@ -71,6 +81,8 @@ class MultiHeadAttention(nn.Module):
     weights (q|k|v for self-attention, k|v for cross-attention); parameters
     and results are those of the separate projections.
     """
+
+    layout = SINGLE
 
     def __init__(self, d_model: int, n_heads: int, dropout: float = 0.0, dtype=torch.float32,
                  use_flash: bool = False, fuse_qkv: bool = False, plain_ops: bool = False,
@@ -94,10 +106,15 @@ class MultiHeadAttention(nn.Module):
         torch_linear_(self.out_proj.weight, generator)
         nn.init.zeros_(self.out_proj.bias)
 
+    @property
+    def heads(self) -> int:
+        """The heads this rank holds."""
+        return self.n_heads // self.layout.mesh.n_model
+
     def project_kv(self, kv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """K/V projections split into heads — used to prebuild decode caches."""
-        k = split_heads(self.k_proj(kv, self.dtype), self.n_heads)
-        v = split_heads(self.v_proj(kv, self.dtype), self.n_heads)
+        k = split_heads(self.k_proj(kv, self.dtype), self.heads)
+        v = split_heads(self.v_proj(kv, self.dtype), self.heads)
         return k, v
 
     def _fused_in_proj(self, x: torch.Tensor, projections) -> list[torch.Tensor]:
@@ -106,7 +123,7 @@ class MultiHeadAttention(nn.Module):
         w = torch.cat([p.weight for p in projections]).to(self.dtype)
         b = torch.cat([p.bias for p in projections]).to(self.dtype)
         y = x.to(self.dtype) @ w.t() + b
-        return [split_heads(t, self.n_heads) for t in y.split(projections[0].weight.shape[0], dim=-1)]
+        return [split_heads(t, self.heads) for t in y.split(projections[0].weight.shape[0], dim=-1)]
 
     def attend(
         self,
@@ -121,7 +138,7 @@ class MultiHeadAttention(nn.Module):
         rng: Optional[DropoutRng] = None,
     ):
         """Attention with already-projected K/V (the KV-cache path)."""
-        q = split_heads(self.q_proj(q_in, self.dtype), self.n_heads)
+        q = split_heads(self.q_proj(q_in, self.dtype), self.heads)
         return self._attend_heads(q, k, v, bias, return_weights, key_bias, causal, train, rng)
 
     def _attend_heads(self, q, k, v, bias=None, return_weights=False, key_bias=None,
@@ -133,8 +150,9 @@ class MultiHeadAttention(nn.Module):
             out = flash_attention(
                 q, k, v, key_bias, causal=causal, dropout=rate,
                 seed=rng.kernel_seed(rate) if rate > 0.0 else 0, plain=self.plain_ops,
+                mask_bh=self._mask_bh(q),
             )
-            return self.out_proj(merge_heads(out), self.dtype), None
+            return self._out(merge_heads(out)), None
 
         if key_bias is not None or causal:
             extra = key_bias[:, None, None, :] if key_bias is not None else None
@@ -142,8 +160,23 @@ class MultiHeadAttention(nn.Module):
                 cb = causal_bias(q.shape[1], device=q.device)
                 extra = cb if extra is None else extra + cb
             bias = extra if bias is None else bias + extra
-        out, w = dot_product_attention(q, k, v, bias, return_weights, rate, train, rng)
-        return self.out_proj(merge_heads(out), self.dtype), w
+        out, w = dot_product_attention(q, k, v, bias, return_weights, rate, train, rng,
+                                       self.layout)
+        return self._out(merge_heads(out)), w
+
+    def _mask_bh(self, q):
+        """Where this rank's batch rows and heads lie in the flash kernel's
+        global dropout mask (None on one process)."""
+        if not self.layout.sharded:
+            return None
+        b0 = self.layout.span("data", q.shape[0])[1]
+        return b0, self.n_heads, self.layout.span("model", q.shape[2])[1]
+
+    def _out(self, o):
+        """The out-projection; under tensor parallelism its partial product
+        is summed over the model ranks before the bias."""
+        y = o.to(self.dtype) @ self.out_proj.weight.to(self.dtype).t()
+        return self.layout.exit(y) + self.out_proj.bias.to(self.dtype)
 
     def forward(
         self,
@@ -156,11 +189,15 @@ class MultiHeadAttention(nn.Module):
         train: bool = False,
         rng: Optional[DropoutRng] = None,
     ):
+        self_attn = q_in is kv_in
+        q_in = self.layout.enter(q_in)
+        if self_attn:
+            kv_in = q_in
         if self.fuse_qkv:
-            if q_in is kv_in:  # self-attention: q|k|v in one matmul
+            if self_attn:  # self-attention: q|k|v in one matmul
                 q, k, v = self._fused_in_proj(q_in, (self.q_proj, self.k_proj, self.v_proj))
             else:  # cross-attention: k|v fused, q separate
-                q = split_heads(self.q_proj(q_in, self.dtype), self.n_heads)
+                q = split_heads(self.q_proj(q_in, self.dtype), self.heads)
                 k, v = self._fused_in_proj(kv_in, (self.k_proj, self.v_proj))
             return self._attend_heads(q, k, v, bias, return_weights, key_bias, causal, train, rng)
         k, v = self.project_kv(kv_in)

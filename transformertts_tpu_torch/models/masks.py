@@ -11,9 +11,10 @@ import torch
 NEG_INF = -1e9  # large-but-finite: representable in bfloat16, avoids NaN rows
 
 
-def lengths_to_valid_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
-    """(B,) lengths -> (B, max_len) bool, True where position < length."""
-    pos = torch.arange(max_len, device=lengths.device)[None, :]
+def lengths_to_valid_mask(lengths: torch.Tensor, max_len: int, start: int = 0) -> torch.Tensor:
+    """(B,) lengths -> (B, max_len) bool, True where position < length; the
+    positions are ``start .. start + max_len - 1`` (a time slice)."""
+    pos = torch.arange(start, start + max_len, device=lengths.device)[None, :]
     return pos < lengths[:, None]
 
 

@@ -14,6 +14,12 @@ parameter path onto a state-dict key by joining it with dots.
 
 Convolutions take the JAX package's feature-last (B, T, C) layout at the
 module boundary and transpose to torch's (B, C, T) inside.
+
+A module that a sharded step splits reads its ``layout``
+(``parallel/mesh.py:Layout``; one process by default, which changes
+nothing): a dropout draws the one-process mask and takes this rank's part,
+BatchNorm sums its batch moments over the data ranks, and the convolution
+stacks gather the time axis under sequence parallelism.
 """
 
 from __future__ import annotations
@@ -28,6 +34,11 @@ from torch import nn
 
 from transformertts_tpu_torch.models.initializers import normal_, xavier_normal_
 from transformertts_tpu_torch.ops.dropout_mask import seed_from_generator
+from transformertts_tpu_torch.parallel.mesh import SINGLE
+
+# the mesh axes of an activation between blocks: rows over 'data', time over
+# 'model' under sequence parallelism
+ACT = ("data", "time")
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -49,14 +60,22 @@ class DropoutRng:
         return seed_from_generator(rate, self.seeds)
 
 
-def dropout(x: torch.Tensor, rate: float, train: bool, rng: Optional[DropoutRng]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, train: bool, rng: Optional[DropoutRng],
+            layout=SINGLE, axes: tuple = ()) -> torch.Tensor:
     """flax ``Dropout``: ``where(keep, x / (1 - rate), 0)`` with keep drawn
-    from ``rng.masks``; the identity when not training or at rate 0."""
+    from ``rng.masks``; the identity when not training or at rate 0.  On a
+    sharded ``layout``, x is this rank's part of a tensor whose leading
+    dimensions are split over ``axes`` (``Layout.span``): the mask is drawn
+    at that tensor's shape and sliced."""
     if not train or rate <= 0.0:
         return x
     if rng is None:
         raise ValueError("train-mode dropout needs a DropoutRng")
-    keep = torch.rand(x.shape, generator=rng.masks, device=x.device) >= rate
+    if layout.sharded:
+        shape, index = layout.global_view(x.shape, axes)
+        keep = (torch.rand(shape, generator=rng.masks, device=x.device) >= rate)[index]
+    else:
+        keep = torch.rand(x.shape, generator=rng.masks, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -102,10 +121,14 @@ class BatchNorm(nn.Module):
     goes into ``running_var`` as ``0.9 * running + 0.1 * batch`` (flax's
     rule; ``torch.nn.BatchNorm1d`` would store the unbiased one).  The
     buffers are updated in place.  Arithmetic as flax's ``_normalize``:
-    promoted to fp32, cast to ``dtype`` at the end.
+    promoted to fp32, cast to ``dtype`` at the end.  Over data ranks the
+    sums of x and x^2 are summed over the ranks (forward and backward), so
+    every rank normalises and updates with the global batch's statistics;
+    the time axis is always whole here (the stacks gather it).
     """
 
     momentum = 0.9
+    layout = SINGLE
 
     def __init__(self, d: int, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
@@ -125,8 +148,10 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if train:
             flat = x32.reshape(-1, x32.shape[-1])
-            mean = flat.mean(dim=0)
-            var = torch.clamp((flat * flat).mean(dim=0) - mean * mean, min=0.0)
+            sums = self.layout.sum_data(torch.stack([flat.sum(dim=0), (flat * flat).sum(dim=0)]))
+            count = flat.shape[0] * self.layout.mesh.n_data
+            mean = sums[0] / count
+            var = torch.clamp(sums[1] / count - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
                 self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
@@ -196,7 +221,10 @@ class ConvBN(nn.Module):
 
 class EncoderPreNet(nn.Module):
     """N x [ConvBN + Dropout] + final LinearNorm (ref: model/model.py:13-45);
-    no ReLU."""
+    no ReLU.  Under sequence parallelism the convolution stack runs on the
+    gathered time axis and the rank keeps its slice after it."""
+
+    layout = SINGLE
 
     def __init__(self, n_layers, features, kernel_size, dropout=0.5, dtype=torch.float32,
                  device=None):
@@ -209,14 +237,18 @@ class EncoderPreNet(nn.Module):
         self.LinearNorm_0 = LinearNorm(features, features, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, train: bool = False, rng=None) -> torch.Tensor:
+        x = self.layout.gather_time(x)
         for i in range(self.n_layers):
-            x = dropout(getattr(self, f"ConvBN_{i}")(x, train), self.dropout, train, rng)
-        return self.LinearNorm_0(x)
+            x = dropout(getattr(self, f"ConvBN_{i}")(x, train), self.dropout, train, rng,
+                        self.layout, ("data",))
+        return self.LinearNorm_0(self.layout.local_time(x))
 
 
 class DecoderPreNet(nn.Module):
     """2 x [LinearNorm -> ReLU -> Dropout] (ref: model/model.py:48-67);
     dropout only in training."""
+
+    layout = SINGLE
 
     def __init__(self, n_mels, d_model, dropout=0.5, dtype=torch.float32, device=None):
         super().__init__()
@@ -225,8 +257,9 @@ class DecoderPreNet(nn.Module):
         self.LinearNorm_1 = LinearNorm(d_model, d_model, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, train: bool = False, rng=None) -> torch.Tensor:
-        x = dropout(torch.relu(self.LinearNorm_0(x)), self.dropout, train, rng)
-        return dropout(torch.relu(self.LinearNorm_1(x)), self.dropout, train, rng)
+        x = dropout(torch.relu(self.LinearNorm_0(x)), self.dropout, train, rng, self.layout, ACT)
+        return dropout(torch.relu(self.LinearNorm_1(x)), self.dropout, train, rng, self.layout,
+                       ACT)
 
 
 def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
@@ -242,7 +275,10 @@ def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
 class ScaledPositionalEncoding(nn.Module):
     """x + alpha * PE[offset:offset+T], then dropout; ONE learnable scalar
     alpha, shared by the encoder and the decoder (reference quirk,
-    model/model.py:288,297)."""
+    model/model.py:288,297).  Under sequence parallelism x is a time slice
+    and takes the table at its global positions."""
+
+    layout = SINGLE
 
     def __init__(self, d_model: int, max_len: int = 5000, dropout: float = 0.1, device=None):
         super().__init__()
@@ -258,14 +294,19 @@ class ScaledPositionalEncoding(nn.Module):
 
     def forward(self, x: torch.Tensor, offset: int = 0, train: bool = False,
                 rng=None) -> torch.Tensor:
+        offset += self.layout.time_offset(x.shape[-2])
         table = self.pe[offset: offset + x.shape[-2]]
-        return dropout(x + (self.alpha * table[None]).to(x.dtype), self.dropout, train, rng)
+        return dropout(x + (self.alpha * table[None]).to(x.dtype), self.dropout, train, rng,
+                       self.layout, ACT)
 
 
 class PostNet(nn.Module):
     """5-layer conv postnet (ref: model/model.py:100-135); Tanh after every
     block but the last, dropout after every block; the residual add happens
-    in the caller."""
+    in the caller.  Under sequence parallelism it runs on the gathered time
+    axis and returns the rank's slice."""
+
+    layout = SINGLE
 
     def __init__(self, n_layers, n_mels, d_model, kernel_size, dropout=0.5,
                  dtype=torch.float32, device=None):
@@ -278,10 +319,14 @@ class PostNet(nn.Module):
                 widths[i], widths[i + 1], kernel_size, "tanh", dtype, device=device))
 
     def forward(self, x: torch.Tensor, train: bool = False, rng=None) -> torch.Tensor:
+        x = self.layout.gather_time(x)
+        whole = (self.layout, ("data",))
         for i in range(self.n_layers - 1):
-            x = dropout(torch.tanh(getattr(self, f"ConvBN_{i}")(x, train)), self.dropout, train, rng)
-        return dropout(getattr(self, f"ConvBN_{self.n_layers - 1}")(x, train), self.dropout,
-                       train, rng)
+            x = dropout(torch.tanh(getattr(self, f"ConvBN_{i}")(x, train)), self.dropout, train,
+                        rng, *whole)
+        x = dropout(getattr(self, f"ConvBN_{self.n_layers - 1}")(x, train), self.dropout, train,
+                    rng, *whole)
+        return self.layout.local_time(x)
 
 
 class Embed(nn.Module):

@@ -14,6 +14,12 @@ kernel (``ops/fused_ffn.py``) on the ``Dense_0`` / ``Dense_1`` parameters as
 they lie; without it, two linears around relu and plain dropout.
 Dropout runs only with ``train=True`` and draws from the ``DropoutRng`` the
 caller passes.
+
+Under tensor parallelism (``parallel/mesh.py``) a feed-forward block holds
+``d_ffn / n_model`` columns, enters its input once and sums its partial
+output over the model ranks before ``Dense_1``'s bias; the fused kernels
+and the plain dropout key their masks on the one-process step's rows,
+heads and columns, so a sharded step drops what that step drops.
 """
 
 from __future__ import annotations
@@ -23,26 +29,45 @@ from torch import nn
 
 from transformertts_tpu_torch.models.attention import MultiHeadAttention
 from transformertts_tpu_torch.models.initializers import torch_linear_
-from transformertts_tpu_torch.models.modules import LayerNorm, Linear, dropout
+from transformertts_tpu_torch.models.modules import ACT, LayerNorm, Linear, dropout
+from transformertts_tpu_torch.ops import fused_ffn as ffn_op
+from transformertts_tpu_torch.ops import fused_ln as ln_op
 from transformertts_tpu_torch.ops.fused_ffn import fused_ffn
 from transformertts_tpu_torch.ops.fused_ln import residual_dropout_layernorm
+from transformertts_tpu_torch.parallel.mesh import SINGLE
+
+
+def _row_geometry(layout, b: int, t: int, time_axis):
+    """(global rows, row_map) of a fused kernel's (b, t) rows: the rows of
+    the one-process call and where this rank's lie among them."""
+    b_total, b0 = layout.span("data", b)
+    t_total, t0 = layout.span(time_axis, t)
+    return b_total * t_total, (t, t_total, b0 * t_total + t0)
 
 
 def _residual_norm(layer, norm: LayerNorm, x, h, train: bool, rng):
     """``norm(x + drop(h))``, as one fused kernel call when the layer says so.
     The LayerNorm parameters stay on the ``norm`` module either way."""
     rate = layer.dropout if train else 0.0
+    layout = layer.layout
     if layer.use_fused_ln:
         if rate > 0.0 and rng is None:
             raise ValueError("train-mode dropout needs a DropoutRng")
+        mask_rows = row_map = None
+        if layout.sharded:
+            n_total, row_map = _row_geometry(layout, x.shape[0], x.shape[1], "time")
+            mask_rows = ln_op.pick_rows(n_total, x.shape[-1])
         return residual_dropout_layernorm(
             x, h, norm.weight, norm.bias, dropout=rate,
             seed=rng.kernel_seed(rate) if rate > 0.0 else 0, plain=layer.plain_ops,
+            mask_rows=mask_rows, row_map=row_map,
         )
-    return norm(x + dropout(h, rate, train, rng))
+    return norm(x + dropout(h, rate, train, rng, layout, ACT))
 
 
 class FeedForward(nn.Module):
+    layout = SINGLE
+
     def __init__(self, d_model: int, d_ffn: int, dropout: float = 0.1, dtype=torch.float32,
                  use_fused: bool = False, plain_ops: bool = False, device=None):
         super().__init__()
@@ -60,19 +85,41 @@ class FeedForward(nn.Module):
             torch_linear_(dense.bias, generator, fan_in=fan_in)
 
     def forward(self, x: torch.Tensor, train: bool = False, rng=None) -> torch.Tensor:
+        layout = self.layout
+        x = layout.enter(x)
+        if not layout.tp:
+            return self._forward(x, train, rng)
+        y = self._forward(x, train, rng, with_bias=False)
+        return layout.exit(y) + self.Dense_1.bias.to(self.dtype)
+
+    def _forward(self, x, train, rng, with_bias: bool = True):
+        """The block on this rank's columns; ``with_bias=False`` leaves out
+        ``Dense_1``'s bias (added once, after the sum over model ranks)."""
+        b2 = self.Dense_1.bias if with_bias else torch.zeros_like(self.Dense_1.bias)
         if self.use_fused:
             rate = self.dropout if train else 0.0
             if rate > 0.0 and rng is None:
                 raise ValueError("train-mode dropout needs a DropoutRng")
+            mask = {}
+            if self.layout.sharded:
+                n_total, row_map = _row_geometry(self.layout, x.shape[0], x.shape[1], None)
+                f_total, c0 = self.layout.span("model", self.Dense_0.weight.shape[0])
+                itemsize = torch.empty((), dtype=self.dtype).element_size()
+                mask = dict(row_map=row_map, col_map=(f_total, c0),
+                            mask_rows=ffn_op.pick_rows(n_total, x.shape[-1], f_total, itemsize))
             return fused_ffn(
                 x.to(self.dtype), self.Dense_0.weight, self.Dense_0.bias, self.Dense_1.weight,
-                self.Dense_1.bias, dropout=rate,
-                seed=rng.kernel_seed(rate) if rate > 0.0 else 0, plain=self.plain_ops)
-        h = dropout(torch.relu(self.Dense_0(x, self.dtype)), self.dropout, train, rng)
-        return self.Dense_1(h, self.dtype)
+                b2, dropout=rate, seed=rng.kernel_seed(rate) if rate > 0.0 else 0,
+                plain=self.plain_ops, **mask)
+        h = dropout(torch.relu(self.Dense_0(x, self.dtype)), self.dropout, train, rng,
+                    self.layout, ("data", None, "model"))
+        y = h.to(self.dtype) @ self.Dense_1.weight.to(self.dtype).t()
+        return y + b2.to(self.dtype)
 
 
 class EncoderLayer(nn.Module):
+    layout = SINGLE
+
     def __init__(self, d_model, n_heads, d_ffn, dropout=0.1, dtype=torch.float32,
                  use_flash=False, use_fused_ln=False, fuse_qkv=False, plain_ops=False,
                  use_fused_ffn=False, device=None):
@@ -111,6 +158,8 @@ class Encoder(nn.Module):
 
 
 class DecoderLayer(nn.Module):
+    layout = SINGLE
+
     def __init__(self, d_model, n_heads, d_ffn, dropout=0.1, dtype=torch.float32,
                  use_flash=False, use_fused_ln=False, fuse_qkv=False, plain_ops=False,
                  use_fused_ffn=False, device=None):
@@ -164,6 +213,8 @@ class DecoderLayer(nn.Module):
 
 
 class Decoder(nn.Module):
+    layout = SINGLE
+
     def __init__(self, n_layers, d_model, n_heads, d_ffn, dropout=0.1, dtype=torch.float32,
                  use_flash=False, use_fused_ln=False, fuse_qkv=False, plain_ops=False,
                  use_fused_ffn=False, device=None):
@@ -181,6 +232,7 @@ class Decoder(nn.Module):
     def forward(self, x, memory, tgt_key_bias=None, mem_key_bias=None,
                 return_alignments: bool = True, train: bool = False, rng=None):
         alignments = []
+        memory = self.layout.enter(memory)  # once for every layer's cross-attention
         for layer in self.layers:
             x, align = layer(x, memory, tgt_key_bias, mem_key_bias, return_alignments, train, rng)
             if return_alignments:

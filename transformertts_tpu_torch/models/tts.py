@@ -5,6 +5,11 @@ model/model.py:138-394).
 (dropout on, BatchNorm on the batch's statistics and updating its running
 ones) with ``train=True`` and a ``DropoutRng``.  The hooks below it serve the
 KV-cached decode in ``infer/decode.py``.
+
+A model that ``parallel.shard_state`` has sharded holds this rank's
+parameters and runs on this rank's part of the batch (``shard_batch``):
+its rows, and under sequence parallelism a time slice of mel and phoneme,
+whose outputs are the same slices of the one-process outputs.
 """
 
 from __future__ import annotations
@@ -27,12 +32,22 @@ from transformertts_tpu_torch.models.modules import (
     ScaledPositionalEncoding,
 )
 from transformertts_tpu_torch.models.transformer import Decoder, Encoder
+from transformertts_tpu_torch.parallel import collectives
+from transformertts_tpu_torch.parallel.mesh import SINGLE
 
 
-def shift_right(mel: torch.Tensor, r: int = 1) -> torch.Tensor:
+def shift_right(mel: torch.Tensor, r: int = 1, layout=SINGLE) -> torch.Tensor:
     """Decoder inputs: zero go-frame then the last frame of each previous
-    group of ``r`` frames (ref r=1 case: model/model.py:278-279)."""
+    group of ``r`` frames (ref r=1 case: model/model.py:278-279).  Under
+    sequence parallelism ``mel`` is a time slice: its first input is the
+    previous slice's last frame (zeros on the first rank)."""
     go = torch.zeros_like(mel[:, :1, :])
+    if layout.seq:
+        mesh = layout.mesh
+        with torch.no_grad():
+            lasts = collectives.all_gather(mel[:, -1:, :], mesh.model_group, dim=1)
+        if mesh.model_rank > 0:
+            go = lasts[:, mesh.model_rank - 1: mesh.model_rank]
     prev_last = mel[:, r - 1:: r, :][:, :-1, :]
     return torch.cat([go, prev_last], dim=1)
 
@@ -59,6 +74,8 @@ class TransformerTTS(nn.Module):
     PyTorch versions whatever the device: the reference a GPU run holds the
     kernels against.
     """
+
+    layout = SINGLE
 
     def __init__(
         self,
@@ -114,10 +131,17 @@ class TransformerTTS(nn.Module):
     def device(self) -> torch.device:
         return self.emb.weight.device
 
+    def set_layout(self, layout) -> None:
+        """Give every module that reads one this rank's ``parallel.mesh.Layout``
+        (``shard_state`` calls it after slicing the parameters)."""
+        for m in self.modules():
+            if hasattr(m, "layout"):
+                m.layout = layout
+
     def encode(self, phoneme: torch.Tensor, phoneme_lens: Optional[torch.Tensor],
                train: bool = False, rng: Optional[DropoutRng] = None):
         src_key_bias = (
-            key_padding_bias(phoneme_lens, phoneme.shape[1])
+            key_padding_bias(phoneme_lens, self.layout.time_total(phoneme.shape[1]))
             if phoneme_lens is not None else None
         )
         x = self.emb(phoneme).to(self.dtype)
@@ -126,13 +150,13 @@ class TransformerTTS(nn.Module):
 
     def decode(self, memory, tgt_in, phoneme_lens, mel_lens, return_alignments=True,
                train: bool = False, rng: Optional[DropoutRng] = None):
-        t_pos = tgt_in.shape[1]
+        t_pos = self.layout.time_total(tgt_in.shape[1])
         tgt_key_bias = (
             key_padding_bias(group_lens(mel_lens, self.cfg.reduction_factor), t_pos)
             if mel_lens is not None else None
         )
         mem_key_bias = (
-            key_padding_bias(phoneme_lens, memory.shape[1])
+            key_padding_bias(phoneme_lens, self.layout.time_total(memory.shape[1]))
             if phoneme_lens is not None else None
         )
         x = self.pe(self.dec_prenet(tgt_in.to(self.dtype), train, rng), 0, train, rng)
@@ -157,7 +181,7 @@ class TransformerTTS(nn.Module):
         b, t_mel = melspec.shape[0], melspec.shape[1]
         if t_mel % r:
             raise ValueError(f"mel length {t_mel} not a multiple of reduction_factor {r}")
-        tgt_in = shift_right(melspec, r)
+        tgt_in = shift_right(melspec, r, self.layout)
         memory = self.encode(phoneme, phoneme_lens, train, rng)
         tgt_out, alignments = self.decode(
             memory, tgt_in, phoneme_lens, melspec_lens, return_alignments, train, rng

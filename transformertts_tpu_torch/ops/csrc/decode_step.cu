@@ -121,7 +121,7 @@ constexpr int kMaxCluster = 16; // blocks of a cluster (Config::cluster), one pe
 constexpr int kThreads = 512;   // threads of a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 8;     // batch rows of a launch
-constexpr int kMaxPieces = 512; // weight pieces of a block
+constexpr int kMaxPieces = 2048; // weight pieces of a block (table and mbarriers: 24 B each)
 constexpr int kMaxStages = 64;  // matrix-vector stages, 3 + 6 L
 constexpr int kUnroll = 4;      // cache rows in flight per thread in attention
 

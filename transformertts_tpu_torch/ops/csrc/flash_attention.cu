@@ -70,7 +70,10 @@
 // The dropout mask is a function of the logical index (dropout_mask.cuh):
 // element (bh, row, col) takes salt = bh * 8192 + row / block_q and counter
 // = (row % block_q) * Tk + col, where block_q is the query-block height the
-// TPU kernel would pick (passed in; it shapes nothing but the mask).
+// TPU kernel would pick (passed in; it shapes nothing but the mask).  bh is
+// the global batch * head index (mask_b0 + b) * mask_heads + mask_h0 + h, so
+// a call that holds some of the batch rows and heads (data and tensor
+// parallelism) drops what the whole call drops; (0, H, 0) gives b * H + h.
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
@@ -115,7 +118,17 @@ struct Args {
   int causal, dropout_on;
   uint32_t threshold, seed;
   int block_q;
+  int mask_b0, mask_heads, mask_h0;  // global batch offset, head count, head offset
 };
+
+// The global batch * head index of block bh that the dropout mask is keyed
+// on.  A call that holds every head (one device, or a data shard) needs no
+// division: the branch is the same for every thread.
+template <typename T>
+__device__ __forceinline__ int mask_bh(const Args<T>& a, int bh) {
+  if (a.mask_heads == a.H) return bh + a.mask_b0 * a.H;
+  return (a.mask_b0 + bh / a.H) * a.mask_heads + a.mask_h0 + bh % a.H;
+}
 
 // Rows row0 .. row0 + 63 of a (rows, D) matrix with row stride `stride`
 // into shared memory as floats times mul[row]; rows >= n_rows as zeros.
@@ -244,7 +257,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const Args<T> a) {
 #pragma unroll
     for (int j = 0; j < DV; ++j) o[i][j] = 0.f;
     const int row = q0 + ty * 4 + i;
-    base[i] = mask_base(a.seed, static_cast<uint32_t>(bh * 8192 + row / a.block_q));
+    base[i] = mask_base(a.seed, static_cast<uint32_t>(mask_bh(a, bh) * 8192 + row / a.block_q));
     cnt0[i] = static_cast<uint32_t>(row % a.block_q) * static_cast<uint32_t>(a.Tk);
   }
 
@@ -357,7 +370,7 @@ __device__ __forceinline__ void backward_tile(const Args<T>& a, const float* bia
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     const uint32_t base =
-        mask_base(a.seed, static_cast<uint32_t>(bh * 8192 + row / a.block_q));
+        mask_base(a.seed, static_cast<uint32_t>(mask_bh(a, bh) * 8192 + row / a.block_q));
     const uint32_t cnt0 = static_cast<uint32_t>(row % a.block_q) * static_cast<uint32_t>(a.Tk);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -656,7 +669,7 @@ __global__ void __launch_bounds__(kWg, 4) flash_fwd_tc(const Args<bf16> a) {
     row[i] = q0 + acc_row(tid, i);
     m[i] = -INFINITY;
     l[i] = 0.f;
-    mbase[i] = mask_base(a.seed, static_cast<uint32_t>(bh * 8192 + row[i] / a.block_q));
+    mbase[i] = mask_base(a.seed, static_cast<uint32_t>(mask_bh(a, bh) * 8192 + row[i] / a.block_q));
     cnt0[i] = static_cast<uint32_t>(row[i] % a.block_q) * static_cast<uint32_t>(a.Tk);
   }
 #pragma unroll
@@ -774,7 +787,7 @@ __global__ void __launch_bounds__(kWg) flash_dq_tc(const Args<bf16> a) {
     r[i] = in ? 1.0f / a.l[at] : 0.f;
     delta[i] = in ? a.delta[at] : 0.f;
     live = live && (!in || m[i] > kLive);
-    mbase[i] = mask_base(a.seed, static_cast<uint32_t>(bh * 8192 + row[i] / a.block_q));
+    mbase[i] = mask_base(a.seed, static_cast<uint32_t>(mask_bh(a, bh) * 8192 + row[i] / a.block_q));
     cnt0[i] = static_cast<uint32_t>(row[i] % a.block_q) * static_cast<uint32_t>(a.Tk);
   }
   const bool all_live = __syncthreads_and(live);
@@ -853,7 +866,7 @@ __device__ __forceinline__ void load_query_stats(const Args<bf16>& a, int bh, in
   st.m[tid] = in ? a.m[at] : INFINITY;  // e = 0 for queries past Tq
   st.r[tid] = in ? 1.0f / a.l[at] : 0.f;
   st.delta[tid] = in ? a.delta[at] : 0.f;
-  st.base[tid] = mask_base(a.seed, static_cast<uint32_t>(bh * 8192 + qq / a.block_q));
+  st.base[tid] = mask_base(a.seed, static_cast<uint32_t>(mask_bh(a, bh) * 8192 + qq / a.block_q));
   st.cnt0[tid] = static_cast<uint32_t>(qq % a.block_q) * static_cast<uint32_t>(a.Tk);
 }
 
@@ -1076,7 +1089,7 @@ template <typename T>
 Args<T> make_args(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
                   const long long* strides, const void* bias, float scale, int fold, int causal,
                   int dropout_on, float keep_div, float inv_keep, unsigned threshold,
-                  unsigned seed, int block_q) {
+                  unsigned seed, int block_q, int mask_b0, int mask_heads, int mask_h0) {
   Args<T> a{};
   a.q = static_cast<const T*>(q);
   a.k = static_cast<const T*>(k);
@@ -1098,14 +1111,19 @@ Args<T> make_args(int B, int H, int Tq, int Tk, const void* q, const void* k, co
   a.threshold = threshold;
   a.seed = seed;
   a.block_q = block_q;
+  a.mask_b0 = mask_b0;
+  a.mask_heads = mask_heads;
+  a.mask_h0 = mask_h0;
   return a;
 }
 
-bool shape_ok(int B, int H, int Tq, int Tk, int D, int block_q) {
+bool shape_ok(int B, int H, int Tq, int Tk, int D, int block_q, int mask_b0, int mask_heads,
+              int mask_h0) {
   // the fp32 kernels' blockIdx.y carries batch * head; the salt bh * 8192 + row / block_q is
   // the TPU kernel's
   return B >= 1 && H >= 1 && Tq >= 1 && Tk >= 1 && block_q >= 1 && (D == 32 || D == 64) &&
-         static_cast<long long>(B) * H <= 65535;
+         static_cast<long long>(B) * H <= 65535 && mask_b0 >= 0 && mask_h0 >= 0 &&
+         mask_h0 + H <= mask_heads;
 }
 
 }  // namespace
@@ -1118,17 +1136,21 @@ extern "C" {
 // (B, Tq, H, D) T contiguous; m, l (B, H, Tq) fp32.  T is bf16 when is_bf16,
 // else fp32.  D is 32 or 64.  fold: scale is a power of two and rides on Q.
 // With dropout_on, keep_div = 1 - p, inv_keep = 1 / (1 - p), threshold =
-// uint32(p * 2^32).
+// uint32(p * 2^32).  mask_b0, mask_heads, mask_h0: where the call's batch
+// rows and heads lie in the global ones (0, H, 0 for the whole).
 int tts_flash_fwd(int is_bf16, int B, int H, int Tq, int Tk, int D, const void* q, const void* k,
                   const void* v, const long long* strides, const void* bias, void* out, void* m,
                   void* l, float scale, int fold, int causal, int dropout_on, float keep_div,
-                  float inv_keep, unsigned threshold, unsigned seed, int block_q, void* stream) {
-  if (!shape_ok(B, H, Tq, Tk, D, block_q)) return static_cast<int>(cudaErrorInvalidValue);
+                  float inv_keep, unsigned threshold, unsigned seed, int block_q, int mask_b0,
+                  int mask_heads, int mask_h0, void* stream) {
+  if (!shape_ok(B, H, Tq, Tk, D, block_q, mask_b0, mask_heads, mask_h0))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
 #define TTS_FLASH_FWD(T)                                                                     \
   {                                                                                          \
     Args<T> a = make_args<T>(B, H, Tq, Tk, q, k, v, strides, bias, scale, fold, causal,      \
-                             dropout_on, keep_div, inv_keep, threshold, seed, block_q);      \
+                             dropout_on, keep_div, inv_keep, threshold, seed, block_q,       \
+                             mask_b0, mask_heads, mask_h0);                                  \
     a.out = static_cast<T*>(out);                                                            \
     a.m = static_cast<float*>(m);                                                            \
     a.l = static_cast<float*>(l);                                                            \
@@ -1146,13 +1168,16 @@ int tts_flash_bwd(int is_bf16, int B, int H, int Tq, int Tk, int D, const void* 
                   const void* v, const long long* strides, const void* bias, const void* o,
                   const void* dout, void* m, void* l, void* delta, void* dq, void* dk, void* dv,
                   float scale, int fold, int causal, int dropout_on, float keep_div,
-                  float inv_keep, unsigned threshold, unsigned seed, int block_q, void* stream) {
-  if (!shape_ok(B, H, Tq, Tk, D, block_q)) return static_cast<int>(cudaErrorInvalidValue);
+                  float inv_keep, unsigned threshold, unsigned seed, int block_q, int mask_b0,
+                  int mask_heads, int mask_h0, void* stream) {
+  if (!shape_ok(B, H, Tq, Tk, D, block_q, mask_b0, mask_heads, mask_h0))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
 #define TTS_FLASH_BWD(T)                                                                     \
   {                                                                                          \
     Args<T> a = make_args<T>(B, H, Tq, Tk, q, k, v, strides, bias, scale, fold, causal,      \
-                             dropout_on, keep_div, inv_keep, threshold, seed, block_q);      \
+                             dropout_on, keep_div, inv_keep, threshold, seed, block_q,       \
+                             mask_b0, mask_heads, mask_h0);                                  \
     a.o = static_cast<const T*>(o);                                                          \
     a.dout = static_cast<const T*>(dout);                                                    \
     a.m = static_cast<float*>(m);                                                            \

@@ -81,10 +81,14 @@
 // loaded as zeros and add nothing.
 //
 // The dropout mask is a function of the logical index (dropout_mask.cuh):
-// element (row, col) of the intermediate takes salt = row / mask_rows and
-// counter = (row % mask_rows) * F + col, where mask_rows is the row-block
-// height the TPU kernel would pick (passed in; it shapes nothing but the
-// mask).
+// element (row, col) of the intermediate takes salt = g / mask_rows and
+// counter = (g % mask_rows) * f_total + col_off + col, where mask_rows is the
+// row-block height the TPU kernel would pick (passed in; it shapes nothing
+// but the mask), g the global row (row / t_local) * t_total + row % t_local +
+// row_off and col_off the call's first d_ffn column of f_total: a call that
+// holds some batch rows and d_ffn columns (data and tensor parallelism)
+// drops what the whole call drops; (N, N, 0, F, 0) gives g = row and the
+// counter (row % mask_rows) * F + col.
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
@@ -121,7 +125,19 @@ struct Mask {
   float keep_div;  // 1 - p
   int on;
   float inv_keep;  // 1 / (1 - p), rounded to nearest on the host
+  int t_local, t_total, row_off;  // the global row map
+  int f_total, col_off;           // the global d_ffn width and the call's first column
 };
+
+// The mask's per-row constants of local row `row`: the block's base and the
+// counter of column 0 (the column offset folded in).
+__device__ __forceinline__ void mask_consts(const Mask& mk, int row, uint32_t& base,
+                                            uint32_t& cnt0) {
+  const int g = (row / mk.t_local) * mk.t_total + row % mk.t_local + mk.row_off;
+  base = mk.on ? mask_base(mk.seed, static_cast<uint32_t>(g / mk.rows)) : 0u;
+  cnt0 = static_cast<uint32_t>(g % mk.rows) * static_cast<uint32_t>(mk.f_total) +
+         static_cast<uint32_t>(mk.col_off);
+}
 
 // Rows r0 .. r0 + kNR - 1, columns c0 .. c0 + kNC - 1 of a row-major
 // (n_rows, n_cols) matrix of S, transposed into dst[c * kLdDst + r] as floats
@@ -227,14 +243,10 @@ __device__ __forceinline__ float hidden(float dot, const float* b1, int F, int c
 }
 
 // Per-row constants of the mask for the 4 rows of a thread.
-__device__ __forceinline__ void mask_rows4(const Mask& mk, int row0, int F, uint32_t (&base)[4],
+__device__ __forceinline__ void mask_rows4(const Mask& mk, int row0, uint32_t (&base)[4],
                                            uint32_t (&cnt0)[4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + i;
-    base[i] = mk.on ? mask_base(mk.seed, static_cast<uint32_t>(row / mk.rows)) : 0u;
-    cnt0[i] = static_cast<uint32_t>(row % mk.rows) * static_cast<uint32_t>(F);
-  }
+  for (int i = 0; i < 4; ++i) mask_consts(mk, row0 + i, base[i], cnt0[i]);
 }
 
 // 4 floats rounded to T at p (aligned to 4 elements of T)
@@ -289,7 +301,7 @@ ffn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
     for (int j = 0; j < 4 * kJ; ++j) acc[i][j] = 0.f;
   uint32_t base[4], cnt0[4];
-  mask_rows4(mk, row0 + ty * 4, F, base, cnt0);
+  mask_rows4(mk, row0 + ty * 4, base, cnt0);
 
   for (int f0 = 0; f0 < F; f0 += kFs) {
     float hp[4][4] = {};
@@ -349,7 +361,7 @@ ffn_dx_kernel(const T* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
     for (int j = 0; j < 4 * kJ; ++j) acc[i][j] = 0.f;
   uint32_t base[4], cnt0[4];
-  mask_rows4(mk, row0 + ty * 4, F, base, cnt0);
+  mask_rows4(mk, row0 + ty * 4, base, cnt0);
 
   for (int f0 = 0; f0 < F; f0 += kFs) {
     float hp[4][4] = {}, dhd[4][4] = {};
@@ -440,7 +452,7 @@ ffn_dw_kernel(const T* __restrict__ x, const float* __restrict__ w1,
       dot_chunk<2, kLdF>(Yc, W2c, ty, tx, dhd);
     }
     uint32_t base[4], cnt0[4];
-    mask_rows4(mk, row0 + ty * 4, F, base, cnt0);
+    mask_rows4(mk, row0 + ty * 4, base, cnt0);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float hd[2], dh[2];
@@ -686,8 +698,7 @@ __global__ void __launch_bounds__(kDhWgs * kWg, 1) ffn_dh_tc(const TcArgs a) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     rows[h] = row0 + acc_row(tid, h);
-    mbase[h] = a.mk.on ? mask_base(a.mk.seed, static_cast<uint32_t>(rows[h] / a.mk.rows)) : 0u;
-    cnt0[h] = static_cast<uint32_t>(rows[h] % a.mk.rows) * static_cast<uint32_t>(a.F);
+    mask_consts(a.mk, rows[h], mbase[h], cnt0[h]);
   }
   float hp[16], dhd[16];
 
@@ -1138,8 +1149,7 @@ __global__ void __launch_bounds__(fwd_wgs<S>() * kWg, 1) ffn_fwd_tc(const FwdArg
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     rows[h] = rt0 + acc_row(tid, h);
-    mbase[h] = a.mk.on ? mask_base(a.mk.seed, static_cast<uint32_t>(rows[h] / a.mk.rows)) : 0u;
-    cnt0[h] = static_cast<uint32_t>(rows[h] % a.mk.rows) * static_cast<uint32_t>(a.F);
+    mask_consts(a.mk, rows[h], mbase[h], cnt0[h]);
   }
   float y[4 * kT / 2];  // 64 x 256
 #pragma unroll
@@ -1385,8 +1395,17 @@ int launch_fwd_tc(const FwdArgs& a, const float* w1, const float* w2, uint8_t* s
 int fwd_dp(int D) { return D <= kGw ? kGw : (D <= 2 * kGw ? 2 * kGw : 4 * kGw); }
 int fwd_slice(int Dp) { return Dp <= kGw ? 64 : 32; }
 
-bool shape_ok(int N, int D, int F, int mask_rows) {
-  return N >= 1 && D >= 8 && D % 8 == 0 && F >= 4 && F % 4 == 0 && mask_rows >= 1;
+bool shape_ok(int N, int D, int F, int mask_rows, int t_local, int t_total, int row_off,
+              int f_total, int col_off) {
+  return N >= 1 && D >= 8 && D % 8 == 0 && F >= 4 && F % 4 == 0 && mask_rows >= 1 &&
+         t_local >= 1 && t_total >= t_local && row_off >= 0 && col_off >= 0 &&
+         col_off + F <= f_total;
+}
+
+Mask make_mask(int dropout_on, float keep_div, unsigned threshold, unsigned seed, int mask_rows,
+               int t_local, int t_total, int row_off, int f_total, int col_off) {
+  return Mask{seed,    threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div,
+              t_local, t_total,   row_off,   f_total,  col_off};
 }
 
 }  // namespace
@@ -1414,12 +1433,17 @@ int tts_fused_ffn_shared_bytes(int D, long long* out) {
 // fp32, on the CUDA cores.  x, y: (N, D) fp32, contiguous; w1 (F, D), b1
 // (F), w2 (D, F), b2 (D) fp32, the PyTorch parameters as they lie.  D is a
 // multiple of 8, F a multiple of 4.  With dropout_on, keep_div = 1 - p and
-// threshold = uint32(p * 2^32).
+// threshold = uint32(p * 2^32).  t_local, t_total, row_off, f_total,
+// col_off: the mask's global row map and d_ffn columns (N, N, 0, F, 0 for
+// the whole call); every entry point takes them.
 int tts_fused_ffn_fwd(int N, int D, int F, const void* x, const void* w1, const void* b1,
                       const void* w2, const void* b2, void* y, int dropout_on, float keep_div,
-                      unsigned threshold, unsigned seed, int mask_rows, void* stream) {
-  if (!shape_ok(N, D, F, mask_rows)) return static_cast<int>(cudaErrorInvalidValue);
-  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
+                      unsigned threshold, unsigned seed, int mask_rows, int t_local,
+                      int t_total, int row_off, int f_total, int col_off, void* stream) {
+  if (!shape_ok(N, D, F, mask_rows, t_local, t_total, row_off, f_total, col_off))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Mask mk = make_mask(dropout_on, keep_div, threshold, seed, mask_rows, t_local, t_total,
+                            row_off, f_total, col_off);
   return launch_fwd(static_cast<const float*>(x), static_cast<const float*>(w1),
                     static_cast<const float*>(b1), static_cast<const float*>(w2),
                     static_cast<const float*>(b2), static_cast<float*>(y), N, D, F, mk,
@@ -1447,9 +1471,11 @@ int tts_fused_ffn_fwd_tc_bytes(int D, int F, int stages, long long* out) {
 int tts_fused_ffn_fwd_tc(int N, int D, int F, const void* x, const void* w1, const void* b1,
                          const void* w2, const void* b2, void* y, void* staged, int fsplit,
                          int stages, int dropout_on, float keep_div, unsigned threshold,
-                         unsigned seed, int mask_rows, void* stream) {
+                         unsigned seed, int mask_rows, int t_local, int t_total, int row_off,
+                         int f_total, int col_off, void* stream) {
   long long bytes[2];
-  if (!shape_ok(N, D, F, mask_rows) || tts_fused_ffn_fwd_tc_bytes(D, F, stages, bytes) != 0)
+  if (!shape_ok(N, D, F, mask_rows, t_local, t_total, row_off, f_total, col_off) ||
+      tts_fused_ffn_fwd_tc_bytes(D, F, stages, bytes) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   FwdArgs a;
   a.Dp = fwd_dp(D);
@@ -1469,7 +1495,8 @@ int tts_fused_ffn_fwd_tc(int N, int D, int F, const void* x, const void* w1, con
   a.n_dg = cdiv(D, kGw);
   a.fsplit = fsplit;
   a.stages = stages;
-  a.mk = Mask{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
+  a.mk = make_mask(dropout_on, keep_div, threshold, seed, mask_rows, t_local, t_total, row_off,
+                   f_total, col_off);
   auto s = static_cast<cudaStream_t>(stream);
   auto w1f = static_cast<const float*>(w1);
   auto w2f = static_cast<const float*>(w2);
@@ -1485,9 +1512,12 @@ int tts_fused_ffn_fwd_tc(int N, int D, int F, const void* x, const void* w1, con
 int tts_fused_ffn_bwd(int N, int D, int F, const void* x, const void* w1, const void* b1,
                       const void* w2, const void* dy, void* dx, void* grads, void* part,
                       int dropout_on, float keep_div, unsigned threshold, unsigned seed,
-                      int mask_rows, void* stream) {
-  if (!shape_ok(N, D, F, mask_rows)) return static_cast<int>(cudaErrorInvalidValue);
-  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
+                      int mask_rows, int t_local, int t_total, int row_off, int f_total,
+                      int col_off, void* stream) {
+  if (!shape_ok(N, D, F, mask_rows, t_local, t_total, row_off, f_total, col_off))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Mask mk = make_mask(dropout_on, keep_div, threshold, seed, mask_rows, t_local, t_total,
+                            row_off, f_total, col_off);
   return launch_bwd<float>(x, static_cast<const float*>(w1), static_cast<const float*>(b1),
                            static_cast<const float*>(w2), dy, dx, static_cast<float*>(grads),
                            static_cast<float*>(part), N, D, F, mk,
@@ -1507,10 +1537,11 @@ int tts_fused_ffn_bwd_tc(int N, int D, int F, const void* x, const void* w1, con
                          void* w2b, void* dh, void* hd, void* pdb1, void* pdb2, void* pw1,
                          void* pw2, int spg, int fgroups, int tpc, int chunks, int dropout_on,
                          float keep_div, unsigned threshold, unsigned seed, int mask_rows,
+                         int t_local, int t_total, int row_off, int f_total, int col_off,
                          void* stream) {
   const int Dp = cdiv(D, kT) * kT, Fp = cdiv(F, kT) * kT;
-  if (!shape_ok(N, D, F, mask_rows) || spg < 1 || fgroups != cdiv(Fp / kS, spg) || tpc < 1 ||
-      chunks != cdiv(cdiv(N, kT), tpc))
+  if (!shape_ok(N, D, F, mask_rows, t_local, t_total, row_off, f_total, col_off) || spg < 1 ||
+      fgroups != cdiv(Fp / kS, spg) || tpc < 1 || chunks != cdiv(cdiv(N, kT), tpc))
     return static_cast<int>(cudaErrorInvalidValue);
   TcArgs a;
   a.x = static_cast<const bf16*>(x);
@@ -1534,7 +1565,8 @@ int tts_fused_ffn_bwd_tc(int N, int D, int F, const void* x, const void* w1, con
   a.fgroups = fgroups;
   a.tpc = tpc;
   a.chunks = chunks;
-  a.mk = Mask{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
+  a.mk = make_mask(dropout_on, keep_div, threshold, seed, mask_rows, t_local, t_total, row_off,
+                   f_total, col_off);
   return launch_bwd_tc(a, static_cast<const float*>(w1), static_cast<const float*>(w2),
                        static_cast<float*>(grads), static_cast<cudaStream_t>(stream));
 }

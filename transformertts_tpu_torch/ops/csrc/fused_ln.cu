@@ -31,9 +31,12 @@
 // is fixed by N and the block count, and two runs give the same bits.
 //
 // The dropout mask is a function of the logical index (dropout_mask.cuh):
-// element (row, col) takes salt = row / mask_rows and counter =
-// (row % mask_rows) * D + col, where mask_rows is the row-block height the
-// TPU kernel would pick (passed in; it shapes nothing but the mask).
+// element (row, col) takes salt = g / mask_rows and counter =
+// (g % mask_rows) * D + col, where mask_rows is the row-block height the
+// TPU kernel would pick (passed in; it shapes nothing but the mask) and g
+// the global row (row / t_local) * t_total + row % t_local + row_off: a call
+// that holds some batch rows and a time slice of each (data and sequence
+// parallelism) drops what the whole call drops; (N, N, 0) gives g = row.
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
@@ -59,18 +62,29 @@ struct Mask {
   float keep_div;  // 1 - p
   int on;
   float inv_keep;  // 1 / (1 - p), rounded to nearest on the host
+  int t_local, t_total, row_off;  // the global row map
 };
+
+// The global row of local row `row` that the dropout mask is keyed on.  A
+// call that holds whole time rows (one device, or a data shard: t_local ==
+// t_total) runs the instantiation without the division (kMap false).
+template <bool kMap>
+__device__ __forceinline__ int mask_row(const Mask& mk, int row) {
+  if constexpr (kMap) return (row / mk.t_local) * mk.t_total + row % mk.t_local + mk.row_off;
+  return row + mk.row_off;
+}
 
 // z = x + Dropout(h) of one row into registers (kPerLane values per lane:
 // vector v of the lane starts at column (v * 32 + lane) * vec<T>()), the
 // keep bits of those values, and the lane's share of sum z and sum z^2.
-template <typename T, int kPerLane>
+template <typename T, int kPerLane, bool kMap>
 __device__ __forceinline__ void row_z(const T* x, const T* h, int D, int lane, int row,
                                       const Mask& mk, float* z, uint32_t& keep, float& sum,
                                       float& sq) {
   constexpr int V = vec<T>();
-  const uint32_t base = mk.on ? mask_base(mk.seed, static_cast<uint32_t>(row / mk.rows)) : 0u;
-  const uint32_t row0 = static_cast<uint32_t>(row % mk.rows) * static_cast<uint32_t>(D);
+  const int grow = mask_row<kMap>(mk, row);
+  const uint32_t base = mk.on ? mask_base(mk.seed, static_cast<uint32_t>(grow / mk.rows)) : 0u;
+  const uint32_t row0 = static_cast<uint32_t>(grow % mk.rows) * static_cast<uint32_t>(D);
   keep = 0xffffffffu;
   sum = 0.f;
   sq = 0.f;
@@ -104,7 +118,7 @@ __device__ __forceinline__ void row_z(const T* x, const T* h, int D, int lane, i
   }
 }
 
-template <typename T, int kPerLane>
+template <typename T, int kPerLane, bool kMap>
 __global__ void __launch_bounds__(kThreads)
 ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ h, const float* __restrict__ gamma,
               const float* __restrict__ beta, T* __restrict__ y, int N, int D, float eps,
@@ -115,7 +129,7 @@ ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ h, const float* __r
     const size_t off = static_cast<size_t>(row) * D;
     float z[kPerLane], sum, sq;
     uint32_t keep;
-    row_z<T, kPerLane>(x + off, h + off, D, lane, row, mk, z, keep, sum, sq);
+    row_z<T, kPerLane, kMap>(x + off, h + off, D, lane, row, mk, z, keep, sum, sq);
     sum = warp_sum(sum);
     sq = warp_sum(sq);
     const float mu = sum / static_cast<float>(D);
@@ -195,7 +209,7 @@ __device__ __forceinline__ bool last_of(unsigned* counter, int n, int* flag) {
 // is decided by ticket counters (counters[0] for the groups, counters[1 + g]
 // inside group g) that the last taker sets back to 0.  The order of every
 // sum is fixed by N and the block count alone: the same bits on every run.
-template <typename T, int kPerLane, int kR>
+template <typename T, int kPerLane, int kR, bool kMap>
 __global__ void __launch_bounds__(kThreads)
 ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h, const float* __restrict__ gamma,
               const T* __restrict__ dy, T* __restrict__ dx, T* __restrict__ dh,
@@ -250,8 +264,10 @@ ln_bwd_kernel(const T* __restrict__ x, const T* __restrict__ h, const float* __r
       const int row = first + rr * kWarps;  // the same in every lane of the warp
       if (row >= r1) continue;
       const size_t off = static_cast<size_t>(row) * D;
-      const uint32_t base = mk.on ? mask_base(mk.seed, static_cast<uint32_t>(row / mk.rows)) : 0u;
-      const uint32_t cnt0 = static_cast<uint32_t>(row % mk.rows) * static_cast<uint32_t>(D);
+      const int grow = mask_row<kMap>(mk, row);
+      const uint32_t base =
+          mk.on ? mask_base(mk.seed, static_cast<uint32_t>(grow / mk.rows)) : 0u;
+      const uint32_t cnt0 = static_cast<uint32_t>(grow % mk.rows) * static_cast<uint32_t>(D);
       float z[kPerLane], sum = 0.f, sq = 0.f;
       uint32_t keep = 0xffffffffu;
       if (mk.on) div_rn(hv[rr], mk.keep_div, mk.inv_keep);  // h / (1 - p), dropped or not
@@ -377,7 +393,9 @@ int grid_blocks(int N) {
 template <typename T, int kPerLane>
 int launch_fwd(const void* x, const void* h, const float* gamma, const float* beta, void* y,
                int N, int D, float eps, Mask mk, cudaStream_t s) {
-  ln_fwd_kernel<T, kPerLane><<<grid_blocks(N), kThreads, 0, s>>>(
+  auto kernel = mk.t_local == mk.t_total ? ln_fwd_kernel<T, kPerLane, false>
+                                         : ln_fwd_kernel<T, kPerLane, true>;
+  kernel<<<grid_blocks(N), kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(h), gamma, beta, static_cast<T*>(y), N, D,
       eps, mk);
   return static_cast<int>(cudaGetLastError());
@@ -388,7 +406,8 @@ int launch_bwd(const void* x, const void* h, const float* gamma, const void* dy,
                void* dh, float* dgb, float* part, unsigned* counters, int blocks, int N, int D,
                float eps, Mask mk, cudaStream_t s) {
   constexpr int kR = kPerLane <= 8 ? 2 : 1;  // rows in flight per warp
-  auto kernel = ln_bwd_kernel<T, kPerLane, kR>;
+  auto kernel = mk.t_local == mk.t_total ? ln_bwd_kernel<T, kPerLane, kR, false>
+                                         : ln_bwd_kernel<T, kPerLane, kR, true>;
   const size_t smem = sizeof(float) * kWarps * 2 * D;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -400,9 +419,10 @@ int launch_bwd(const void* x, const void* h, const float* gamma, const void* dy,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool shape_ok(int is_bf16, int N, int D, int mask_rows) {
+bool shape_ok(int is_bf16, int N, int D, int mask_rows, int t_local, int t_total, int row_off) {
   const int V = is_bf16 ? 8 : 4;
-  return N >= 1 && D >= V && D % V == 0 && D <= 1024 && mask_rows >= 1;
+  return N >= 1 && D >= V && D % V == 0 && D <= 1024 && mask_rows >= 1 && t_local >= 1 &&
+         t_total >= t_local && row_off >= 0;
 }
 
 }  // namespace
@@ -412,11 +432,16 @@ extern "C" {
 // x, h, y: (N, D) T, contiguous; gamma, beta: (D) fp32.  T is bf16 when
 // is_bf16, else fp32.  D must be a multiple of 16 bytes of T and <= 1024.
 // With dropout_on, keep_div = 1 - p and threshold = uint32(p * 2^32).
+// t_local, t_total, row_off: the global row map of the mask (N, N, 0 for
+// the whole call).
 int tts_fused_ln_fwd(int is_bf16, int N, int D, const void* x, const void* h, const void* gamma,
                      const void* beta, void* y, float eps, int dropout_on, float keep_div,
-                     unsigned threshold, unsigned seed, int mask_rows, void* stream) {
-  if (!shape_ok(is_bf16, N, D, mask_rows)) return static_cast<int>(cudaErrorInvalidValue);
-  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
+                     unsigned threshold, unsigned seed, int mask_rows, int t_local, int t_total,
+                     int row_off, void* stream) {
+  if (!shape_ok(is_bf16, N, D, mask_rows, t_local, t_total, row_off))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div,
+                t_local, t_total, row_off};
   auto s = static_cast<cudaStream_t>(stream);
   auto g = static_cast<const float*>(gamma);
   auto b = static_cast<const float*>(beta);
@@ -437,14 +462,18 @@ long long tts_fused_ln_bwd_shared_bytes(int D) {
 // 1 .. min(N, kMaxBlocks) blocks of rows; part: scratch of (blocks +
 // ceil(blocks / kGroup)) * 2 * D floats; counters: 1 + ceil(blocks /
 // kGroup) zeros, which every launch leaves at zero (one set per stream: two
-// launches in flight at once must not share it).
+// launches in flight at once must not share it).  t_local, t_total,
+// row_off: as for the forward.
 int tts_fused_ln_bwd(int is_bf16, int N, int D, const void* x, const void* h, const void* gamma,
                      const void* dy, void* dx, void* dh, void* dgb, void* part, void* counters,
                      int blocks, float eps, int dropout_on, float keep_div, unsigned threshold,
-                     unsigned seed, int mask_rows, void* stream) {
-  if (!shape_ok(is_bf16, N, D, mask_rows) || blocks < 1 || blocks > N || blocks > kMaxBlocks)
+                     unsigned seed, int mask_rows, int t_local, int t_total, int row_off,
+                     void* stream) {
+  if (!shape_ok(is_bf16, N, D, mask_rows, t_local, t_total, row_off) || blocks < 1 ||
+      blocks > N || blocks > kMaxBlocks)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
+  const Mask mk{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div,
+                t_local, t_total, row_off};
   auto s = static_cast<cudaStream_t>(stream);
   auto g = static_cast<const float*>(gamma);
   auto o = static_cast<float*>(dgb);

@@ -510,7 +510,11 @@ THREADS = 512  # threads of a block (kThreads)
 WARPS = THREADS // 32
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt in to on Hopper (227 KB)
 PIECE_BYTES = 32 * 1024  # a weight piece, at most (unless one column is larger)
-MAX_PIECES = 512  # kMaxPieces
+# kMaxPieces: a bound on the plan, not a buffer (the piece table and its
+# mbarriers take 24 bytes a piece of the block's shared memory, in the layout);
+# fp32 at d_model 1,024 and d_ffn 4,096 takes 682 a block in clusters of 16,
+# 1,364 in clusters of 8
+MAX_PIECES = 2048
 # keys of an attention chunk, at least: a bf16 block reads 256 cache rows in
 # one batch of loads (kUnroll x 64 rows), so shorter chunks only add partials
 # (and one chunk a (row, head) saves the attention's second barrier)

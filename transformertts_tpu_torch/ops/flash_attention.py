@@ -33,7 +33,11 @@ bits every run.
 What the TPU shaped and this port keeps only as a number: the dropout mask
 is keyed on (batch * head, q-block, local row, key) of the TPU kernel's
 q-blocks (``pick_block``).  The CUDA kernel tiles as it likes and takes the
-q-block height as an argument that shapes nothing but the mask.
+q-block height as an argument that shapes nothing but the mask.  Under data
+and tensor parallelism (``parallel/``) a call sees some of the batch rows
+and some of the heads; ``mask_bh = (b0, heads, h0)`` keys its mask on the
+global index ``(b0 + b) * heads + h0 + h``, so that every rank drops what
+the one-device call drops.
 
 On CUDA tensors ``flash_attention`` launches the kernels or raises (head
 dims other than 32 and 64, dtypes other than fp32 / bf16); the plain version
@@ -91,16 +95,22 @@ def _scores(q, k, bias, scale, causal):
     return s
 
 
-def _keep(shape, seed, dropout, block_q, device):
-    """The (B, H, Tq, Tk) keep mask of one call, in the TPU kernel's geometry."""
+def _keep(shape, seed, dropout, block_q, device, mask_bh=None):
+    """The (B, H, Tq, Tk) keep mask of one call, in the TPU kernel's geometry;
+    ``mask_bh = (b0, heads, h0)`` places the call's rows and heads in the
+    global batch and head count (default: the call is the whole)."""
     b, h, tq, tk = shape
-    bh = torch.arange(b * h, dtype=torch.int64, device=device).reshape(b, h, 1, 1)
+    b0, heads, h0 = mask_bh or (0, h, 0)
+    rows = torch.arange(b0, b0 + b, dtype=torch.int64, device=device)[:, None]
+    cols = torch.arange(h0, h0 + h, dtype=torch.int64, device=device)[None, :]
+    bh = (rows * heads + cols).reshape(b, h, 1, 1)
     row = torch.arange(tq, dtype=torch.int64, device=device)[:, None]
     col = torch.arange(tk, dtype=torch.int64, device=device)[None, :]
     return keep_from_index((row % block_q) * tk + col, bh * 8192 + row // block_q, seed, dropout)
 
 
-def flash_attention_reference(q, k, v, bias, seed, scale, causal, dropout, block_q):
+def flash_attention_reference(q, k, v, bias, seed, scale, causal, dropout, block_q,
+                              mask_bh=None):
     """Plain version of the forward kernel on (B, H, T, D) operands: the
     output in q's dtype and the softmax statistics m, l (B, H, Tq) fp32."""
     s = _scores(q, k, bias, scale, causal)
@@ -108,7 +118,8 @@ def flash_attention_reference(q, k, v, bias, seed, scale, causal, dropout, block
     e = torch.exp(s - m)
     l = e.sum(dim=-1, keepdim=True)
     if dropout > 0.0:
-        e = torch.where(_keep(s.shape, seed, dropout, block_q, s.device), e, torch.zeros_like(e))
+        keep = _keep(s.shape, seed, dropout, block_q, s.device, mask_bh)
+        e = torch.where(keep, e, torch.zeros_like(e))
         norm = 1.0 / (l * (1.0 - dropout))
     else:
         norm = 1.0 / l
@@ -117,14 +128,14 @@ def flash_attention_reference(q, k, v, bias, seed, scale, causal, dropout, block
 
 
 def flash_attention_backward_reference(q, k, v, bias, seed, out, dout, m, l, scale, causal,
-                                       dropout, block_q):
+                                       dropout, block_q, mask_bh=None):
     """Plain version of the backward kernels on (B, H, T, D) operands."""
     s = _scores(q, k, bias, scale, causal)
     e = torch.exp(s - m[..., None])
     r = 1.0 / l[..., None]
     dp_tilde = _dot(dout, v.transpose(-1, -2))
     if dropout > 0.0:
-        keep = _keep(s.shape, seed, dropout, block_q, s.device)
+        keep = _keep(s.shape, seed, dropout, block_q, s.device, mask_bh)
         inv = 1.0 / (1.0 - dropout)
         e_dropped = torch.where(keep, e, torch.zeros_like(e))
         do_scaled = (dout.float() * (r * inv)).to(dout.dtype)
@@ -149,7 +160,7 @@ def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_argtypes_set", False):
         i, u, f, p = ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p
-        tail = [f, i, i, i, f, f, u, u, i, p]
+        tail = [f, i, i, i, f, f, u, u, i, i, i, i, p]
         lib.tts_flash_fwd.argtypes = [i] * 6 + [p] * 8 + tail
         lib.tts_flash_bwd.argtypes = [i] * 6 + [p] * 13 + tail
         lib.tts_flash_shared_bytes.argtypes = [i, i, i, i, p]
@@ -186,7 +197,7 @@ def _check_cuda_args(q, k, v, bias):
         raise ValueError(f"flash attention: key_bias must be a contiguous float32 ({b}, {tk})")
 
 
-def _kernel_args(q, k, v, bias, seed, scale, causal, dropout, block_q):
+def _kernel_args(q, k, v, bias, seed, scale, causal, dropout, block_q, mask_bh):
     b, tq, h, d = q.shape
     strides = (ctypes.c_longlong * 9)(*[t.stride(i) for t in (q, k, v) for i in (0, 1, 2)])
     head = (int(q.dtype == torch.bfloat16), b, h, tq, k.shape[1], d,
@@ -195,12 +206,12 @@ def _kernel_args(q, k, v, bias, seed, scale, causal, dropout, block_q):
     on = dropout > 0.0
     tail = (scale, int(_scale_is_exact(scale)), int(causal), int(on),
             1.0 - dropout if on else 1.0, 1.0 / (1.0 - dropout) if on else 1.0,
-            threshold_of(dropout), seed, block_q,
+            threshold_of(dropout), seed, block_q, *(mask_bh or (0, h, 0)),
             torch.cuda.current_stream(q.device).cuda_stream)
     return head, tail
 
 
-def flash_forward(q, k, v, bias, seed, scale, causal, dropout, block_q):
+def flash_forward(q, k, v, bias, seed, scale, causal, dropout, block_q, mask_bh=None):
     """The forward kernel on CUDA tensors in the public (B, T, H, D) layout:
     (out, m, l), or raises."""
     _check_cuda_args(q, k, v, bias)
@@ -208,7 +219,7 @@ def flash_forward(q, k, v, bias, seed, scale, causal, dropout, block_q):
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     m = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
-    head, tail = _kernel_args(q, k, v, bias, seed, scale, causal, dropout, block_q)
+    head, tail = _kernel_args(q, k, v, bias, seed, scale, causal, dropout, block_q, mask_bh)
     rc = _lib().tts_flash_fwd(*head, out.data_ptr(), m.data_ptr(), l.data_ptr(), *tail)
     if rc != 0:
         raise RuntimeError(
@@ -218,7 +229,8 @@ def flash_forward(q, k, v, bias, seed, scale, causal, dropout, block_q):
     return out, m, l
 
 
-def flash_backward(q, k, v, bias, seed, out, dout, m, l, scale, causal, dropout, block_q):
+def flash_backward(q, k, v, bias, seed, out, dout, m, l, scale, causal, dropout, block_q,
+                   mask_bh=None):
     """The backward kernels (delta, dQ, dK/dV behind one entry point) on
     CUDA tensors in the public layout: (dq, dk, dv), or raises."""
     _check_cuda_args(q, k, v, bias)
@@ -228,7 +240,7 @@ def flash_backward(q, k, v, bias, seed, out, dout, m, l, scale, causal, dropout,
                              f"{q.dtype} of shape {tuple(q.shape)}")
     dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k, v))
     delta = torch.empty_like(m)
-    head, tail = _kernel_args(q, k, v, bias, seed, scale, causal, dropout, block_q)
+    head, tail = _kernel_args(q, k, v, bias, seed, scale, causal, dropout, block_q, mask_bh)
     rc = _lib().tts_flash_bwd(
         *head, out.data_ptr(), dout.data_ptr(), m.data_ptr(), l.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail)
@@ -244,32 +256,33 @@ class _Flash(torch.autograd.Function):
     """q, k, v in the public (B, T, H, D) layout."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, scale, causal, dropout, block_q, plain):
-        ctx.args = (seed, scale, causal, dropout, block_q, plain)
+    def forward(ctx, q, k, v, bias, seed, scale, causal, dropout, block_q, mask_bh, plain):
+        ctx.args = (seed, scale, causal, dropout, block_q, mask_bh, plain)
         if plain or q.device.type == "cpu":
             out, m, l = flash_attention_reference(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), bias, seed, scale,
-                causal, dropout, block_q)
+                causal, dropout, block_q, mask_bh)
             out = out.transpose(1, 2).contiguous()
         else:
-            out, m, l = flash_forward(q, k, v, bias, seed, scale, causal, dropout, block_q)
+            out, m, l = flash_forward(q, k, v, bias, seed, scale, causal, dropout, block_q,
+                                      mask_bh)
         ctx.save_for_backward(q, k, v, bias, out, m, l)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, out, m, l = ctx.saved_tensors
-        seed, scale, causal, dropout, block_q, plain = ctx.args
+        seed, scale, causal, dropout, block_q, mask_bh, plain = ctx.args
         if plain or q.device.type == "cpu":
             t = lambda x: x.transpose(1, 2)  # noqa: E731
             dq, dk, dv = flash_attention_backward_reference(
                 t(q), t(k), t(v), bias, seed, t(out), t(dout), m, l, scale, causal, dropout,
-                block_q)
+                block_q, mask_bh)
             dq, dk, dv = t(dq), t(dk), t(dv)
         else:
             dq, dk, dv = flash_backward(q, k, v, bias, seed, out, dout.contiguous(), m, l,
-                                        scale, causal, dropout, block_q)
-        return dq, dk, dv, None, None, None, None, None, None, None
+                                        scale, causal, dropout, block_q, mask_bh)
+        return dq, dk, dv, None, None, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -282,21 +295,26 @@ def flash_attention(
     seed: int = 0,
     block_q: int | None = None,
     plain: bool = False,
+    mask_bh: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """Fused attention; differentiable in q, k, v; returns (B, Tq, H, D).
 
     ``seed`` is the int32 seed of this call's dropout mask
     (``seed_from_generator``); ``block_q`` the mask's q-block height, by
-    default the TPU kernel's (``pick_block``).  ``plain=True`` asks for the
-    plain version whatever the device."""
+    default the TPU kernel's (``pick_block``); ``mask_bh = (b0, heads, h0)``
+    the call's first batch row, the global head count and its first head
+    (default ``(0, H, 0)``).  ``plain=True`` asks for the plain version
+    whatever the device."""
     b, tq, _, d = q.shape
     tk = k.shape[1]
     if key_bias is None:
         key_bias = torch.zeros((b, tk), dtype=torch.float32, device=q.device)
     if block_q is None:
         block_q = pick_block(tq, tk)
+    if mask_bh is not None:
+        mask_bh = tuple(int(i) for i in mask_bh)
     return _Flash.apply(q, k, v, key_bias.float().contiguous(), int(seed), d ** -0.5,
-                        bool(causal), float(dropout), int(block_q), bool(plain))
+                        bool(causal), float(dropout), int(block_q), mask_bh, bool(plain))
 
 
 flash_attention.launches_fwd = 0  # forward kernel launches

@@ -43,7 +43,12 @@ on (row block, local row, column) of the TPU kernel's row blocks
 (``pick_rows``, which follows that kernel's memory budget and so depends on
 the itemsize).  The CUDA kernels take the block height as an argument that
 shapes nothing but the mask, so forward, backward, the plain version and the
-JAX package all drop the same elements for one seed.
+JAX package all drop the same elements for one seed.  Under data and tensor
+parallelism (``parallel/``) a call holds some batch rows and some d_ffn
+columns; ``row_map`` (as in ``fused_ln.py``) and ``col_map = (f_total,
+c0)`` key its mask on the one-device call's row and column, counter
+``(g % mask_rows) * f_total + c0 + col``, so every rank drops what that
+call drops.
 
 On a CUDA tensor ``fused_ffn`` launches the kernels or raises; the plain
 version runs for CPU tensors, or on any device when the caller passes
@@ -57,6 +62,7 @@ import ctypes
 import torch
 
 from transformertts_tpu_torch.ops.dropout_mask import keep_from_index, threshold_of
+from transformertts_tpu_torch.ops.fused_ln import global_rows
 
 _MASK_BUDGET = 13 * 1024 * 1024  # the TPU kernel's memory budget: shapes the mask only
 
@@ -84,31 +90,34 @@ def pick_rows(n: int, d: int, f: int, itemsize: int) -> int:
     return fitting[0]
 
 
-def _hidden(x, w1, b1, seed, dropout, mask_rows):
+def _hidden(x, w1, b1, seed, dropout, mask_rows, row_map=None, col_map=None):
     """(hp, hd, keep) in fp32 on (N, D) rows; ``keep`` is None without dropout."""
     n, f = x.shape[0], w1.shape[0]
     hp = x.float() @ w1.to(x.dtype).float().t() + b1.float()
     h = torch.clamp(hp, min=0.0)
     if dropout <= 0.0:
         return hp, h, None
-    rows = torch.arange(n, dtype=torch.int64, device=x.device)[:, None]
-    cols = torch.arange(f, dtype=torch.int64, device=x.device)[None, :]
-    keep = keep_from_index((rows % mask_rows) * f + cols, rows // mask_rows, seed, dropout)
+    f_total, c0 = col_map or (f, 0)
+    rows = global_rows(n, row_map, x.device)
+    cols = torch.arange(c0, c0 + f, dtype=torch.int64, device=x.device)[None, :]
+    keep = keep_from_index((rows % mask_rows) * f_total + cols, rows // mask_rows, seed, dropout)
     return hp, torch.where(keep, h / (1.0 - dropout), torch.zeros_like(h)), keep
 
 
-def fused_ffn_reference(x, w1, b1, w2, b2, seed, dropout, mask_rows):
+def fused_ffn_reference(x, w1, b1, w2, b2, seed, dropout, mask_rows, row_map=None,
+                        col_map=None):
     """Plain version of the forward kernel on (N, D) rows: the products in
     fp32 on operands rounded to x's dtype (exact for bf16 products)."""
-    _, hd, _ = _hidden(x, w1, b1, seed, dropout, mask_rows)
+    _, hd, _ = _hidden(x, w1, b1, seed, dropout, mask_rows, row_map, col_map)
     y = hd.to(x.dtype).float() @ w2.to(x.dtype).float().t() + b2.float()
     return y.to(x.dtype)
 
 
-def fused_ffn_backward_reference(x, w1, b1, w2, dy, seed, dropout, mask_rows):
+def fused_ffn_backward_reference(x, w1, b1, w2, dy, seed, dropout, mask_rows, row_map=None,
+                                 col_map=None):
     """Plain version of the backward kernels: (dx, dW1, db1, dW2, db2), the
     last four fp32 in the parameters' layout."""
-    hp, hd, keep = _hidden(x, w1, b1, seed, dropout, mask_rows)
+    hp, hd, keep = _hidden(x, w1, b1, seed, dropout, mask_rows, row_map, col_map)
     dy32 = dy.float()
     dhd = dy32 @ w2.to(x.dtype).float()
     dh = torch.where(hp > 0.0, dhd, torch.zeros_like(dhd))
@@ -236,7 +245,7 @@ def _lib():
     lib = _build.load("fused_ffn")
     if not getattr(lib, "_argtypes_set", False):
         i, u, f, p = ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p
-        tail = [i, f, u, u, i, p]
+        tail = [i, f, u, u, i] + [i] * 5 + [p]
         lib.tts_fused_ffn_fwd.argtypes = [i] * 3 + [p] * 6 + tail
         lib.tts_fused_ffn_fwd_tc.argtypes = [i] * 3 + [p] * 7 + [i, i] + tail
         lib.tts_fused_ffn_fwd_tc_bytes.argtypes = [i, i, i, p]
@@ -276,12 +285,14 @@ def _check_cuda_args(x, w1, b1, w2, b2=None, dy=None):
                 f"{shape} on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _mask_args(x, seed, dropout, mask_rows):
+def _mask_args(x, f, seed, dropout, mask_rows, row_map, col_map):
+    n = x.shape[0]
     return (int(dropout > 0.0), 1.0 - dropout, threshold_of(dropout), seed, mask_rows,
+            *(row_map or (n, n, 0)), *(col_map or (f, 0)),
             torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def fused_ffn_forward(x, w1, b1, w2, b2, seed, dropout, mask_rows):
+def fused_ffn_forward(x, w1, b1, w2, b2, seed, dropout, mask_rows, row_map=None, col_map=None):
     """The forward kernel on contiguous (N, D) CUDA rows: y, or raises.
     bf16 launches the tensor-core kernel (after the weights' staging
     kernel), fp32 the CUDA-core one."""
@@ -291,13 +302,14 @@ def fused_ffn_forward(x, w1, b1, w2, b2, seed, dropout, mask_rows):
     y = torch.empty_like(x)
     ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             y.data_ptr())
+    mask = _mask_args(x, f, seed, dropout, mask_rows, row_map, col_map)
     if x.dtype == torch.bfloat16:
         plan = fwd_plan(n, d, f)
         staged = torch.empty(plan["staged_bytes"], dtype=torch.uint8, device=x.device)
         rc = _lib().tts_fused_ffn_fwd_tc(n, d, f, *ptrs, staged.data_ptr(), plan["fsplit"],
-                                         plan["stages"], *_mask_args(x, seed, dropout, mask_rows))
+                                         plan["stages"], *mask)
     else:
-        rc = _lib().tts_fused_ffn_fwd(n, d, f, *ptrs, *_mask_args(x, seed, dropout, mask_rows))
+        rc = _lib().tts_fused_ffn_fwd(n, d, f, *ptrs, *mask)
     if rc != 0:
         raise RuntimeError(f"fused FFN forward kernel failed to launch (CUDA error {rc}) "
                            f"for N={n}, D={d}, F={f}, {x.dtype}")
@@ -305,7 +317,7 @@ def fused_ffn_forward(x, w1, b1, w2, b2, seed, dropout, mask_rows):
     return y
 
 
-def fused_ffn_backward(x, w1, b1, w2, dy, seed, dropout, mask_rows):
+def fused_ffn_backward(x, w1, b1, w2, dy, seed, dropout, mask_rows, row_map=None, col_map=None):
     """The backward kernels (bf16: weight cast, dh / hd, gradients, reduce;
     fp32: dx, parameter partials, two reduces; behind one
     entry point) on contiguous (N, D) CUDA rows: (dx, dW1, db1, dW2, db2),
@@ -314,6 +326,7 @@ def fused_ffn_backward(x, w1, b1, w2, dy, seed, dropout, mask_rows):
     f = w1.shape[0]
     _check_cuda_args(x, w1, b1, w2, dy=dy)
     lib = _lib()
+    mask = _mask_args(x, f, seed, dropout, mask_rows, row_map, col_map)
     dx = torch.empty_like(x)
     grads = torch.empty(2 * f * d + f + d, dtype=torch.float32, device=x.device)
     ptrs = (x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), dy.data_ptr(),
@@ -324,13 +337,11 @@ def fused_ffn_backward(x, w1, b1, w2, dy, seed, dropout, mask_rows):
         rc = lib.tts_fused_ffn_bwd_tc(
             n, d, f, *ptrs, *(scratch.data_ptr() + layout[k][0]
                               for k in ("w1b", "w2b", "dh", "hd", "pdb1", "pdb2", "pw1", "pw2")),
-            plan["spg"], plan["fgroups"], plan["tpc"], plan["chunks"],
-            *_mask_args(x, seed, dropout, mask_rows))
+            plan["spg"], plan["fgroups"], plan["tpc"], plan["chunks"], *mask)
     else:
         part = torch.empty(lib.tts_fused_ffn_bwd_chunks(n, f) * grads.numel(),
                            dtype=torch.float32, device=x.device)
-        rc = lib.tts_fused_ffn_bwd(n, d, f, *ptrs, part.data_ptr(),
-                                   *_mask_args(x, seed, dropout, mask_rows))
+        rc = lib.tts_fused_ffn_bwd(n, d, f, *ptrs, part.data_ptr(), *mask)
     if rc != 0:
         raise RuntimeError(f"fused FFN backward kernels failed to launch (CUDA error {rc}) "
                            f"for N={n}, D={d}, F={f}, {x.dtype}")
@@ -341,21 +352,22 @@ def fused_ffn_backward(x, w1, b1, w2, dy, seed, dropout, mask_rows):
 
 class _FusedFFN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, seed, dropout, mask_rows, plain):
+    def forward(ctx, x, w1, b1, w2, b2, seed, dropout, mask_rows, row_map, col_map, plain):
         ctx.save_for_backward(x, w1, b1, w2)
-        ctx.args = (seed, dropout, mask_rows, plain)
+        ctx.args = (seed, dropout, mask_rows, row_map, col_map, plain)
         fwd = fused_ffn_reference if plain or x.device.type == "cpu" else fused_ffn_forward
-        return fwd(x, w1, b1, w2, b2, seed, dropout, mask_rows)
+        return fwd(x, w1, b1, w2, b2, seed, dropout, mask_rows, row_map, col_map)
 
     @staticmethod
     def backward(ctx, dy):
         x, w1, b1, w2 = ctx.saved_tensors
-        seed, dropout, mask_rows, plain = ctx.args
+        seed, dropout, mask_rows, row_map, col_map, plain = ctx.args
         bwd = (fused_ffn_backward_reference if plain or x.device.type == "cpu"
                else fused_ffn_backward)
-        dx, dw1, db1, dw2, db2 = bwd(x, w1, b1, w2, dy.contiguous(), seed, dropout, mask_rows)
+        dx, dw1, db1, dw2, db2 = bwd(x, w1, b1, w2, dy.contiguous(), seed, dropout, mask_rows,
+                                     row_map, col_map)
         return (dx, dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b1.dtype),
-                None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def fused_ffn(
@@ -368,21 +380,28 @@ def fused_ffn(
     seed: int = 0,
     mask_rows: int | None = None,
     plain: bool = False,
+    row_map: tuple[int, int, int] | None = None,
+    col_map: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """The feed-forward block in one pass; differentiable in x and the four
     parameters.
 
     ``seed`` is the int32 seed of this call's mask (``seed_from_generator``);
     ``mask_rows`` the mask's block height, by default the TPU kernel's
-    (``pick_rows``).  ``plain=True`` asks for the plain version whatever the
-    device."""
+    (``pick_rows``); ``row_map = (t_local, t_total, offset)`` and ``col_map =
+    (f_total, c0)`` place the call's rows and d_ffn columns in the one-device
+    call's (default: the call is the whole; a caller that passes them passes
+    that call's ``mask_rows`` too).  ``plain=True`` asks for the plain
+    version whatever the device."""
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
     if mask_rows is None:
         mask_rows = pick_rows(x2.shape[0], d, w1.shape[0], x.element_size())
+    row_map = tuple(int(i) for i in row_map) if row_map is not None else None
+    col_map = tuple(int(i) for i in col_map) if col_map is not None else None
     y = _FusedFFN.apply(x2.contiguous(), w1.float().contiguous(), b1.float().contiguous(),
                         w2.float().contiguous(), b2.float().contiguous(), int(seed),
-                        float(dropout), int(mask_rows), bool(plain))
+                        float(dropout), int(mask_rows), row_map, col_map, bool(plain))
     return y.reshape(x.shape)
 
 

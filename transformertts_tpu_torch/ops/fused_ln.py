@@ -25,7 +25,12 @@ on (row block, local row, column) of the TPU kernel's row blocks
 (``pick_rows``).  The CUDA kernel works in rows, not blocks, and takes the
 block height as an argument that shapes nothing but the mask, so forward,
 backward, the plain version and the JAX package all drop the same elements
-for one seed.
+for one seed.  Under data and sequence parallelism (``parallel/``) a call
+holds some batch rows and a time slice of each; ``row_map = (t_local,
+t_total, offset)`` keys its mask on the global row
+``(row // t_local) * t_total + row % t_local + offset`` of the one-device
+call (``offset = b0 * t_total + t0``), so every rank drops what that call
+drops.
 
 On a CUDA tensor ``residual_dropout_layernorm`` launches the kernels or
 raises; the plain version runs for CPU tensors, or on any device when the
@@ -51,13 +56,23 @@ def pick_rows(n: int, d: int) -> int:
     return n
 
 
-def _z_and_stats(x, h, seed, dropout, eps, mask_rows):
+def global_rows(n: int, row_map, device) -> torch.Tensor:
+    """(n, 1) int64 global row of each of a call's n rows under ``row_map``
+    (None: the call is the whole)."""
+    rows = torch.arange(n, dtype=torch.int64, device=device)[:, None]
+    if row_map is None:
+        return rows
+    t_local, t_total, offset = row_map
+    return (rows // t_local) * t_total + rows % t_local + offset
+
+
+def _z_and_stats(x, h, seed, dropout, eps, mask_rows, row_map=None):
     n, d = x.shape
     x = x.float()
     h = h.float()
     keep = None
     if dropout > 0.0:
-        rows = torch.arange(n, dtype=torch.int64, device=x.device)[:, None]
+        rows = global_rows(n, row_map, x.device)
         cols = torch.arange(d, dtype=torch.int64, device=x.device)[None, :]
         keep = keep_from_index((rows % mask_rows) * d + cols, rows // mask_rows, seed, dropout)
         h = torch.where(keep, h / (1.0 - dropout), torch.zeros_like(h))
@@ -68,17 +83,19 @@ def _z_and_stats(x, h, seed, dropout, eps, mask_rows):
     return z, mu, rstd, keep
 
 
-def residual_dropout_layernorm_reference(x, h, gamma, beta, seed, dropout, eps, mask_rows):
+def residual_dropout_layernorm_reference(x, h, gamma, beta, seed, dropout, eps, mask_rows,
+                                         row_map=None):
     """Plain version of the forward kernel on (N, D) arrays."""
-    z, mu, rstd, _ = _z_and_stats(x, h, seed, dropout, eps, mask_rows)
+    z, mu, rstd, _ = _z_and_stats(x, h, seed, dropout, eps, mask_rows, row_map)
     y = (z - mu) * rstd * gamma.float() + beta.float()
     return y.to(x.dtype)
 
 
-def residual_dropout_layernorm_backward_reference(x, h, gamma, dy, seed, dropout, eps, mask_rows):
+def residual_dropout_layernorm_backward_reference(x, h, gamma, dy, seed, dropout, eps, mask_rows,
+                                                  row_map=None):
     """Plain version of the backward kernel: (dx, dh, dgamma, dbeta), the
     last two fp32 of shape (D,)."""
-    z, mu, rstd, keep = _z_and_stats(x, h, seed, dropout, eps, mask_rows)
+    z, mu, rstd, keep = _z_and_stats(x, h, seed, dropout, eps, mask_rows, row_map)
     zhat = (z - mu) * rstd
     dy = dy.float()
     dg = (dy * zhat).sum(dim=0)
@@ -126,9 +143,9 @@ def _lib():
     lib = _build.load("fused_ln")
     if not getattr(lib, "_argtypes_set", False):
         i, u, f, p = ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_void_p
-        lib.tts_fused_ln_fwd.argtypes = [i, i, i, p, p, p, p, p, f, i, f, u, u, i, p]
+        lib.tts_fused_ln_fwd.argtypes = [i, i, i, p, p, p, p, p, f, i, f, u, u, i, i, i, i, p]
         lib.tts_fused_ln_bwd.argtypes = [i, i, i, p, p, p, p, p, p, p, p, p, i, f, i, f, u, u,
-                                         i, p]
+                                         i, i, i, i, p]
         lib.tts_keep_mask.argtypes = [i, i, u, u, u, p, p]
         lib.tts_fused_ln_bwd_shared_bytes.argtypes = [i]
         lib.tts_fused_ln_bwd_shared_bytes.restype = ctypes.c_longlong
@@ -161,7 +178,11 @@ def _check_cuda_args(x, h, gamma, beta, extra=()):
         raise ValueError("fused LN: x must be contiguous and 16-byte aligned")
 
 
-def fused_ln_forward(x, h, gamma, beta, seed, dropout, eps, mask_rows):
+def _row_map_args(n: int, row_map) -> tuple:
+    return tuple(row_map) if row_map is not None else (n, n, 0)
+
+
+def fused_ln_forward(x, h, gamma, beta, seed, dropout, eps, mask_rows, row_map=None):
     """The forward kernel on contiguous (N, D) CUDA tensors: y, or raises."""
     g32, b32 = gamma.float().contiguous(), beta.float().contiguous()
     _check_cuda_args(x, h, g32, b32)
@@ -170,7 +191,7 @@ def fused_ln_forward(x, h, gamma, beta, seed, dropout, eps, mask_rows):
     rc = _lib().tts_fused_ln_fwd(
         int(x.dtype == torch.bfloat16), n, d, x.data_ptr(), h.data_ptr(), g32.data_ptr(),
         b32.data_ptr(), y.data_ptr(), eps, int(dropout > 0.0), 1.0 - dropout,
-        threshold_of(dropout), seed, mask_rows,
+        threshold_of(dropout), seed, mask_rows, *_row_map_args(n, row_map),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused LN forward kernel failed to launch (CUDA error {rc}) "
@@ -179,7 +200,7 @@ def fused_ln_forward(x, h, gamma, beta, seed, dropout, eps, mask_rows):
     return y
 
 
-def fused_ln_backward(x, h, gamma, dy, seed, dropout, eps, mask_rows):
+def fused_ln_backward(x, h, gamma, dy, seed, dropout, eps, mask_rows, row_map=None):
     """The backward kernel, one launch, on contiguous (N, D) CUDA tensors:
     (dx, dh, dgamma, dbeta), the last two fp32, or raises."""
     g32 = gamma.float().contiguous()
@@ -193,7 +214,8 @@ def fused_ln_backward(x, h, gamma, dy, seed, dropout, eps, mask_rows):
         int(x.dtype == torch.bfloat16), n, d, x.data_ptr(), h.data_ptr(),
         g32.data_ptr(), dy.data_ptr(), dx.data_ptr(), dh.data_ptr(), dgb.data_ptr(),
         part.data_ptr(), ticket_counters(x.device, stream).data_ptr(), bwd_blocks(n), eps,
-        int(dropout > 0.0), 1.0 - dropout, threshold_of(dropout), seed, mask_rows, stream)
+        int(dropout > 0.0), 1.0 - dropout, threshold_of(dropout), seed, mask_rows,
+        *_row_map_args(n, row_map), stream)
     if rc != 0:
         raise RuntimeError(f"fused LN backward kernel failed to launch (CUDA error "
                            f"{rc}) for N={n}, D={d}, {x.dtype}")
@@ -203,21 +225,23 @@ def fused_ln_backward(x, h, gamma, dy, seed, dropout, eps, mask_rows):
 
 class _FusedLN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, h, gamma, beta, seed, dropout, eps, mask_rows, plain):
+    def forward(ctx, x, h, gamma, beta, seed, dropout, eps, mask_rows, row_map, plain):
         ctx.save_for_backward(x, h, gamma)
-        ctx.args = (seed, dropout, eps, mask_rows, plain)
+        ctx.args = (seed, dropout, eps, mask_rows, row_map, plain)
         fwd = (residual_dropout_layernorm_reference if plain or x.device.type == "cpu"
                else fused_ln_forward)
-        return fwd(x, h, gamma, beta, seed, dropout, eps, mask_rows)
+        return fwd(x, h, gamma, beta, seed, dropout, eps, mask_rows, row_map)
 
     @staticmethod
     def backward(ctx, dy):
         x, h, gamma = ctx.saved_tensors
-        seed, dropout, eps, mask_rows, plain = ctx.args
+        seed, dropout, eps, mask_rows, row_map, plain = ctx.args
         bwd = (residual_dropout_layernorm_backward_reference
                if plain or x.device.type == "cpu" else fused_ln_backward)
-        dx, dh, dg, db = bwd(x, h, gamma, dy.contiguous(), seed, dropout, eps, mask_rows)
-        return dx, dh, dg.to(gamma.dtype), db.to(gamma.dtype), None, None, None, None, None
+        dx, dh, dg, db = bwd(x, h, gamma, dy.contiguous(), seed, dropout, eps, mask_rows,
+                             row_map)
+        return (dx, dh, dg.to(gamma.dtype), db.to(gamma.dtype), None, None, None, None, None,
+                None)
 
 
 def residual_dropout_layernorm(
@@ -230,19 +254,24 @@ def residual_dropout_layernorm(
     eps: float = 1e-5,
     mask_rows: int | None = None,
     plain: bool = False,
+    row_map: tuple[int, int, int] | None = None,
 ) -> torch.Tensor:
     """``LayerNorm(x + Dropout(h))``; differentiable in x, h, gamma, beta.
 
     ``seed`` is the int32 seed of this call's mask (``seed_from_generator``);
     ``mask_rows`` the mask's block height, by default the TPU kernel's
-    (``pick_rows``).  ``plain=True`` asks for the plain version whatever the
-    device."""
+    (``pick_rows``); ``row_map = (t_local, t_total, offset)`` places the
+    call's rows among the one-device call's (default: the call is the whole;
+    a caller that passes it passes the whole call's ``mask_rows`` too).
+    ``plain=True`` asks for the plain version whatever the device."""
     d = x.shape[-1]
     x2, h2 = x.reshape(-1, d), h.reshape(-1, d).to(x.dtype)
     if mask_rows is None:
         mask_rows = pick_rows(x2.shape[0], d)
+    if row_map is not None:
+        row_map = tuple(int(i) for i in row_map)
     y = _FusedLN.apply(x2.contiguous(), h2.contiguous(), gamma, beta, int(seed),
-                       float(dropout), float(eps), int(mask_rows), bool(plain))
+                       float(dropout), float(eps), int(mask_rows), row_map, bool(plain))
     return y.reshape(x.shape)
 
 

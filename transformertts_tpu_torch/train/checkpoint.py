@@ -15,6 +15,12 @@ previous latest intact; a step directory without ``meta.json`` (written
 last) is not a checkpoint.  ``max_to_keep`` keeps the newest steps.
 Whether a save carries an EMA copy is recorded in ``meta.json``
 (``has_ema``), the format's own metadata.
+
+A sharded state (``parallel.shard_state``) is saved whole: every rank
+gathers its model group's parts (``parallel.mesh.gather_state``), rank 0
+alone writes, and every rank then waits at a barrier (as the JAX package's
+``checkpoint.py``).  ``restore`` reads the whole tensors on every rank and
+takes this rank's parts, so a checkpoint restores on any mesh.
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+
+from transformertts_tpu_torch.parallel.mesh import gather_state, param_spec, shard_tensor
 
 log = logging.getLogger("transformertts_tpu_torch.checkpoint")
 
@@ -66,15 +75,24 @@ class CheckpointManager:
         """Write ``state`` (a ``train_step.TrainState``) as checkpoint ``step``;
         ``epoch`` is the next epoch to train."""
         step = int(step)
+        whole = gather_state(state)
+        mesh = state.model.layout.mesh
+        if mesh.size > 1:
+            if mesh.rank == 0:
+                self._write(step, state, epoch, extra, whole)
+            dist.barrier(group=mesh.group)
+        else:
+            self._write(step, state, epoch, extra, whole)
+
+    def _write(self, step: int, state, epoch: int, extra, whole: dict) -> None:
         tmp = self._dir / f".tmp-{step}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
         torch.save({
-            "model": state.model.state_dict(),
-            "opt": {"count": int(state.opt_state["count"]),
-                    "mu": state.opt_state["mu"], "nu": state.opt_state["nu"]},
+            "model": whole["model"],
+            "opt": {"count": int(state.opt_state["count"]), "mu": whole["mu"], "nu": whole["nu"]},
             "step": int(state.step),
-            "ema_params": state.ema_params,
+            "ema_params": whole["ema"],
         }, tmp / _STATE)
         meta = {"format": FORMAT, "step": step, "epoch": int(epoch),
                 "has_ema": state.ema_params is not None, **(extra or {})}
@@ -97,7 +115,7 @@ class CheckpointManager:
         parameters; a checkpoint's EMA that the template does not keep is
         adopted when ``adopt_ema`` (evaluation: ``eval_params`` then serve
         it) and dropped otherwise (resumed EMA-off training keeps its
-        layout)."""
+        layout).  A sharded template takes this rank's parts."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, 0
@@ -108,15 +126,24 @@ class CheckpointManager:
         state = state_template
         device = state.model.device
         payload = torch.load(path / _STATE, map_location=device, weights_only=True)
-        state.model.load_state_dict(payload["model"], strict=True)
+        mesh = state.model.layout.mesh
+        tp = mesh.n_model > 1
+
+        def local(tree):
+            if tree is None or not tp:
+                return tree
+            return {k: shard_tensor(v, param_spec(k, tp), mesh) for k, v in tree.items()}
+
+        state.model.load_state_dict(local(payload["model"]), strict=True)
         params = dict(state.model.named_parameters())
-        opt = payload["opt"]
+        opt = {**payload["opt"], "mu": local(payload["opt"]["mu"]),
+               "nu": local(payload["opt"]["nu"])}
         for key in ("mu", "nu"):
             if set(opt[key]) != set(params):
                 raise ValueError(f"{path}: optimizer {key} does not match the model's parameters")
         state.opt_state = {"count": int(opt["count"]), "mu": opt["mu"], "nu": opt["nu"]}
         state.step = int(payload["step"])
-        disk_ema = payload["ema_params"]
+        disk_ema = local(payload["ema_params"])
         if meta["has_ema"] != (disk_ema is not None):
             raise ValueError(f"{path}: meta.json and state.pt disagree on the EMA copy")
         if state.ema_params is not None and disk_ema is None:

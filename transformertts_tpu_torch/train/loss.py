@@ -10,6 +10,15 @@ loss.py:9-55) plus the guided-attention loss.
   2 s^2)`` applied to the decoder cross-attention weights.
 
 Everything in fp32.
+
+On a sharded model (``parallel/mesh.py``) the losses take a ``layout``:
+each rank holds some rows (and, under sequence parallelism, a time slice)
+of the outputs, and a masked mean becomes this rank's masked sum over the
+global count, so that the ranks' values sum to the one-process loss.  The
+guided-attention loss holds this rank's heads over all query rows; under
+tensor parallelism without sequence parallelism its partial sum is summed
+over the model ranks in the forward (every model rank then holds the whole
+loss, as it does the others).
 """
 
 from __future__ import annotations
@@ -18,13 +27,18 @@ import torch
 import torch.nn.functional as F
 
 from transformertts_tpu_torch.models.masks import lengths_to_valid_mask
+from transformertts_tpu_torch.parallel import collectives
+from transformertts_tpu_torch.parallel.mesh import SINGLE
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Mean of x over positions where mask (broadcastable) is True."""
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor, count=None) -> torch.Tensor:
+    """Mean of x over positions where mask (broadcastable) is True; given a
+    ``count`` (of every rank's positions), this rank's sum over it."""
     mask = mask.expand_as(x)
     total = torch.where(mask, x, torch.zeros_like(x)).sum()
-    return total / mask.sum().clamp(min=1)
+    if count is None:
+        count = mask.sum()
+    return total / count.clamp(min=1)
 
 
 def _bce_with_logits(logits, targets, pos_weight):
@@ -39,6 +53,7 @@ def tts_loss(
     stop_weight: float = 8.0,
     post_mel_weight: float = 0.5,
     stop_gate_k: int = 1,
+    layout=SINGLE,
 ) -> dict:
     pred = outputs["pred_melspec"].float()
     post = outputs["post_melspec"].float()
@@ -46,16 +61,21 @@ def tts_loss(
     mel = mel.float()
 
     t = pred.shape[1]
-    valid = lengths_to_valid_mask(lengths, t)  # (B, T)
+    t0 = layout.time_offset(t)
+    valid = lengths_to_valid_mask(lengths, t, t0)  # (B, T)
     frame_mask = valid[:, :, None]
+    frames = mels = None  # counts of every rank's valid frames (one collective)
+    if layout.sharded:
+        frames = layout.total(valid.sum())
+        mels = frames * pred.shape[-1]
 
-    pred_mel_loss = _masked_mean((pred - mel) ** 2, frame_mask)
-    post_mel_loss = _masked_mean((post - mel) ** 2, frame_mask)
+    pred_mel_loss = _masked_mean((pred - mel) ** 2, frame_mask, mels)
+    post_mel_loss = _masked_mean((post - mel) ** 2, frame_mask, mels)
     mel_loss = pred_mel_loss + post_mel_weight * post_mel_loss
 
-    pos = torch.arange(t, device=lengths.device)[None, :]
+    pos = torch.arange(t0, t0 + t, device=lengths.device)[None, :]
     gate = (pos >= (lengths[:, None] - stop_gate_k)).float()
-    stop_loss = _masked_mean(_bce_with_logits(stop, gate, stop_weight), valid)
+    stop_loss = _masked_mean(_bce_with_logits(stop, gate, stop_weight), valid, frames)
 
     return {
         "total": mel_loss + stop_loss,
@@ -81,6 +101,7 @@ def guided_attention_loss(
     mel_lens: torch.Tensor,  # (B,)
     phoneme_lens: torch.Tensor,  # (B,)
     sigma: float = 0.4,
+    layout=SINGLE,
 ) -> torch.Tensor:
     t_mel, t_phon = alignments.shape[-2:]
     t_norm, n_norm = _normalized_positions(alignments, mel_lens, phoneme_lens)
@@ -90,7 +111,15 @@ def guided_attention_loss(
         & lengths_to_valid_mask(phoneme_lens, t_phon)[:, None, :]
     )
     penalty = alignments.float() * w[None, :, None]  # broadcast over L, H
-    return _masked_mean(penalty, valid[None, :, None])
+    mask = valid[None, :, None]
+    count = None
+    if layout.sharded:  # this rank's heads over every query row: count every rank's cells
+        count = layout.total(mask.expand_as(penalty).sum(), over_time=False)
+        count = count * layout.mesh.n_model
+    loss = _masked_mean(penalty, mask, count)
+    if layout.tp and not layout.seq:
+        loss = collectives.reduce_from(loss, layout.mesh.model_group)
+    return loss
 
 
 def alignment_diagonality(

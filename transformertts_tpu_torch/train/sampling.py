@@ -8,7 +8,9 @@ inside the blocks; zero everything beyond the valid length.
 
 The dilation takes the seed bits as an input (``dilate_seeds``), so that a
 test can feed it the very bits another implementation drew; ``block_mask``
-draws them from an explicit generator.
+draws them from an explicit generator.  On a sharded model the mask is drawn
+and dilated at the one-process batch's shape and this rank's rows (and time
+slice) are taken from it.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from transformertts_tpu_torch.models.masks import lengths_to_valid_mask
+from transformertts_tpu_torch.parallel.mesh import SINGLE
 
 
 def dilate_seeds(seeds: torch.Tensor, l_bar: int = 8) -> torch.Tensor:
@@ -43,15 +46,18 @@ def apply_teacher_forcing(
     melspec_lens: torch.Tensor,  # (B,)
     p_tf: float,
     l_bar: int = 8,
+    layout=SINGLE,
 ) -> torch.Tensor:
     """Mix detached predictions into GT in blocks, zero past valid length."""
     b, t, _ = pred_melspec.shape
-    mask = block_mask(generator, b, t, p_tf, l_bar).to(melspec.device)
-    return mix_teacher_forcing(mask, pred_melspec, melspec, melspec_lens)
+    (b_total, t_total), index = layout.global_view((b, t), ("data", "time"))
+    mask = block_mask(generator, b_total, t_total, p_tf, l_bar)[index].to(melspec.device)
+    return mix_teacher_forcing(mask, pred_melspec, melspec, melspec_lens, index[1].start)
 
 
-def mix_teacher_forcing(mask, pred_melspec, melspec, melspec_lens) -> torch.Tensor:
-    """``apply_teacher_forcing`` for a given (B, T) block mask."""
+def mix_teacher_forcing(mask, pred_melspec, melspec, melspec_lens, t0: int = 0) -> torch.Tensor:
+    """``apply_teacher_forcing`` for a given (B, T) block mask; ``t0`` is the
+    first frame's position (a time slice)."""
     mixed = torch.where(mask[:, :, None], pred_melspec.detach(), melspec)
-    valid = lengths_to_valid_mask(melspec_lens, melspec.shape[1])[:, :, None]
+    valid = lengths_to_valid_mask(melspec_lens, melspec.shape[1], t0)[:, :, None]
     return torch.where(valid, mixed, torch.zeros_like(mixed))

@@ -23,6 +23,15 @@ nothing (parameters, moments, BatchNorm statistics, EMA, step count of the
 optimizer); deciding that costs the step's one device-to-host readback.  The
 port has one optimizer: ``runtime.fused_optimizer`` only changed dispatch in
 the JAX package and is not read here.
+
+On a model sharded by ``parallel.shard_state`` the step runs on this rank's
+part of the batch (``parallel.shard_batch``) and ends as the one-process
+step does: each rank's loss is its part of the global masked sums, so the
+gradients are summed over the data ranks (and, under sequence parallelism,
+the replicated parameters' over the model ranks too), the metrics are
+summed likewise, the global gradient norm counts each sharded parameter's
+squares over the model ranks and each replicated one once, and every rank
+then reads the same norm and loss and skips, or not, together.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ from transformertts_tpu_torch.config import Config
 from transformertts_tpu_torch.models.masks import lengths_to_valid_mask
 from transformertts_tpu_torch.models.modules import BatchNorm, DropoutRng
 from transformertts_tpu_torch.models.tts import TransformerTTS
+from transformertts_tpu_torch.parallel import collectives
+from transformertts_tpu_torch.parallel.mesh import param_spec, split_dim
 from transformertts_tpu_torch.train.loss import (
     alignment_diagonality,
     guided_attention_loss,
@@ -147,6 +158,7 @@ def _micro_loss(model: TransformerTTS, cfg: Config, batch: dict, p_tf: float, se
     phoneme, melspec = batch["phoneme"], batch["melspec"]
     p_lens, m_lens = batch["phoneme_lens"], batch["melspec_lens"]
 
+    layout = model.layout
     target_in = melspec
     if scheduled_sampling:
         with torch.no_grad():  # forward #1: train mode, no gradient, no postnet
@@ -155,7 +167,7 @@ def _micro_loss(model: TransformerTTS, cfg: Config, batch: dict, p_tf: float, se
         mix_rng = torch.Generator(device=device).manual_seed(seeds[2])
         target_in = apply_teacher_forcing(
             mix_rng, out1["pred_melspec"], melspec, m_lens, p_tf,
-            cfg.training.scheduled_sampling_block)
+            cfg.training.scheduled_sampling_block, layout)
 
     need_align = cfg.loss.guided_attn_weight > 0.0
     if ga_w is None:
@@ -163,15 +175,47 @@ def _micro_loss(model: TransformerTTS, cfg: Config, batch: dict, p_tf: float, se
     out = model(phoneme, target_in, p_lens, m_lens, return_alignments=need_align,
                 train=True, rng=DropoutRng(seeds[1], device))
     losses = tts_loss(out, melspec, m_lens, cfg.loss.stop_weight, cfg.loss.post_mel_weight,
-                      cfg.loss.stop_gate_k)
+                      cfg.loss.stop_gate_k, layout)
     total = losses["total"]
     if need_align:
-        ga = guided_attention_loss(out["alignments"], m_lens, p_lens, cfg.loss.guided_attn_sigma)
+        ga = guided_attention_loss(out["alignments"], m_lens, p_lens, cfg.loss.guided_attn_sigma,
+                                   layout)
         losses["guided_attn"] = ga
         total = total + ga_w * ga
     losses["total"] = total
     total.backward()
     return {k: v.detach() for k, v in losses.items()}, target_in
+
+
+def _sum_grads(layout, grads: dict) -> None:
+    """Sum the gradients in place over the ranks that hold other parts of
+    the batch: every gradient over the data ranks; under sequence
+    parallelism the replicated parameters' over the model ranks as well (a
+    sharded parameter's gradient is whole on its rank already).  One
+    all-reduce of a flat buffer per group."""
+    mesh = layout.mesh
+    groups = [(mesh.data_group, list(grads))] if mesh.n_data > 1 else []
+    if layout.seq:
+        groups.append((mesh.model_group,
+                       [k for k in grads if split_dim(param_spec(k, True)) is None]))
+    for group, names in groups:
+        flat = collectives.all_reduce(torch.cat([grads[k].reshape(-1) for k in names]), group)
+        for k, part in zip(names, flat.split([grads[k].numel() for k in names])):
+            grads[k] = part.view_as(grads[k])
+
+
+def _global_norm(layout, grads: dict) -> torch.Tensor:
+    """The gradient norm of the one-process step: each replicated
+    parameter's squares once, each sharded one's summed over the model
+    ranks."""
+    norms = torch.stack(torch._foreach_norm(list(grads.values())))
+    if not layout.tp:
+        return torch.linalg.vector_norm(norms)
+    split = torch.tensor([split_dim(param_spec(k, True)) is not None for k in grads],
+                         device=norms.device)
+    sq = norms * norms
+    sharded = collectives.all_reduce(sq[split].sum(), layout.mesh.model_group)
+    return torch.sqrt(sq[~split].sum() + sharded)
 
 
 def make_train_step(
@@ -217,14 +261,18 @@ def make_train_step(
             if i == 0:
                 mixed = target_in
 
+        layout = model.layout
         names = [name for name, p in params.items() if p.grad is not None]
         grads = dict(zip(names, torch._foreach_div([params[n].grad for n in names], float(k))))
         for name, p in params.items():  # a parameter the loss never reached
             if name not in grads:
                 grads[name] = torch.zeros_like(p)
         metrics = {name: torch.stack([m[name] for m in losses]).mean() for name in losses[0]}
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(list(grads.values()))))
+        if layout.sharded:
+            grads = {name: grads[name] for name in params}  # one order on every rank
+            _sum_grads(layout, grads)
+            metrics = dict(zip(metrics, layout.total(torch.stack(list(metrics.values())))))
+        grad_norm = _global_norm(layout, grads)
         metrics["grad_norm"] = grad_norm
 
         # failure detection: a non-finite step is skipped wholesale (the one readback)
@@ -254,7 +302,12 @@ def make_train_step(
 
 def make_eval_step(model: TransformerTTS, cfg: Config, with_outputs: bool = False) -> Callable:
     """Teacher-forced validation step (ref: lightning_module.py:102-131) on
-    the state's ``eval_params``."""
+    the state's ``eval_params``.  The model holds whole parameters: a
+    sharded model is evaluated through a copy that holds the gathered ones
+    (``parallel.mesh.gather_state``), as ``Trainer`` does."""
+    if model.layout.sharded:
+        raise ValueError("make_eval_step needs a model with whole parameters; load the "
+                         "gathered ones (parallel.mesh.gather_state) into an unsharded copy")
 
     @torch.no_grad()
     def eval_fn(state: TrainState, batch: dict):

@@ -8,9 +8,19 @@ val_loss, ref train.py:31-36), checkpoints with resume and best-metric
 retention, throughput in audio-seconds per second, and optional
 ``torch.profiler`` traces.
 
-The port trains on one device.  Data, tensor and sequence parallelism
-(``runtime.mesh_data`` / ``mesh_model`` > 1, ``runtime.shard_sequence``)
-raise ``NotImplementedError``: they are ROADMAP Queue 1 item 6.
+Data, tensor and sequence parallelism (``runtime.mesh_data`` /
+``mesh_model``, ``runtime.shard_sequence``) run one process per device over
+``torch.distributed`` (``parallel/mesh.py``; the caller initialises the
+process group, as ``cli train --distributed`` does).  The mesh must use
+every process and ``training.batch_size``, the global batch as in the JAX
+package, must split over its data ranks: each loads ``batch_size /
+n_data`` rows of every batch (``BucketedLoader``'s process shards), the
+ranks of one model group the same rows.  Only rank 0 logs, plots and
+writes ``history.json``; checkpoints hold the whole tensors (gathered,
+written by rank 0).  Validation runs on rank 0 on ``eval_model``, which
+holds the gathered ``eval_params`` (its free-running decode is the
+one-device decode-step kernel), and the metrics go to every rank, so
+every rank takes the same decisions.
 
 Randomness: every dropout mask and scheduled-sampling bit of epoch ``e``
 derives from ``torch.Generator().manual_seed(seed + 1000 + e)`` and the
@@ -27,12 +37,14 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
 import statistics
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from transformertts_tpu_torch.config import Config
 from transformertts_tpu_torch.data import BucketedLoader, LJSpeechDataset
@@ -41,10 +53,13 @@ from transformertts_tpu_torch.device import resolve_device
 from transformertts_tpu_torch.infer.decode import make_decode_fn
 from transformertts_tpu_torch.models import TransformerTTS
 from transformertts_tpu_torch.models.factory import runtime_model_kwargs
+from transformertts_tpu_torch.parallel import collectives
+from transformertts_tpu_torch.parallel.mesh import gather_tree, make_mesh, shard_batch, shard_state
 from transformertts_tpu_torch.train.checkpoint import CheckpointManager
 from transformertts_tpu_torch.train.metrics import mcd_dtw, mel_cepstral_distortion
 from transformertts_tpu_torch.train.schedules import noam_schedule, teacher_forcing_ratio
 from transformertts_tpu_torch.train.train_step import (
+    TrainState,
     count_params,
     create_train_state,
     make_eval_step,
@@ -58,32 +73,46 @@ TIMING_KEYS = ("audio_s_per_s", "epoch_s", "step_ms_median", "loader_wait_share"
                "loader_wait_first_ms", "val_tf_ms", "val_free_ms", "ckpt_save_ms")
 
 
-def _check_single_device(cfg: Config) -> None:
+def build_mesh(cfg: Config):
+    """The training mesh from ``runtime.mesh_data`` / ``mesh_model`` and the
+    world; raises, with the numbers, for a mesh that leaves a process idle,
+    a batch that does not split over the data ranks, or sequence
+    parallelism without model ranks to split time over."""
     r = cfg.runtime
-    if r.mesh_model > 1 or r.mesh_data > 1 or r.shard_sequence:
-        raise NotImplementedError(
-            "the port trains on one device: runtime.mesh_model / mesh_data > 1 and "
-            "runtime.shard_sequence are not ported yet (ROADMAP Queue 1 item 6, parallel/mesh.py)")
+    mesh = make_mesh(r.mesh_data, r.mesh_model)
+    if r.shard_sequence and mesh.n_model == 1:
+        raise ValueError("runtime.shard_sequence splits the time axes over the model ranks: "
+                         "it needs runtime.mesh_model > 1")
+    if cfg.training.batch_size % mesh.n_data:
+        raise ValueError(f"training.batch_size={cfg.training.batch_size} does not split over "
+                         f"{mesh.n_data} data ranks")
+    return mesh
 
 
 class Trainer:
     def __init__(self, cfg: Config, exp_dir: str | Path, resume: bool = True,
                  profile_steps: int = 0, device: str | torch.device | None = None):
-        """``device`` None means the GPU."""
-        _check_single_device(cfg)
+        """``device`` None means the GPU (each process's current one)."""
         self.device = resolve_device(device)
+        self.mesh = build_mesh(cfg)
+        self.rank0 = self.mesh.rank == 0
         self.profile_steps = profile_steps
         self.cfg = cfg
         self.exp_dir = Path(exp_dir)
-        self.log = setup_logger(str(self.exp_dir / "train.log"))
+        self.log = setup_logger(str(self.exp_dir / "train.log") if self.rank0 else None)
+        if not self.rank0:
+            self.log.setLevel(logging.WARNING)
+        if self.mesh.size > 1:
+            self.log.info("mesh: %s over %d processes%s", self.mesh.shape, self.mesh.size,
+                          " + sequence-parallel" if cfg.runtime.shard_sequence else "")
         self.model = TransformerTTS(
             cfg.model, generator=torch.Generator().manual_seed(cfg.training.seed),
             **runtime_model_kwargs(cfg, self.device))
-        # the free-running decode's model: eval_params and the BatchNorm
-        # statistics, copied in before every decode
+        # validation's model: eval_params and the BatchNorm statistics (whole
+        # tensors), copied in before every validation
         self.eval_model = copy.deepcopy(self.model)
-        self.plots_on = plots.available()
-        if not self.plots_on:
+        self.plots_on = self.rank0 and plots.available()
+        if self.rank0 and not self.plots_on:
             self.log.info("matplotlib is not installed: plots are skipped")
 
         self._build_data()
@@ -91,7 +120,8 @@ class Trainer:
         self.train_step_ss = make_train_step(
             self.model, cfg, scheduled_sampling=True, return_mixed_inputs=True)
         self.train_step_tf = make_train_step(self.model, cfg, scheduled_sampling=False)
-        self.eval_step = make_eval_step(self.model, cfg, with_outputs=True)
+        self.eval_step = make_eval_step(self.eval_model, cfg, with_outputs=True)
+        self.eval_state = TrainState(step=0, model=self.eval_model, opt_state={})
         self.decode = make_decode_fn(self.eval_model, cfg, device=self.device)
         self.audio_sec_per_frame = cfg.audio.hop_length / cfg.audio.sample_rate
         self.last_free_decode: dict | None = None  # inputs and outputs of the last one
@@ -106,9 +136,12 @@ class Trainer:
             n_mels=cfg.model.n_mels,
             seed=cfg.training.seed,
         )
+        # each data rank loads its rows of every global batch; validation
+        # runs whole on rank 0
         self.train_loader = BucketedLoader(
-            train_ds, cfg.training.batch_size, grad_acc_steps=cfg.training.grad_acc_steps,
-            shuffle=True, drop_last=True, **common)
+            train_ds, cfg.training.batch_size // self.mesh.n_data,
+            grad_acc_steps=cfg.training.grad_acc_steps, shuffle=True, drop_last=True,
+            process_index=self.mesh.data_rank, process_count=self.mesh.n_data, **common)
         self.val_loader = BucketedLoader(
             val_ds, cfg.training.batch_size, grad_acc_steps=1,
             shuffle=False, drop_last=False, **common)
@@ -136,8 +169,10 @@ class Trainer:
             restored, epoch = self.ckpt.restore(state, adopt_ema=False)
             if restored is not None:
                 state, self.start_epoch = restored, epoch
+        if self.mesh.size > 1:
+            state = shard_state(state, self.mesh, cfg.runtime.shard_sequence)
         self.state = state
-        self.log.info("model parameters: %.2fM", count_params(self.model) / 1e6)
+        self.log.info("model parameters: %.2fM", count_params(self.eval_model) / 1e6)
         self.noam = noam_schedule(cfg.model.d_model, cfg.training.warmup_steps)
         # guided-attention annealing (loss.guided_attn_anneal_at_diag): the
         # epoch the linear decay began, or None while the trigger hasn't
@@ -178,9 +213,11 @@ class Trainer:
             wait_s.append(t1 - t0)
             if batch is None:
                 break
-            if profile_steps and len(step_s) == 1 and prof is None:
+            if profile_steps and len(step_s) == 1 and prof is None and self.rank0:
                 prof = self._start_profile()
             audio_seconds += float(batch["melspec_lens"].sum()) * self.audio_sec_per_frame
+            if self.model.layout.seq:  # this rank's time slice of its rows
+                batch = shard_batch(batch, self.mesh, shard_sequence=True, rows=False)
             dev_batch = batch_to_device(batch, self.device)
             if use_ss:
                 self.state, metrics, mixed = step_fn(self.state, dev_batch, p_tf, gen, ga_w)
@@ -221,6 +258,10 @@ class Trainer:
                 for name, val in zip(names, row):
                     totals[name] = totals.get(name, 0.0) + val
         n_steps = len(step_metrics)
+        if self.mesh.n_data > 1:  # every data rank's rows
+            audio_seconds = float(collectives.all_reduce(
+                torch.tensor(audio_seconds, dtype=torch.float64, device=self.device),
+                self.mesh.data_group))
         skipped = totals.get("skipped", 0.0)
         if skipped:
             self.log.warning("epoch %d: %d non-finite steps skipped (failure guard)",
@@ -295,11 +336,22 @@ class Trainer:
     # ------------------------------------------------------------------- val
 
     def validate(self, epoch: int) -> tuple[float, dict]:
+        """Teacher-forced and free-running validation on ``eval_model``; on
+        a mesh rank 0 validates and every rank returns its numbers."""
+        self._sync_eval_model()
+        result = self._validate(epoch) if self.rank0 else None
+        if self.mesh.size > 1:
+            box = [result]
+            dist.broadcast_object_list(box, src=self.mesh.ranks[0], group=self.mesh.group)
+            result = box[0]
+        return result
+
+    def _validate(self, epoch: int) -> tuple[float, dict]:
         t0 = time.perf_counter()
         per_batch, first = [], None
         for batch in self.val_loader.epoch(0):
             micro = {name: arr[0] for name, arr in batch.items()}
-            metrics, out = self.eval_step(self.state, micro)
+            metrics, out = self.eval_step(self.eval_state, micro)
             per_batch.append(metrics)
             if first is None:
                 first = (micro, out)
@@ -339,11 +391,13 @@ class Trainer:
 
     def _sync_eval_model(self) -> None:
         """Copy the state's ``eval_params`` (the EMA copy when one is kept)
-        and the BatchNorm statistics into the decode's model; the decode
-        repacks its kernel weights because their versions changed."""
+        and the BatchNorm statistics, whole (gathered over the model ranks:
+        every rank calls), into ``eval_model``; the decode repacks its
+        kernel weights because their versions changed."""
+        # the BatchNorm statistics are whole on every rank; the parameters are gathered
+        whole = {**self.model.state_dict(), **gather_tree(self.state.eval_params, self.mesh)}
         with torch.no_grad():
-            self.eval_model.load_state_dict(
-                {**self.model.state_dict(), **self.state.eval_params}, strict=True)
+            self.eval_model.load_state_dict(whole, strict=True)
 
     def _free_running_eval(self, epoch: int, n_samples: int = 4) -> dict:
         """Free-running decode of the first validation items: plot one (ref:
@@ -362,7 +416,6 @@ class Trainer:
             seq = item["sequence"][:t_phon]
             phoneme[i, : len(seq)] = seq
             lens[i] = len(seq)
-        self._sync_eval_model()
         t0 = time.perf_counter()
         out = self.decode(phoneme, lens)
         post = out["post_melspec"].cpu().numpy()
@@ -442,8 +495,9 @@ class Trainer:
             t0 = time.perf_counter()
             self.ckpt.save(self.state.step, self.state, epoch + 1)
             row["ckpt_save_ms"] = 1e3 * (time.perf_counter() - t0)
-            with open(self.exp_dir / "history.json", "w") as f:
-                json.dump(history, f, indent=2)
+            if self.rank0:
+                with open(self.exp_dir / "history.json", "w") as f:
+                    json.dump(history, f, indent=2)
             row_metric = row.get(best_metric_name)
             if self.ckpt_best is not None and row_metric is not None and row_metric < best_metric:
                 best_metric = row_metric
