@@ -469,7 +469,8 @@ def demangle(names: list[str]) -> list[str]:
         return names
     out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
                          check=True, timeout=60).stdout.splitlines()
-    found = [re.search(r"::(\w+(?:<[^()]*>)?)\(", o) for o in out]
+    out = [o.replace("(anonymous namespace)::", "") for o in out]
+    found = [re.search(r"\b(\w+(?:<[^()]*>)?)\(", o) for o in out]
     return [f.group(1) if f else o for f, o in zip(found, out)]
 
 
@@ -622,8 +623,8 @@ def kernel_report(name: str, path) -> None:
             # hp and the first of y, for the 32 intermediate elements a thread holds
             at = [i for i, ln in enumerate(lines) if "HGMMA" in ln]
             gap = max((b - a - 1 for a, b in zip(at, at[1:])), default=0)
-            log(f"[build] fused_ffn: ffn_fwd_tc<64>: {len(lines)} SASS instructions; the widest "
-                f"gap between two HGMMAs (the slice's epilogue) {gap} instructions, "
+            log(f"[build] fused_ffn: {demangle([fn])[0]}: {len(lines)} SASS instructions; the "
+                f"widest gap between two HGMMAs (the slice's epilogue) {gap} instructions, "
                 f"{gap / 32:.1f} per intermediate element")
 
 
@@ -2628,7 +2629,7 @@ def _parallel_worker(rank: int, port: int, out_dir: str, device_type: str, cfg, 
     import torch
     import torch.distributed as dist
 
-    from transformertts_tpu_torch.parallel import collectives, make_mesh, shard_batch, shard_state
+    from transformertts_tpu_torch.parallel import make_mesh, shard_batch, shard_state
     from transformertts_tpu_torch.train import create_train_state
 
     device = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
@@ -2643,9 +2644,8 @@ def _parallel_worker(rank: int, port: int, out_dir: str, device_type: str, cfg, 
         state = shard_state(create_train_state(model, cfg), mesh, shard_sequence=True)
         batch = shard_batch(batch, mesh, shard_sequence=True)
         out = parallel_run(model, cfg, state, batch, PARALLEL_TIMED)
-        out["staged"] = sorted(collectives.STAGED)
         if rank:
-            out = {k: out[k] for k in ("launches", "step_ms", "staged")}
+            out = {k: out[k] for k in ("launches", "step_ms")}
         torch.save(out, f"{out_dir}/parallel_{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -2673,86 +2673,133 @@ def check_parallel(got: dict, ref: dict) -> str:
             f"BatchNorm statistics after the step within {p_err:.1e}")
 
 
-def time_mask_offsets(device, card: str) -> None:
-    """Rows 3-8 at PERF.md's shapes (bf16, p 0.1): each kernel at a shard's
-    mask offsets against its plain version at the same offsets (the
-    kernel phase holds offset 0), then device time per call at offset 0
-    (the one-device call) and at the shard's offsets, in turns (0, offset,
-    offset, 0): the offsets change only integers of the mask."""
+def shard_kernel_calls(cfg, batch, rank: int, device) -> dict:
+    """The flash and LN calls of model rank ``rank`` of the (1 x 2) + SP
+    step of ``cfg`` on ``batch`` at their own shard geometry: 16 x H / 2
+    heads over all of T (flash, ``mask_bh = (0, H, rank H / 2)``), T / 2
+    local rows of each batch row (LN, ``row_map = (T / 2, T, rank T / 2)``),
+    bf16, the layers' dropout rate.  Also the FFN's at ``Config()``'s (2 x
+    2) + SP geometry (data rank ``rank``, model rank 1: whole T, half the
+    batch rows, d_ffn / 2 columns), since ``large_tp.yaml``'s d_ffn has no
+    FFN mask geometry.  name -> (kernel call, plain call), each given the
+    mask offsets to use (None: offset 0)."""
     import torch
 
     from transformertts_tpu_torch.ops import flash_attention as fa
     from transformertts_tpu_torch.ops import fused_ffn as ffn
     from transformertts_tpu_torch.ops import fused_ln as ln
 
-    dtype, p = torch.bfloat16, 0.1
-    b, h, dh, d, f = TRAIN_B, TRAIN_H, TRAIN_DH, TRAIN_D, TRAIN_F
-    q, k, v, dout, bias = attn_inputs(b, h, 768, 768, dh, dtype, device, seed=5)
-    fargs = (dh ** -0.5, True, p, fa.pick_block(768, 768))
-    out, m, l = fa.flash_forward(q, k, v, bias, 99, *fargs)
-    n = LN_ROWS["decoder"]
-    x, hh, g, be, dy = ln_inputs(n, d, dtype, device, seed=6)
-    rows_ln = ln.pick_rows(n, d)
-    fx, w1, b1, w2, b2, fdy = ffn_inputs(n, d, f, dtype, device, seed=7)
-    rows_ffn = ffn.pick_rows(n, d, f, 2)
-    # a shard of twice the batch, heads, rows and d_ffn
-    shard = {"flash": {"mask_bh": (b, 2 * h, h)},
-             "ln": {"row_map": (768, 1536, b * 1536 + 768)},
-             "ffn": {"row_map": (768, 768, n), "col_map": (2 * f, f)}}
-    calls = {
-        "flash_fwd": lambda o: fa.flash_forward(q, k, v, bias, 99, *fargs, **o.get("flash", {})),
-        "flash_bwd": lambda o: fa.flash_backward(q, k, v, bias, 99, out, dout, m, l, *fargs,
-                                                 **o.get("flash", {})),
-        "ln_fwd": lambda o: ln.fused_ln_forward(x, hh, g, be, 99, p, 1e-5, rows_ln,
-                                                **o.get("ln", {})),
-        "ln_bwd": lambda o: ln.fused_ln_backward(x, hh, g, dy, 99, p, 1e-5, rows_ln,
-                                                 **o.get("ln", {})),
-        "ffn_fwd": lambda o: ffn.fused_ffn_forward(fx, w1, b1, w2, b2, 99, p, rows_ffn,
-                                                   **o.get("ffn", {})),
-        "ffn_bwd": lambda o: ffn.fused_ffn_backward(fx, w1, b1, w2, fdy, 99, p, rows_ffn,
-                                                    **o.get("ffn", {})),
-    }
-    t = lambda x: x.transpose(1, 2)  # noqa: E731
-    plain = {
-        "flash_fwd": lambda: [t(fa.flash_attention_reference(
-            t(q), t(k), t(v), bias, 99, *fargs, **shard["flash"])[0])],
-        "flash_bwd": lambda: [t(grad) for grad in fa.flash_attention_backward_reference(
-            t(q), t(k), t(v), bias, 99, t(out), t(dout), m, l, *fargs, **shard["flash"])],
-        "ln_fwd": lambda: [ln.residual_dropout_layernorm_reference(
-            x, hh, g, be, 99, p, 1e-5, rows_ln, **shard["ln"])],
-        "ln_bwd": lambda: ln.residual_dropout_layernorm_backward_reference(
-            x, hh, g, dy, 99, p, 1e-5, rows_ln, **shard["ln"]),
-        "ffn_fwd": lambda: [ffn.fused_ffn_reference(fx, w1, b1, w2, b2, 99, p, rows_ffn,
-                                                    **shard["ffn"])],
-        "ffn_bwd": lambda: ffn.fused_ffn_backward_reference(fx, w1, b1, w2, fdy, 99, p, rows_ffn,
-                                                            **shard["ffn"]),
-    }
-    # the kernel's forward under the shard's offsets: the same output as
-    # under its own only where the mask agrees, so the out, m, l the flash
-    # backward reads are the shard's
-    out, m, l = fa.flash_forward(q, k, v, bias, 99, *fargs, **shard["flash"])
-    for name, call in calls.items():
-        got = call(shard)
-        got = [got] if torch.is_tensor(got) else list(got)
-        if name == "flash_fwd":
-            got = got[:1]
-        errs = [rel_err(a, b)[1] for a, b in zip(got, plain[name]())]
-        if not max(errs) <= TOL["bfloat16"]:
-            raise AssertionError(f"{name} at shard offsets != its plain version: {errs}")
-        log(f"[parallel] {name} at shard offsets {shard[name.split('_')[0]]}: kernel vs plain "
-            f"at the same offsets, worst relative error {max(errs):.1e}")
-    out, m, l = fa.flash_forward(q, k, v, bias, 99, *fargs)
-    for name, call in calls.items():
-        times = [device_ms(lambda o=o: call(o), n=10, reps=5) for o in ({}, shard, shard, {})]
-        log(f"[parallel] {name} at PERF.md's shape, offset 0 / shard offsets / shard offsets / "
-            f"offset 0: " + " / ".join(f"{ms * 1e3:.1f}" for ms in times) + f" us [{card}]")
+    m, dtype, p = cfg.model, torch.bfloat16, cfg.model.decoder_dropout
+    b, t_mel, t_ph = (int(n) for n in batch["melspec"].shape[1:3] + batch["phoneme"].shape[2:3])
+    h_total, d = m.decoder_n_head, m.d_model
+    h, dh = h_total // 2, d // h_total
+    tr = lambda x: x.transpose(1, 2)  # noqa: E731
+    calls = {}
+    shapes = {"enc_self": (t_ph, t_ph, False), "dec_self": (t_mel, t_mel, True),
+              "cross": (t_mel, t_ph, False)}
+    for name, (tq, tk, causal) in shapes.items():
+        q, k, v, dout, bias = attn_inputs(b, h, tq, tk, dh, dtype, device, seed=31 + rank)
+        fargs = (dh ** -0.5, causal, p, fa.pick_block(tq, tk))
+        shard = (0, h_total, rank * h)
+        out, mx, l = fa.flash_forward(q, k, v, bias, 99, *fargs, mask_bh=shard)
+
+        def kern_f(o, q=q, k=k, v=v, bias=bias, fargs=fargs):
+            return [fa.flash_forward(q, k, v, bias, 99, *fargs, mask_bh=o)[0]]
+
+        def plain_f(o, q=q, k=k, v=v, bias=bias, fargs=fargs):
+            return [tr(fa.flash_attention_reference(tr(q), tr(k), tr(v), bias, 99, *fargs,
+                                                    mask_bh=o)[0])]
+
+        def kern_b(o, q=q, k=k, v=v, bias=bias, fargs=fargs, fwd=(out, dout, mx, l)):
+            out, dout, mx, l = fwd
+            return list(fa.flash_backward(q, k, v, bias, 99, out, dout, mx, l, *fargs,
+                                          mask_bh=o))
+
+        def plain_b(o, q=q, k=k, v=v, bias=bias, fargs=fargs, fwd=(out, dout, mx, l)):
+            out, dout, mx, l = fwd
+            return [tr(g) for g in fa.flash_attention_backward_reference(
+                tr(q), tr(k), tr(v), bias, 99, tr(out), tr(dout), mx, l, *fargs, mask_bh=o)]
+
+        what = f"flash {name} B {b} x {h} of {h_total} heads ({tq}, {tk})"
+        calls[f"{what} fwd"] = (kern_f, plain_f, shard)
+        calls[f"{what} bwd"] = (kern_b, plain_b, shard)
+    for name, t in (("decoder", t_mel), ("encoder", t_ph)):
+        n, half = b * t // 2, t // 2
+        x, hh, g, be, dy = ln_inputs(n, d, dtype, device, seed=41 + rank)
+        rows = ln.pick_rows(b * t, d)
+        shard = (half, t, rank * half)
+        what = f"LN {name} {n} x {d} (mask rows {rows})"
+        calls[f"{what} fwd"] = (
+            lambda o, a=(x, hh, g, be), r=rows: [ln.fused_ln_forward(*a, 99, p, 1e-5, r,
+                                                                     row_map=o)],
+            lambda o, a=(x, hh, g, be), r=rows: [ln.residual_dropout_layernorm_reference(
+                *a, 99, p, 1e-5, r, row_map=o)],
+            shard)
+        calls[f"{what} bwd"] = (
+            lambda o, a=(x, hh, g, dy), r=rows: list(ln.fused_ln_backward(
+                *a, 99, p, 1e-5, r, row_map=o)),
+            lambda o, a=(x, hh, g, dy), r=rows: list(
+                ln.residual_dropout_layernorm_backward_reference(*a, 99, p, 1e-5, r,
+                                                                 row_map=o)),
+            shard)
+    c = default_config().model
+    t, f_total = t_mel, c.decoder_d_ffn
+    n, f = b // 2 * t, f_total // 2
+    fx, w1, b1, w2, b2, fdy = ffn_inputs(n, c.d_model, f, dtype, device, seed=51 + rank)
+    rows = ffn.pick_rows(b * t, c.d_model, f_total, 2)
+    shard = ((t, t, rank * n), (f_total, f))
+    what = f"FFN Config() {n} x {c.d_model}, d_ffn {f} of {f_total}"
+
+    def ffn_kw(o):
+        return {} if o is None else {"row_map": o[0], "col_map": o[1]}
+
+    calls[f"{what} fwd"] = (
+        lambda o: [ffn.fused_ffn_forward(fx, w1, b1, w2, b2, 99, p, rows, **ffn_kw(o))],
+        lambda o: [ffn.fused_ffn_reference(fx, w1, b1, w2, b2, 99, p, rows, **ffn_kw(o))],
+        shard)
+    calls[f"{what} bwd"] = (
+        lambda o: list(ffn.fused_ffn_backward(fx, w1, b1, w2, fdy, 99, p, rows, **ffn_kw(o))),
+        lambda o: list(ffn.fused_ffn_backward_reference(fx, w1, b1, w2, fdy, 99, p, rows,
+                                                        **ffn_kw(o))),
+        shard)
+    return calls
+
+
+def check_shard_kernels(cfg, batch, device, card: str) -> None:
+    """Rows 3-8 at the shard geometry of each rank (``shard_kernel_calls``):
+    each kernel against its plain version at the same mask offsets within
+    ``TOL``; then, for shard 1, device time per call of the kernel at the
+    shard's offsets and at offset 0 in turns (0, offset, offset, 0), and of
+    the plain version."""
+    import torch
+
+    for rank in (0, 1):
+        calls = shard_kernel_calls(cfg, batch, rank, device)
+        for what, (kern, plain, shard) in calls.items():
+            errs = [rel_err(a, b)[1] for a, b in zip(kern(shard), plain(shard))]
+            if not max(errs) <= TOL["bfloat16"]:
+                raise AssertionError(f"{what} at shard {rank}'s offsets {shard} != its plain "
+                                     f"version: {errs}")
+            log(f"[parallel] {what} at shard {rank}'s mask offsets {shard}: kernel vs "
+                f"plain, worst relative error {max(errs):.1e}")
+        if rank == 1 and device.type == "cuda":
+            for what, (kern, plain, shard) in calls.items():
+                times = [device_ms(lambda o=o: kern(o), n=10, reps=5)
+                         for o in (None, shard, shard, None)]
+                plain_ms = time_ms(lambda: plain(shard), 3, warmup=1)
+                log(f"[parallel] {what}: kernel at offset 0 / shard 1's offsets / shard 1's "
+                    f"offsets / offset 0: " + " / ".join(f"{ms * 1e3:.1f}" for ms in times)
+                    + f" us, plain {plain_ms * 1e3:.0f} us [{card}]")
+        del calls
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
 
 
 def phase_parallel(device, root, card: str, cfg=None, batch=None) -> dict:
     """DP / TP / SP on the card: the ``large_tp.yaml`` step at full width,
     bf16, (1 x 2) + SP in two processes against the one-process step on the
     same inputs; ``entry.dryrun_multichip`` over NCCL on every card; rows
-    3-8 at offset 0 and at shard offsets.  Returns the launch counts of the
+    3-8 at each model rank's shard geometry (``check_shard_kernels``).  Returns the launch counts of the
     sharded step (per rank) and the ms per step."""
     import socket
 
@@ -2794,14 +2841,13 @@ def phase_parallel(device, root, card: str, cfg=None, batch=None) -> dict:
         f"{runs[0]['metrics']['total']:.5f} vs one process {ref['metrics']['total']:.5f}, "
         f"grad_norm {runs[0]['metrics']['grad_norm']:.4f} vs {ref['metrics']['grad_norm']:.4f}; "
         f"{note}; flash / LN launches per rank {runs[0]['launches']} at "
-        f"{m.encoder_n_head // 2} heads and {b * t // 2} decoder rows; "
-        f"collectives staged through host memory: {runs[0]['staged'] or 'none'}")
+        f"{m.encoder_n_head // 2} heads and {b * t // 2} decoder rows")
     log(f"[time] large_tp.yaml step (1 micro-batch of {b} rows): one process "
         f"{ref['step_ms']:.1f} ms, (1 x 2) + SP ranks {runs[0]['step_ms']:.1f} / "
         f"{runs[1]['step_ms']:.1f} ms (two processes on one card, gloo) [{card}]")
     if device.type == "cuda":
         dryrun_multichip(torch.cuda.device_count())
-        time_mask_offsets(device, card)
+        check_shard_kernels(cfg, batch, device, card)
     return {"launches": [run["launches"] for run in runs], "ref_ms": ref["step_ms"],
             "step_ms": [run["step_ms"] for run in runs]}
 

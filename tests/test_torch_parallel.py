@@ -12,7 +12,9 @@ Tolerances: loss ``rel 2e-5`` and grad norm ``rel 2e-4`` (the JAX tests'
 ``test_collectives_audit.py:138-139``); parameters, Adam moments, EMA and
 BatchNorm statistics after the step within 1e-5 absolute (only summation
 order differs).  The one-process port step is held to the JAX step by
-``tests/test_torch_train_step.py``.
+``tests/test_torch_train_step.py``; two more cases, (1, 2) + SP and (2, 2)
++ SP with dropout off, hold the sharded step to the JAX step directly, on
+that module's weights, batch and tolerances.
 """
 
 import json
@@ -29,12 +31,19 @@ import torch.multiprocessing as mp
 
 from tests import torch_parallel_cases as cases
 from tests.test_data import corpus  # noqa: F401  (fixture)
+from tests.test_torch_models import _variables
+from tests.test_torch_train_step import _batch as train_step_batch
+from tests.test_torch_train_step import _close, _close_tree, _close_updates
+from tests.test_torch_train_step import _configs as train_step_configs
 from tests.test_torch_trainer import micro_overrides
 from transformertts_tpu.config import Config as JaxConfig
 from transformertts_tpu.config import load_config as jax_load_config
 from transformertts_tpu.models import TransformerTTS as JaxTTS
+from transformertts_tpu.models.factory import runtime_model_kwargs as jax_runtime_kwargs
 from transformertts_tpu.parallel import param_spec as jax_param_spec
+from transformertts_tpu.train import train_step as jax_ts
 from transformertts_tpu_torch.config import Config, load_config
+from transformertts_tpu_torch.convert import torch_state_from_jax
 from transformertts_tpu_torch.entry import dryrun_multichip
 from transformertts_tpu_torch.models import TransformerTTS
 from transformertts_tpu_torch.ops import flash_attention as fa
@@ -43,6 +52,7 @@ from transformertts_tpu_torch.ops import fused_ln as ln
 from transformertts_tpu_torch.parallel import make_mesh, param_spec, shard_batch
 from transformertts_tpu_torch.parallel.mesh import Mesh
 from transformertts_tpu_torch.train import create_train_state, make_train_step
+from transformertts_tpu_torch.train import train_step as ts
 from transformertts_tpu_torch.train.checkpoint import CheckpointManager
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -55,6 +65,7 @@ STEP_CASES = {  # name -> (mesh, ranks, sequence parallel, config, batch seed)
     "dp_tp_sp_ffn": ((2, 2), [0, 1, 2, 3], True, {"ffn": True}, 0),
     "restored_sp": ((1, 2), [0, 1], True, {}, 5),
 }
+JAX_CASES = {"jax_tp_sp": ((1, 2), [2, 3]), "jax_dp_tp_sp": ((2, 2), [0, 1, 2, 3])}
 SP_OVERRIDES = ["runtime.mesh_model=2", "runtime.shard_sequence=true"]
 
 
@@ -64,21 +75,54 @@ def _port() -> int:
         return s.getsockname()[1]
 
 
-def _plan(tmp: Path) -> list:
+def _plan(tmp: Path, jax_ref: dict) -> list:
     def step(name, **extra):
         mesh, ranks, sp, cfg, seed = STEP_CASES[name]
         return dict(name=name, mesh=mesh, ranks=ranks, sp=sp, cfg=cfg, seed=seed, kind="step",
                     **extra)
+
+    def jax_step(name):
+        mesh, ranks = JAX_CASES[name]
+        return dict(name=name, mesh=mesh, ranks=ranks, sp=True, kind="step",
+                    config=jax_ref["pcfg"], data=jax_ref["data"], p_tf=1.0,
+                    weights=str(tmp / "jax_weights.pt"))
 
     return [
         [step("dp"), step("tp", save=str(tmp / "saved_tp"))],
         [step("tp_sp"), dict(name="skip", mesh=(2, 1), ranks=[2, 3], sp=False, kind="step",
                              poison_rank=1)],
         [step("dp_tp_sp_ffn")],
+        [jax_step("jax_dp_tp_sp")],
         [dict(name="fwd_tp", mesh=(1, 2), ranks=[0, 1], sp=False, kind="forward"),
          dict(name="fwd_sp", mesh=(1, 2), ranks=[2, 3], sp=True, kind="forward")],
-        [step("restored_sp", restore=str(tmp / "one"))],
+        [step("restored_sp", restore=str(tmp / "one")), jax_step("jax_tp_sp")],
     ]
+
+
+def _jax_reference(tmp: Path) -> dict:
+    """One JAX train step as ``tests/test_torch_train_step.py``'s ``both``
+    fixture builds it (dropout off, ``p_tf`` 1, Pallas in interpret mode),
+    its weights saved for the ``jax_*`` cases as a torch state dict."""
+    jcfg, pcfg = train_step_configs()
+    variables = _variables(1, 0)
+    jmodel = JaxTTS(jcfg.model, **jax_runtime_kwargs(jcfg))
+    jstep = jax_ts.make_train_step(jmodel, jcfg, scheduled_sampling=True, donate=False)
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    jstate = jax_ts.TrainState(
+        step=jnp.zeros((), jnp.int32), params=params,
+        batch_stats=jax.tree.map(jnp.asarray, variables["batch_stats"]),
+        opt_state=jax_ts.make_optimizer(jcfg).init(params))
+    data = train_step_batch(seed=10)
+    jnext, metrics = jax.device_get(jstep(jstate, data, 1.0, jax.random.PRNGKey(0)))
+    before = torch_state_from_jax(variables, pcfg.model)
+    torch.save(before, tmp / "jax_weights.pt")
+    after = torch_state_from_jax({"params": jnext.params, "batch_stats": jnext.batch_stats},
+                                 pcfg.model)
+    stats = ts._batch_stats(TransformerTTS(pcfg.model, device="meta"))
+    adam = jnext.opt_state[2]
+    return {"pcfg": pcfg, "data": data, "metrics": metrics, "before": before,
+            "update": jax.tree.map(lambda a, b: a - b, jnext.params, jax.device_get(params)),
+            "mu": adam.mu, "nu": adam.nu, "stats": {n: after[n] for n in stats}}
 
 
 @pytest.fixture(scope="module")
@@ -104,11 +148,13 @@ def pool(tmp_path_factory, corpus):  # noqa: F811
                                                  torch.Generator().manual_seed(1))
     refs["restored_sp"] = cases.result(state, metrics)
 
+    refs["jax"] = _jax_reference(tmp)
+
     root, out, _ = corpus
     cli_args = {"dist": micro_overrides(root, out, tmp / "exp", *SP_OVERRIDES),
                 "one": micro_overrides(root, out, tmp / "exp")}
-    mp.start_processes(cases.run, args=(WORLD, _port(), str(tmp), _plan(tmp), cli_args,
-                                        _port()), nprocs=WORLD, start_method="spawn")
+    mp.start_processes(cases.run, args=(WORLD, _port(), str(tmp), _plan(tmp, refs["jax"]),
+                                        cli_args, _port()), nprocs=WORLD, start_method="spawn")
     return tmp, refs
 
 
@@ -137,6 +183,27 @@ def test_sharded_step_matches_one_process(pool, name):
     _assert_close_trees(got["nu"], want["nu"], "Adam nu")
     if want["ema"] is not None:
         _assert_close_trees(got["ema"], want["ema"], "EMA")
+
+
+@pytest.mark.parametrize("name", list(JAX_CASES))
+def test_sharded_step_matches_the_jax_step(pool, name):
+    """Dropout off, ``p_tf`` 1: the sharded port step against the JAX step
+    on the same batch and weights, at ``tests/test_torch_train_step.py``'s
+    tolerances (losses and norm 1e-5; updates element by element where
+    Adam's division is well conditioned; Adam moments 1e-3 of the tensor's
+    largest entry; BatchNorm statistics 1e-4)."""
+    tmp, refs = pool
+    ref, got = refs["jax"], _load(tmp, name)
+    pcfg = ref["pcfg"]
+    for key in ("total", "pred_mel", "post_mel", "stop", "grad_norm"):
+        _close(got["metrics"][key], ref["metrics"][key], 1e-5, 1.0, f"{name} {key}")
+    assert got["metrics"]["skipped"] == 0.0 and got["step"] == 1
+    update = {n: got["model"][n] - ref["before"][n] for n in got["mu"]}
+    _close_updates(update, ref["update"], ref["nu"], pcfg, f"{name} update")
+    _close_tree(got["mu"], ref["mu"], pcfg, 1e-3, 1e-6, f"{name} mu")
+    _close_tree(got["nu"], ref["nu"], pcfg, 1e-3, 1e-9, f"{name} nu")
+    for n, want in ref["stats"].items():
+        _close(got["model"][n], want.numpy(), 1e-4, 1e-6, f"{name} batch stat {n}")
 
 
 def test_every_rank_of_a_mesh_holds_the_same_step(pool):

@@ -75,14 +75,16 @@ def one_process_step(cfg, data: dict, scheduled_sampling: bool = True) -> dict:
 
 
 def sharded_step(cfg, data: dict, mesh, sp: bool, scheduled_sampling: bool = True,
-                 restore=None, save=None) -> dict:
+                 restore=None, save=None, weights=None, p_tf: float = P_TF) -> dict:
     m = model(cfg)
+    if weights is not None:  # a state dict of whole tensors
+        m.load_state_dict(torch.load(weights, weights_only=True), strict=True)
     state = shard_state(create_train_state(m, cfg), mesh, sp)
     if restore is not None:
         state, _ = CheckpointManager(restore).restore(state)
     step = make_train_step(m, cfg, scheduled_sampling=scheduled_sampling)
     collectives.reset_counts()
-    state, metrics = step(state, shard_batch(data, mesh, shard_sequence=sp), P_TF,
+    state, metrics = step(state, shard_batch(data, mesh, shard_sequence=sp), p_tf,
                           torch.Generator().manual_seed(1))
     counts = dict(collectives.COUNTS)
     out = {**result(state, metrics), "counts": counts}
@@ -107,8 +109,10 @@ def forward_counts(cfg, data: dict, mesh, sp: bool) -> dict:
 
 
 def run_case(case: dict, mesh) -> dict:
-    cfg = config(**case.get("cfg", {}))
-    data = batch(case.get("seed", 0))
+    """``case["config"]`` / ``case["data"]``, when given, replace the
+    config and batch made from ``cfg`` / ``seed``."""
+    cfg = case.get("config") or config(**case.get("cfg", {}))
+    data = case.get("data") or batch(case.get("seed", 0))
     if case.get("poison_rank") is not None:  # non-finite rows on one data rank only
         rows = data["melspec"].shape[1] // mesh.n_data
         r0 = case["poison_rank"] * rows
@@ -116,7 +120,8 @@ def run_case(case: dict, mesh) -> dict:
     if case["kind"] == "forward":
         return forward_counts(cfg, data, mesh, case["sp"])
     return sharded_step(cfg, data, mesh, case["sp"], restore=case.get("restore"),
-                        save=case.get("save"))
+                        save=case.get("save"), weights=case.get("weights"),
+                        p_tf=case.get("p_tf", P_TF))
 
 
 def run(rank: int, world: int, port: int, out_dir: str, plan: list, cli_args: dict,

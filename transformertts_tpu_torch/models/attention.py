@@ -166,9 +166,7 @@ class MultiHeadAttention(nn.Module):
 
     def _mask_bh(self, q):
         """Where this rank's batch rows and heads lie in the flash kernel's
-        global dropout mask (None on one process)."""
-        if not self.layout.sharded:
-            return None
+        global dropout mask."""
         b0 = self.layout.span("data", q.shape[0])[1]
         return b0, self.n_heads, self.layout.span("model", q.shape[2])[1]
 

@@ -66,16 +66,13 @@ def dropout(x: torch.Tensor, rate: float, train: bool, rng: Optional[DropoutRng]
     from ``rng.masks``; the identity when not training or at rate 0.  On a
     sharded ``layout``, x is this rank's part of a tensor whose leading
     dimensions are split over ``axes`` (``Layout.span``): the mask is drawn
-    at that tensor's shape and sliced."""
+    at that tensor's shape and sliced (on one process, the whole of it)."""
     if not train or rate <= 0.0:
         return x
     if rng is None:
         raise ValueError("train-mode dropout needs a DropoutRng")
-    if layout.sharded:
-        shape, index = layout.global_view(x.shape, axes)
-        keep = (torch.rand(shape, generator=rng.masks, device=x.device) >= rate)[index]
-    else:
-        keep = torch.rand(x.shape, generator=rng.masks, device=x.device) >= rate
+    shape, index = layout.global_view(x.shape, axes)
+    keep = (torch.rand(shape, generator=rng.masks, device=x.device) >= rate)[index]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

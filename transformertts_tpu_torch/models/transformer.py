@@ -53,14 +53,11 @@ def _residual_norm(layer, norm: LayerNorm, x, h, train: bool, rng):
     if layer.use_fused_ln:
         if rate > 0.0 and rng is None:
             raise ValueError("train-mode dropout needs a DropoutRng")
-        mask_rows = row_map = None
-        if layout.sharded:
-            n_total, row_map = _row_geometry(layout, x.shape[0], x.shape[1], "time")
-            mask_rows = ln_op.pick_rows(n_total, x.shape[-1])
+        n_total, row_map = _row_geometry(layout, x.shape[0], x.shape[1], "time")
         return residual_dropout_layernorm(
             x, h, norm.weight, norm.bias, dropout=rate,
             seed=rng.kernel_seed(rate) if rate > 0.0 else 0, plain=layer.plain_ops,
-            mask_rows=mask_rows, row_map=row_map,
+            mask_rows=ln_op.pick_rows(n_total, x.shape[-1]), row_map=row_map,
         )
     return norm(x + dropout(h, rate, train, rng, layout, ACT))
 
@@ -100,17 +97,14 @@ class FeedForward(nn.Module):
             rate = self.dropout if train else 0.0
             if rate > 0.0 and rng is None:
                 raise ValueError("train-mode dropout needs a DropoutRng")
-            mask = {}
-            if self.layout.sharded:
-                n_total, row_map = _row_geometry(self.layout, x.shape[0], x.shape[1], None)
-                f_total, c0 = self.layout.span("model", self.Dense_0.weight.shape[0])
-                itemsize = torch.empty((), dtype=self.dtype).element_size()
-                mask = dict(row_map=row_map, col_map=(f_total, c0),
-                            mask_rows=ffn_op.pick_rows(n_total, x.shape[-1], f_total, itemsize))
+            n_total, row_map = _row_geometry(self.layout, x.shape[0], x.shape[1], None)
+            f_total, c0 = self.layout.span("model", self.Dense_0.weight.shape[0])
+            itemsize = torch.empty((), dtype=self.dtype).element_size()
             return fused_ffn(
                 x.to(self.dtype), self.Dense_0.weight, self.Dense_0.bias, self.Dense_1.weight,
                 b2, dropout=rate, seed=rng.kernel_seed(rate) if rate > 0.0 else 0,
-                plain=self.plain_ops, **mask)
+                plain=self.plain_ops, row_map=row_map, col_map=(f_total, c0),
+                mask_rows=ffn_op.pick_rows(n_total, x.shape[-1], f_total, itemsize))
         h = dropout(torch.relu(self.Dense_0(x, self.dtype)), self.dropout, train, rng,
                     self.layout, ("data", None, "model"))
         y = h.to(self.dtype) @ self.Dense_1.weight.to(self.dtype).t()

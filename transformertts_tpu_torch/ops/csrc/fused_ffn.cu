@@ -88,7 +88,11 @@
 // row_off and col_off the call's first d_ffn column of f_total: a call that
 // holds some batch rows and d_ffn columns (data and tensor parallelism)
 // drops what the whole call drops; (N, N, 0, F, 0) gives g = row and the
-// counter (row % mask_rows) * F + col.
+// counter (row % mask_rows) * F + col.  The tensor-core kernels are built
+// for the whole call's mask (Mask: the one-device call) and for a shard's
+// (MaskMap), so the one-device call's argument struct holds no map: the
+// map's five integers there moved ptxas's allocation of ffn_fwd_tc.  The
+// fp32 kernels take MaskMap.
 //
 // Every entry point returns cudaGetLastError() after its launches.
 
@@ -97,6 +101,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 
 #include "dropout_mask.cuh"
 #include "hopper.cuh"
@@ -125,13 +130,23 @@ struct Mask {
   float keep_div;  // 1 - p
   int on;
   float inv_keep;  // 1 / (1 - p), rounded to nearest on the host
+};
+
+struct MaskMap : Mask {
   int t_local, t_total, row_off;  // the global row map
   int f_total, col_off;           // the global d_ffn width and the call's first column
 };
 
-// The mask's per-row constants of local row `row`: the block's base and the
-// counter of column 0 (the column offset folded in).
-__device__ __forceinline__ void mask_consts(const Mask& mk, int row, uint32_t& base,
+// The mask's per-row constants of local row `row` of a call of F columns:
+// the block's base and the counter of column 0.
+__device__ __forceinline__ void mask_consts(const Mask& mk, int row, int F, uint32_t& base,
+                                            uint32_t& cnt0) {
+  base = mk.on ? mask_base(mk.seed, static_cast<uint32_t>(row / mk.rows)) : 0u;
+  cnt0 = static_cast<uint32_t>(row % mk.rows) * static_cast<uint32_t>(F);
+}
+
+// The same through the global row map (the column offset folded in).
+__device__ __forceinline__ void mask_consts(const MaskMap& mk, int row, int, uint32_t& base,
                                             uint32_t& cnt0) {
   const int g = (row / mk.t_local) * mk.t_total + row % mk.t_local + mk.row_off;
   base = mk.on ? mask_base(mk.seed, static_cast<uint32_t>(g / mk.rows)) : 0u;
@@ -243,10 +258,10 @@ __device__ __forceinline__ float hidden(float dot, const float* b1, int F, int c
 }
 
 // Per-row constants of the mask for the 4 rows of a thread.
-__device__ __forceinline__ void mask_rows4(const Mask& mk, int row0, uint32_t (&base)[4],
-                                           uint32_t (&cnt0)[4]) {
+__device__ __forceinline__ void mask_rows4(const MaskMap& mk, int row0, int F,
+                                           uint32_t (&base)[4], uint32_t (&cnt0)[4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) mask_consts(mk, row0 + i, base[i], cnt0[i]);
+  for (int i = 0; i < 4; ++i) mask_consts(mk, row0 + i, F, base[i], cnt0[i]);
 }
 
 // 4 floats rounded to T at p (aligned to 4 elements of T)
@@ -285,7 +300,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ffn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                const float* __restrict__ b1, const float* __restrict__ w2,
-               const float* __restrict__ b2, T* __restrict__ y, int N, int D, int F, Mask mk) {
+               const float* __restrict__ b2, T* __restrict__ y, int N, int D, int F, MaskMap mk) {
   extern __shared__ __align__(16) float smem[];
   float* Xc = smem;              // (kKc, kLd): x by column of the tile
   float* W1c = Xc + kKc * kLd;   // (kKc, kLd): W1 slice, one d_model index per row
@@ -301,7 +316,7 @@ ffn_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
     for (int j = 0; j < 4 * kJ; ++j) acc[i][j] = 0.f;
   uint32_t base[4], cnt0[4];
-  mask_rows4(mk, row0 + ty * 4, base, cnt0);
+  mask_rows4(mk, row0 + ty * 4, F, base, cnt0);
 
   for (int f0 = 0; f0 < F; f0 += kFs) {
     float hp[4][4] = {};
@@ -344,7 +359,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ffn_dx_kernel(const T* __restrict__ x, const float* __restrict__ w1,
               const float* __restrict__ b1, const float* __restrict__ w2,
-              const T* __restrict__ dy, T* __restrict__ dx, int N, int D, int F, Mask mk) {
+              const T* __restrict__ dy, T* __restrict__ dx, int N, int D, int F, MaskMap mk) {
   extern __shared__ __align__(16) float smem[];
   float* Xc = smem;               // (kKc, kLd): x by column of the tile
   float* Yc = Xc + kKc * kLd;     // (kKc, kLd): dy by column of the tile
@@ -361,7 +376,7 @@ ffn_dx_kernel(const T* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
     for (int j = 0; j < 4 * kJ; ++j) acc[i][j] = 0.f;
   uint32_t base[4], cnt0[4];
-  mask_rows4(mk, row0 + ty * 4, base, cnt0);
+  mask_rows4(mk, row0 + ty * 4, F, base, cnt0);
 
   for (int f0 = 0; f0 < F; f0 += kFs) {
     float hp[4][4] = {}, dhd[4][4] = {};
@@ -412,7 +427,7 @@ __global__ void __launch_bounds__(kThreads)
 ffn_dw_kernel(const T* __restrict__ x, const float* __restrict__ w1,
               const float* __restrict__ b1, const float* __restrict__ w2,
               const T* __restrict__ dy, float* __restrict__ pflat, float* __restrict__ pw2,
-              int N, int D, int F, int chunk_rows, Mask mk) {
+              int N, int D, int F, int chunk_rows, MaskMap mk) {
   extern __shared__ __align__(16) float smem[];
   float* Xc = smem;                // (kKc, kLd): x by column of the tile
   float* Yc = Xc + kKc * kLd;      // (kKc, kLd): dy by column of the tile
@@ -452,7 +467,7 @@ ffn_dw_kernel(const T* __restrict__ x, const float* __restrict__ w1,
       dot_chunk<2, kLdF>(Yc, W2c, ty, tx, dhd);
     }
     uint32_t base[4], cnt0[4];
-    mask_rows4(mk, row0 + ty * 4, base, cnt0);
+    mask_rows4(mk, row0 + ty * 4, F, base, cnt0);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float hd[2], dh[2];
@@ -577,6 +592,7 @@ constexpr size_t kDhSmem =                       // x, dy; a stage a warpgroup; 
 constexpr int kDwStages = 4;
 constexpr size_t kDwSmemTc = kDwStages * (2 + kGc) * kTileB + 1024;
 
+template <typename M>
 struct TcArgs {
   const bf16* x;    // (N, D)
   const bf16* dy;   // (N, D)
@@ -593,7 +609,7 @@ struct TcArgs {
   int N, D, F, Dp, Fp;
   int spg, fgroups;  // slices of 32 d_ffn columns per group of the dh kernel, groups
   int tpc, chunks;   // row tiles per chunk of the weight-gradient kernel, chunks
-  Mask mk;
+  M mk;
 };
 
 // W1 (F, D) and W2 (D, F) fp32 -> bf16 (Fp, Dp) and (Dp, Fp), zero-padded;
@@ -630,7 +646,8 @@ __global__ void ffn_cast_weights_kernel(const float* __restrict__ w1, const floa
 // loads its next slice, under its epilogue.  Wider d_model: the warpgroups
 // go in step, and every K group of 256 columns loads x, dy and weights and
 // waits.  blockIdx: (row tile, group of slices).
-__global__ void __launch_bounds__(kDhWgs * kWg, 1) ffn_dh_tc(const TcArgs a) {
+template <typename M>
+__global__ void __launch_bounds__(kDhWgs * kWg, 1) ffn_dh_tc(const TcArgs<M> a) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   // the warpgroup index through a shuffle, so that the compiler knows it is
@@ -698,7 +715,7 @@ __global__ void __launch_bounds__(kDhWgs * kWg, 1) ffn_dh_tc(const TcArgs a) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     rows[h] = row0 + acc_row(tid, h);
-    mask_consts(a.mk, rows[h], mbase[h], cnt0[h]);
+    mask_consts(a.mk, rows[h], a.F, mbase[h], cnt0[h]);
   }
   float hp[16], dhd[16];
 
@@ -837,7 +854,7 @@ __global__ void __launch_bounds__(kDhWgs * kWg, 1) ffn_dh_tc(const TcArgs a) {
 // run one behind their issue.  blockIdx.x: the weight-gradient blocks (pair
 // of slices fastest, then chunk, product, group), then the dx blocks (pair
 // of row tiles, group).
-__global__ void __launch_bounds__(2 * kWg, 1) ffn_grad_tc(const TcArgs a) {
+__global__ void __launch_bounds__(2 * kWg, 1) ffn_grad_tc(const TcArgs<Mask> a) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
   constexpr uint32_t kStage = (2 + kGc) * kTileB;  // the two own tiles, then the shared ones
@@ -946,8 +963,8 @@ __global__ void __launch_bounds__(2 * kWg, 1) ffn_grad_tc(const TcArgs a) {
 // row tiles (lane l takes tiles l, l + 32, ...; lanes then added in a fixed
 // tree).  The others: one thread per 4 values of dW1 and dW2 over the chunks.
 // grads: dW1 (F, D) | db1 (F) | db2 (D) | dW2 (D, F).
-__global__ void __launch_bounds__(256) ffn_reduce_tc(const TcArgs a, float* __restrict__ grads,
-                                                     int bias_blocks) {
+__global__ void __launch_bounds__(256) ffn_reduce_tc(const TcArgs<Mask> a,
+                                                     float* __restrict__ grads, int bias_blocks) {
   const int tiles = (a.N + kT - 1) / kT;
   const size_t fd = static_cast<size_t>(a.F) * a.D;
   if (static_cast<int>(blockIdx.x) < bias_blocks) {
@@ -1042,6 +1059,7 @@ __global__ void ffn_stage_weights_kernel(const float* __restrict__ w1, const flo
 
 constexpr int kLdRed = kGw + 8;  // row length of the forward's fp32 partial y in shared memory
 
+template <typename M>
 struct FwdArgs {
   const bf16* x;       // (N, D)
   const uint8_t* wst;  // staged weights (ffn_stage_weights_kernel)
@@ -1052,7 +1070,7 @@ struct FwdArgs {
   int n_dg;    // groups of 256 output columns
   int fsplit;  // blocks of a cluster: each takes one part of the d_ffn slices
   int stages;  // stages of the weight ring
-  Mask mk;
+  M mk;
 };
 
 // Warpgroups (row tiles of 64) of a block: two for d_model up to 256 (S =
@@ -1092,8 +1110,8 @@ __host__ __device__ constexpr size_t fwd_smem_bytes(int S, int wgs, int Dp, int 
 // memory (distributed shared memory, 16 bytes a store); a cluster barrier;
 // block q adds rows q, q + fsplit, ... over the partials in rank order, adds
 // b2 and stores y in bf16.  No float atomics: two runs give the same bits.
-template <int S, int NC>
-__global__ void __launch_bounds__(fwd_wgs<S>() * kWg, 1) ffn_fwd_tc(const FwdArgs a) {
+template <int S, int NC, typename M>
+__global__ void __launch_bounds__(fwd_wgs<S>() * kWg, 1) ffn_fwd_tc(const FwdArgs<M> a) {
   constexpr int R = fwd_wgs<S>();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = align1024(smem_raw);
@@ -1149,7 +1167,7 @@ __global__ void __launch_bounds__(fwd_wgs<S>() * kWg, 1) ffn_fwd_tc(const FwdArg
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     rows[h] = rt0 + acc_row(tid, h);
-    mask_consts(a.mk, rows[h], mbase[h], cnt0[h]);
+    mask_consts(a.mk, rows[h], a.F, mbase[h], cnt0[h]);
   }
   float y[4 * kT / 2];  // 64 x 256
 #pragma unroll
@@ -1304,7 +1322,7 @@ void chunking(int N, int F, int& chunks, int& chunk_rows) {
 }
 
 int launch_fwd(const float* x, const float* w1, const float* b1, const float* w2, const float* b2,
-               float* y, int N, int D, int F, Mask mk, cudaStream_t s) {
+               float* y, int N, int D, int F, MaskMap mk, cudaStream_t s) {
   cudaError_t err = allow_smem(ffn_fwd_kernel<float>, kFwdSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((N + kRows - 1) / kRows, (D + kDp - 1) / kDp);
@@ -1316,7 +1334,7 @@ int launch_fwd(const float* x, const float* w1, const float* b1, const float* w2
 // record dW1 | db1 | db2, then per chunk the transpose of dW2.
 template <typename T>
 int launch_bwd(const void* x, const float* w1, const float* b1, const float* w2, const void* dy,
-               void* dx, float* grads, float* part, int N, int D, int F, Mask mk,
+               void* dx, float* grads, float* part, int N, int D, int F, MaskMap mk,
                cudaStream_t s) {
   cudaError_t err = allow_smem(ffn_dx_kernel<T>, kDxSmem);
   if (err == cudaSuccess) err = allow_smem(ffn_dw_kernel<T>, kDwSmem);
@@ -1341,33 +1359,51 @@ int launch_bwd(const void* x, const float* w1, const float* b1, const float* w2,
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-int launch_bwd_tc(const TcArgs& a, const float* w1, const float* w2, float* grads,
+// The arguments with the whole call's mask: the same fields, the mask
+// without its map (for the kernels that read no mask, and for a call that
+// is the whole).
+template <template <typename> class A>
+A<Mask> unmapped(const A<MaskMap>& a) {
+  A<Mask> u;
+  std::memcpy(&u, &a, offsetof(A<Mask>, mk));
+  u.mk = a.mk;
+  return u;
+}
+
+template <template <typename> class A>
+const A<Mask>& unmapped(const A<Mask>& a) {
+  return a;
+}
+
+template <typename M>
+int launch_bwd_tc(const TcArgs<M>& a, const float* w1, const float* w2, float* grads,
                   cudaStream_t s) {
-  cudaError_t err = allow_smem(ffn_dh_tc, kDhSmem);
+  cudaError_t err = allow_smem(ffn_dh_tc<M>, kDhSmem);
   if (err == cudaSuccess) err = allow_smem(ffn_grad_tc, kDwSmemTc);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = cdiv(a.N, kT), slices = a.Fp / kT, n_dg = cdiv(a.D, kGw);
   const int pairs = a.Fp * a.Dp;  // both matrices, two elements a thread
   ffn_cast_weights_kernel<<<cdiv(pairs, 256) < 2048 ? cdiv(pairs, 256) : 2048, 256, 0, s>>>(
       w1, w2, const_cast<bf16*>(a.w1), const_cast<bf16*>(a.w2), a.D, a.F, a.Dp, a.Fp);
-  ffn_dh_tc<<<dim3(tiles, a.fgroups), kDhWgs * kWg, kDhSmem, s>>>(a);
+  ffn_dh_tc<M><<<dim3(tiles, a.fgroups), kDhWgs * kWg, kDhSmem, s>>>(a);
   const int grad_blocks = cdiv(slices, 2) * a.chunks * 2 * n_dg + cdiv(tiles, 2) * n_dg;
-  ffn_grad_tc<<<grad_blocks, 2 * kWg, kDwSmemTc, s>>>(a);
+  const TcArgs<Mask>& u = unmapped(a);
+  ffn_grad_tc<<<grad_blocks, 2 * kWg, kDwSmemTc, s>>>(u);
   const int bias_blocks = cdiv(a.F / 4 + a.D / 4, 8);
   const size_t quads = static_cast<size_t>(a.F) * a.D / 2;
-  ffn_reduce_tc<<<bias_blocks + static_cast<int>((quads + 255) / 256), 256, 0, s>>>(a, grads,
+  ffn_reduce_tc<<<bias_blocks + static_cast<int>((quads + 255) / 256), 256, 0, s>>>(u, grads,
                                                                                    bias_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The staged weights, then the forward: a grid of (fsplit, blocks of wgs x
 // 64 rows, groups of 256 output columns), clusters of fsplit along x.
-template <int S, int NC>
-int launch_fwd_tc(const FwdArgs& a, const float* w1, const float* w2, uint8_t* staged,
+template <int S, int NC, typename M>
+int launch_fwd_tc(const FwdArgs<M>& a, const float* w1, const float* w2, uint8_t* staged,
                   cudaStream_t s) {
   constexpr int R = fwd_wgs<S>();
   const size_t smem = fwd_smem_bytes(S, R, a.Dp, a.stages);
-  cudaError_t err = allow_smem(ffn_fwd_tc<S, NC>, smem);
+  cudaError_t err = allow_smem(ffn_fwd_tc<S, NC, M>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t chunks = static_cast<size_t>(a.Fp / S) * fwd_record_bytes(S, a.Dp, a.n_dg) / 16;
   const int stage_blocks = static_cast<int>((chunks + 255) / 256);
@@ -1385,7 +1421,7 @@ int launch_fwd_tc(const FwdArgs& a, const float* w1, const float* w2, uint8_t* s
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = a.fsplit > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, ffn_fwd_tc<S, NC>, a);
+  err = cudaLaunchKernelEx(&cfg, ffn_fwd_tc<S, NC, M>, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1402,10 +1438,31 @@ bool shape_ok(int N, int D, int F, int mask_rows, int t_local, int t_total, int 
          col_off + F <= f_total;
 }
 
-Mask make_mask(int dropout_on, float keep_div, unsigned threshold, unsigned seed, int mask_rows,
-               int t_local, int t_total, int row_off, int f_total, int col_off) {
-  return Mask{seed,    threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div,
-              t_local, t_total,   row_off,   f_total,  col_off};
+MaskMap make_mask(int dropout_on, float keep_div, unsigned threshold, unsigned seed,
+                  int mask_rows, int t_local, int t_total, int row_off, int f_total,
+                  int col_off) {
+  MaskMap mk;
+  static_cast<Mask&>(mk) =
+      Mask{seed, threshold, mask_rows, keep_div, dropout_on, 1.0f / keep_div};
+  mk.t_local = t_local;
+  mk.t_total = t_total;
+  mk.row_off = row_off;
+  mk.f_total = f_total;
+  mk.col_off = col_off;
+  return mk;
+}
+
+// Whether a call of F columns is the whole one (the map is the identity).
+bool whole(const MaskMap& mk, int F) {
+  return mk.t_local == mk.t_total && mk.row_off == 0 && mk.f_total == F && mk.col_off == 0;
+}
+
+template <typename M>
+int dispatch_fwd_tc(const FwdArgs<M>& a, const float* w1, const float* w2, uint8_t* st,
+                    cudaStream_t s) {
+  if (a.Dp == kGw) return launch_fwd_tc<64, 4>(a, w1, w2, st, s);
+  if (a.Dp == 2 * kGw) return launch_fwd_tc<32, 8>(a, w1, w2, st, s);
+  return launch_fwd_tc<32, 16>(a, w1, w2, st, s);
 }
 
 }  // namespace
@@ -1442,7 +1499,7 @@ int tts_fused_ffn_fwd(int N, int D, int F, const void* x, const void* w1, const 
                       int t_total, int row_off, int f_total, int col_off, void* stream) {
   if (!shape_ok(N, D, F, mask_rows, t_local, t_total, row_off, f_total, col_off))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Mask mk = make_mask(dropout_on, keep_div, threshold, seed, mask_rows, t_local, t_total,
+  const MaskMap mk = make_mask(dropout_on, keep_div, threshold, seed, mask_rows, t_local, t_total,
                             row_off, f_total, col_off);
   return launch_fwd(static_cast<const float*>(x), static_cast<const float*>(w1),
                     static_cast<const float*>(b1), static_cast<const float*>(w2),
@@ -1477,7 +1534,7 @@ int tts_fused_ffn_fwd_tc(int N, int D, int F, const void* x, const void* w1, con
   if (!shape_ok(N, D, F, mask_rows, t_local, t_total, row_off, f_total, col_off) ||
       tts_fused_ffn_fwd_tc_bytes(D, F, stages, bytes) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  FwdArgs a;
+  FwdArgs<MaskMap> a;
   a.Dp = fwd_dp(D);
   a.Fp = cdiv(F, kT) * kT;
   const int S = fwd_slice(a.Dp);
@@ -1501,9 +1558,8 @@ int tts_fused_ffn_fwd_tc(int N, int D, int F, const void* x, const void* w1, con
   auto w1f = static_cast<const float*>(w1);
   auto w2f = static_cast<const float*>(w2);
   auto st = static_cast<uint8_t*>(staged);
-  if (a.Dp == kGw) return launch_fwd_tc<64, 4>(a, w1f, w2f, st, s);
-  if (a.Dp == 2 * kGw) return launch_fwd_tc<32, 8>(a, w1f, w2f, st, s);
-  return launch_fwd_tc<32, 16>(a, w1f, w2f, st, s);
+  if (whole(a.mk, F)) return dispatch_fwd_tc(unmapped(a), w1f, w2f, st, s);
+  return dispatch_fwd_tc(a, w1f, w2f, st, s);
 }
 
 // fp32, on the CUDA cores.  dy, dx: (N, D) fp32.  grads: F D + F + D + D F
@@ -1516,7 +1572,7 @@ int tts_fused_ffn_bwd(int N, int D, int F, const void* x, const void* w1, const 
                       int col_off, void* stream) {
   if (!shape_ok(N, D, F, mask_rows, t_local, t_total, row_off, f_total, col_off))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Mask mk = make_mask(dropout_on, keep_div, threshold, seed, mask_rows, t_local, t_total,
+  const MaskMap mk = make_mask(dropout_on, keep_div, threshold, seed, mask_rows, t_local, t_total,
                             row_off, f_total, col_off);
   return launch_bwd<float>(x, static_cast<const float*>(w1), static_cast<const float*>(b1),
                            static_cast<const float*>(w2), dy, dx, static_cast<float*>(grads),
@@ -1543,7 +1599,7 @@ int tts_fused_ffn_bwd_tc(int N, int D, int F, const void* x, const void* w1, con
   if (!shape_ok(N, D, F, mask_rows, t_local, t_total, row_off, f_total, col_off) || spg < 1 ||
       fgroups != cdiv(Fp / kS, spg) || tpc < 1 || chunks != cdiv(cdiv(N, kT), tpc))
     return static_cast<int>(cudaErrorInvalidValue);
-  TcArgs a;
+  TcArgs<MaskMap> a;
   a.x = static_cast<const bf16*>(x);
   a.dy = static_cast<const bf16*>(dy);
   a.w1 = static_cast<const bf16*>(w1b);
@@ -1567,8 +1623,11 @@ int tts_fused_ffn_bwd_tc(int N, int D, int F, const void* x, const void* w1, con
   a.chunks = chunks;
   a.mk = make_mask(dropout_on, keep_div, threshold, seed, mask_rows, t_local, t_total, row_off,
                    f_total, col_off);
-  return launch_bwd_tc(a, static_cast<const float*>(w1), static_cast<const float*>(w2),
-                       static_cast<float*>(grads), static_cast<cudaStream_t>(stream));
+  auto w1f = static_cast<const float*>(w1);
+  auto w2f = static_cast<const float*>(w2);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (whole(a.mk, F)) return launch_bwd_tc(unmapped(a), w1f, w2f, static_cast<float*>(grads), s);
+  return launch_bwd_tc(a, w1f, w2f, static_cast<float*>(grads), s);
 }
 
 }  // extern "C"

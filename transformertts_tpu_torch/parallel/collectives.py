@@ -18,10 +18,9 @@ A group of one process (or ``None``) makes each of them the identity with
 no call.  Every call adds one to ``COUNTS[op]`` (``op + ".bwd"`` in a
 backward), which the collectives audit reads.
 
-Over gloo a CUDA tensor goes through host memory for a collective that
-gloo refuses for CUDA tensors: the first refusal adds the collective's
-name to ``STAGED`` and every later call of it is staged.  NCCL and CPU
-tensors never stage.
+Each is called on the tensors' own device: NCCL for CUDA tensors, and
+gloo for CPU tensors or for two ranks on one card (gloo takes CUDA
+tensors for all three collectives).
 """
 
 from __future__ import annotations
@@ -32,7 +31,6 @@ import torch
 import torch.distributed as dist
 
 COUNTS: Counter = Counter()
-STAGED: set = set()
 
 
 def group_size(group) -> int:
@@ -43,30 +41,11 @@ def reset_counts() -> None:
     COUNTS.clear()
 
 
-def _run(op: str, fn, *tensors, group):
-    """``fn(*tensors)`` on the tensors' device, or through host memory when
-    gloo refuses ``op`` for CUDA tensors; returns the (possibly moved back)
-    tensors in place of the arguments."""
-    on_gloo_cuda = tensors[0].is_cuda and dist.get_backend(group) == "gloo"
-    if on_gloo_cuda and op not in STAGED:
-        try:
-            fn(*tensors)
-            return tensors
-        except RuntimeError:
-            STAGED.add(op)
-    if not on_gloo_cuda:
-        fn(*tensors)
-        return tensors
-    host = [t.cpu() for t in tensors]
-    fn(*host)
-    return tuple(h.to(t.device) for h, t in zip(host, tensors))
-
-
 def all_reduce(x: torch.Tensor, group, tag: str = "all_reduce") -> torch.Tensor:
     """The sum of ``x`` over ``group`` as a new tensor (``x`` untouched)."""
     COUNTS[tag] += 1
     out = x.contiguous().clone()
-    (out,) = _run("all_reduce", lambda t: dist.all_reduce(t, group=group), out, group=group)
+    dist.all_reduce(out, group=group)
     return out
 
 
@@ -76,11 +55,7 @@ def all_gather(x: torch.Tensor, group, dim: int, tag: str = "all_gather") -> tor
     n = group_size(group)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
-
-    def gather(src, *dst):
-        dist.all_gather(list(dst), src, group=group)
-
-    parts = _run("all_gather", gather, x, *parts, group=group)[1:]
+    dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim=dim)
 
 
@@ -93,11 +68,8 @@ def reduce_scatter(x: torch.Tensor, group, dim: int,
         raise ValueError(f"reduce-scatter of {x.shape[dim]} along dim {dim} over {n} ranks")
     chunks = [c.contiguous() for c in x.chunk(n, dim=dim)]
     out = torch.empty_like(chunks[0])
-
-    def scatter(dst, *src):
-        dist.reduce_scatter(dst, list(src), group=group)
-
-    return _run("reduce_scatter", scatter, out, *chunks, group=group)[0]
+    dist.reduce_scatter(out, chunks, group=group)
+    return out
 
 
 class _CopyTo(torch.autograd.Function):

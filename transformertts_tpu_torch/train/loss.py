@@ -64,10 +64,8 @@ def tts_loss(
     t0 = layout.time_offset(t)
     valid = lengths_to_valid_mask(lengths, t, t0)  # (B, T)
     frame_mask = valid[:, :, None]
-    frames = mels = None  # counts of every rank's valid frames (one collective)
-    if layout.sharded:
-        frames = layout.total(valid.sum())
-        mels = frames * pred.shape[-1]
+    frames = layout.total(valid.sum())  # every rank's valid frames (one collective)
+    mels = frames * pred.shape[-1]
 
     pred_mel_loss = _masked_mean((pred - mel) ** 2, frame_mask, mels)
     post_mel_loss = _masked_mean((post - mel) ** 2, frame_mask, mels)
@@ -112,10 +110,8 @@ def guided_attention_loss(
     )
     penalty = alignments.float() * w[None, :, None]  # broadcast over L, H
     mask = valid[None, :, None]
-    count = None
-    if layout.sharded:  # this rank's heads over every query row: count every rank's cells
-        count = layout.total(mask.expand_as(penalty).sum(), over_time=False)
-        count = count * layout.mesh.n_model
+    # this rank's heads over every query row: count every rank's cells
+    count = layout.total(mask.expand_as(penalty).sum(), over_time=False) * layout.mesh.n_model
     loss = _masked_mean(penalty, mask, count)
     if layout.tp and not layout.seq:
         loss = collectives.reduce_from(loss, layout.mesh.model_group)

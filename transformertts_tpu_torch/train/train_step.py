@@ -267,11 +267,10 @@ def make_train_step(
         for name, p in params.items():  # a parameter the loss never reached
             if name not in grads:
                 grads[name] = torch.zeros_like(p)
+        grads = {name: grads[name] for name in params}  # one order on every rank
+        _sum_grads(layout, grads)
         metrics = {name: torch.stack([m[name] for m in losses]).mean() for name in losses[0]}
-        if layout.sharded:
-            grads = {name: grads[name] for name in params}  # one order on every rank
-            _sum_grads(layout, grads)
-            metrics = dict(zip(metrics, layout.total(torch.stack(list(metrics.values())))))
+        metrics = dict(zip(metrics, layout.total(torch.stack(list(metrics.values())))))
         grad_norm = _global_norm(layout, grads)
         metrics["grad_norm"] = grad_norm
 
