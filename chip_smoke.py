@@ -123,13 +123,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 12. trainer: the user's path preprocess -> train -> checkpoint -> wav.  A
     seeded corpus of 208 clips of 8.3-8.9 s whose texts are 97-128 phonemes
     long (every item in bucket (128, 768); 16 in the val split) is
-    preprocessed on the log-mel kernel, ``Trainer.fit`` trains ``Config()``
+    preprocessed on the log-mel kernel; one epoch of its train split is
+    read by the numpy reader and by the native npz reader (the C++ library
+    of ``transformertts_tpu_torch/native``, built here with the host
+    compiler) in turns, numpy / native / native / numpy, with equal bytes
+    and each read's time per batch printed; ``Trainer.fit`` trains ``Config()``
     (bf16, full width and depth, 16 x 4 rows, EMA 0.99) for 2 epochs of 3
     optimizer steps, the second with scheduled sampling, each validated
     teacher-forced and free-running (batched decode-step kernel, 4 rows of
     800 frames: the stop threshold is set above 1).  It fails unless flash
     and LN forward and backward and the decode step launched during
-    ``fit``; the last validation decode equals,
+    ``fit`` and every training and validation batch of ``fit`` and of the
+    resumed run was read by the native reader; the last validation decode equals,
     bit for bit, the decode of a fresh model restored from the latest
     checkpoint's eval params; every restored tensor equals the saved one;
     ``Trainer(resume=True)`` with 3 epochs starts at epoch 2 and adds one
@@ -2404,6 +2409,51 @@ def trainer_config(root, **training):
                                     stop_threshold=2.0))
 
 
+def reader_times(cfg, card: str) -> None:
+    """One epoch of the trainer corpus's train split read by each reader of
+    ``BucketedLoader`` alone on this thread, in turns numpy / native /
+    native / numpy: the batches must be equal; prints the time per batch."""
+    from transformertts_tpu_torch.data import BucketedLoader, LJSpeechDataset
+
+    ds = LJSpeechDataset(cfg.path.preprocessed, "train")
+    kw = dict(batch_size=cfg.training.batch_size, phoneme_buckets=cfg.runtime.phoneme_buckets,
+              mel_buckets=cfg.runtime.mel_buckets, n_mels=cfg.model.n_mels,
+              grad_acc_steps=cfg.training.grad_acc_steps, seed=cfg.training.seed,
+              n_threads=cfg.training.num_workers)
+    ms, epochs = {"numpy": [], "native": []}, {}
+    for reader in ("numpy", "native", "native", "numpy"):
+        loader = BucketedLoader(ds, use_native=reader == "native", **kw)
+        t0 = time.perf_counter()
+        batches = list(loader.epoch(0))
+        ms[reader].append(1e3 * (time.perf_counter() - t0) / len(batches))
+        if loader.reads[reader] != len(batches) * cfg.training.grad_acc_steps:
+            raise AssertionError(f"trainer: the {reader} reader read {loader.reads}")
+        epochs.setdefault(reader, batches)
+    for a, b in zip(epochs["numpy"], epochs["native"], strict=True):
+        for key in a:
+            if a[key].dtype != b[key].dtype or a[key].tobytes() != b[key].tobytes():
+                raise AssertionError(f"trainer: the native reader's {key} differs from numpy's")
+    shape = tuple(epochs["native"][0]["melspec"].shape)
+    log(f"[trainer] one epoch of {len(ds)} train clips, {len(epochs['native'])} batches of "
+        f"{shape} mels, read and padded on one thread: numpy "
+        f"{'/'.join(f'{t:.1f}' for t in ms['numpy'])} ms a batch, native npz reader "
+        f"({cfg.training.num_workers} threads) {'/'.join(f'{t:.1f}' for t in ms['native'])} "
+        f"ms a batch, equal bytes [{card}]")
+
+
+def check_native_reads(trainer, epochs: int) -> None:
+    """Every batch of ``epochs`` epochs of training and validation was read
+    by the native npz reader."""
+    k = trainer.cfg.training.grad_acc_steps
+    train_reads = epochs * trainer.train_loader.batches_per_epoch() * k
+    val_reads = epochs * trainer.val_loader.batches_per_epoch()
+    if (trainer.train_loader.reads, trainer.val_loader.reads) != (
+            {"native": train_reads, "numpy": 0}, {"native": val_reads, "numpy": 0}):
+        raise AssertionError(f"trainer: reads train {trainer.train_loader.reads} val "
+                             f"{trainer.val_loader.reads}, wanted {train_reads} / {val_reads} "
+                             "by the native reader alone")
+
+
 def all_launches() -> dict:
     from transformertts_tpu_torch.ops.decode_step import decode_step
     from transformertts_tpu_torch.ops.stft import log_mel
@@ -2457,6 +2507,7 @@ def phase_trainer(device, root, card: str) -> dict:
     preprocess(cfg, device=device)
     t_prep = time.perf_counter() - t0
     launches["preprocess"] = all_launches()
+    reader_times(cfg, card)
 
     exp = root / "exp" / "run"
     zero_all_launches()
@@ -2472,6 +2523,7 @@ def phase_trainer(device, root, card: str) -> dict:
                if fit[k] <= 0 and on_card]
     if missing or result["epochs"] != 2:
         raise AssertionError(f"trainer: fit ran {result['epochs']} epochs, launches {fit}")
+    check_native_reads(trainer, result["epochs"])
     hist = _json.loads((exp / "history.json").read_text())
     if [h["p_tf"] for h in hist] != [1.0, 0.5]:
         raise AssertionError(f"trainer: p_tf per epoch {[h['p_tf'] for h in hist]}, "
@@ -2490,7 +2542,9 @@ def phase_trainer(device, root, card: str) -> dict:
             f"{h['val_loss']:.4f} (teacher-forced {h['val_tf_ms']:.1f} ms, free-running "
             f"{h['val_free_ms']:.1f} ms, mcd_dtw {h['val_free_mcd_dtw']:.2f}), checkpoint save "
             f"{h['ckpt_save_ms']:.1f} ms [{card}]")
-    log(f"[trainer] kernel launches during fit: {fit}")
+    log(f"[trainer] kernel launches during fit: {fit}; micro-batches read by the native npz "
+        f"reader: {trainer.train_loader.reads['native']} train, "
+        f"{trainer.val_loader.reads['native']} val, none by numpy")
 
     # the last validation's free-running decode against a fresh model
     # restored from the latest checkpoint with its eval params
@@ -2534,6 +2588,7 @@ def phase_trainer(device, root, card: str) -> dict:
     if resumed.start_epoch != 2:
         raise AssertionError(f"trainer: resume starts at epoch {resumed.start_epoch}, not 2")
     more = resumed.fit()
+    check_native_reads(resumed, more["epochs"])
     rows = _json.loads((exp / "history.json").read_text())
     if more["epochs"] != 1 or [h["epoch"] for h in rows] != [0, 1, 2]:
         raise AssertionError(f"trainer: resume trained {more['epochs']} epochs, history "

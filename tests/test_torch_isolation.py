@@ -39,10 +39,9 @@ def _imported_names(path: Path) -> list:
             if isinstance(node, ast.ImportFrom) for a in node.names]
 
 
-# every __init__.py of the JAX package that exports names, but ``native``
-# (the threaded C++ npz reader: ROADMAP Queue 1 item 9, gated on a measurement)
+# every __init__.py of the JAX package that exports names
 EXPORTING = [p for p in sorted((ROOT / "transformertts_tpu").rglob("__init__.py"))
-             if _imported_names(p) and p.parent.name != "native"]
+             if _imported_names(p)]
 # counterparts under another name or module: a name that says its framework,
 # and the Pallas kernels' entries, whose CUDA counterparts live in ``ops/``
 COUNTERPART = {
@@ -73,8 +72,8 @@ def test_port_exports_what_the_jax_package_exports(init):
 def test_the_jax_packages_exporting_are_found():
     names = {str(p.parent.relative_to(ROOT)) for p in EXPORTING}
     assert {"transformertts_tpu", "transformertts_tpu/infer", "transformertts_tpu/parallel",
-            "transformertts_tpu/train", "transformertts_tpu/models"} <= names
-    assert "transformertts_tpu/native" not in names
+            "transformertts_tpu/train", "transformertts_tpu/models",
+            "transformertts_tpu/native"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -83,12 +82,32 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_native_reader_reads_nothing_of_the_jax_package():
+    """The port's reader builds from its own source into its own build
+    directory, and no string of its code names a path of the JAX package."""
+    from transformertts_tpu_torch import _build
+
+    port = ROOT / "transformertts_tpu_torch"
+    native = sorted((port / "native").iterdir())
+    assert {p.name for p in native} >= {"__init__.py", "bindings.py", "npz_loader.cpp"}
+    assert _build.NATIVE == port / "native" and _build.BUILD_DIR == port / "_build"
+    assert _build.host_library_path("npz_loader").parent == port / "_build"
+    for path in [*native, port / "_build.py"]:
+        if path.suffix in (".py", ".cpp"):
+            text = path.read_text()
+            assert "transformertts_tpu/" not in text and "transformertts_tpu\"" not in text
+            assert "TTS_NATIVE_CACHE" not in text, path.name
+    strings = [n.value for n in ast.walk(ast.parse((port / "native" / "bindings.py").read_text()))
+               if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+    assert not [s for s in strings if "transformertts_tpu" in s and "_torch" not in s]
+
+
 def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"decode_step.py", "api.py", "serving.py", "chip_smoke.py", "g2p.py", "fused_ffn.py",
             "stft.py", "mel.py", "preprocess.py", "dataset.py", "prefetch.py",
             "audio_io.py", "trainer.py", "checkpoint.py", "griffin_lim.py", "cli.py",
-            "logging.py", "exp.py", "plot.py"} <= names
+            "logging.py", "exp.py", "plot.py", "bindings.py"} <= names
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch):
@@ -159,7 +178,8 @@ def test_convert_layouts():
                                     "train.train_step", "models.factory", "ops.fused_ffn",
                                     "ops.stft", "dsp.mel", "data.preprocess", "data.dataset",
                                     "data.prefetch", "train.trainer", "train.checkpoint",
-                                    "dsp.griffin_lim", "cli", "utils.plot", "infer.api"])
+                                    "dsp.griffin_lim", "cli", "utils.plot", "infer.api",
+                                    "native"])
 def test_each_module_imports_first(module):
     """No import cycle: any module of the training and data slices can be the first
     one a fresh interpreter imports (``models`` imports ``ops``, so ``ops``

@@ -10,6 +10,10 @@ shared memory, spills: ``-Xptxas -v``) is kept beside each library as
 
 Set ``CUDA_HOME`` where nvcc is not at ``$CUDA_HOME/bin/nvcc`` with the
 toolkit's default ``/usr/local/cuda`` nor on ``PATH``.
+
+The host code of ``native/<name>.cpp`` (the npz batch reader) is built the
+same way with the host C++ compiler (``$CXX``, else ``c++`` or ``g++``) into
+``_build/<name>-<hash>.so``: ``load_host``.
 """
 
 from __future__ import annotations
@@ -24,11 +28,13 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "ops" / "csrc"
+NATIVE = Path(__file__).resolve().parent / "native"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -55,30 +61,36 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: list[str] | None = None) -> dict[str, Path]:
-    """Compile every library of ``names`` (default: all sources) that is
-    not built yet, one nvcc per source in parallel.  Raises on a failure."""
-    names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
-    jobs = []
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
+def _compile(jobs: list[tuple[list[str], Path]]) -> None:
+    """Run each (compiler command, library) job at once, each into a
+    temporary file renamed into place, with the compiler's output kept
+    beside the library as ``.log``.  Raises on a failure."""
+    running = []
+    for cmd, out in jobs:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, proc, tmp, out))
+        proc = subprocess.Popen([*cmd, "-o", str(tmp)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((cmd, proc, tmp, out))
     failed = []
-    for name, proc, tmp, out in jobs:
+    for cmd, proc, tmp, out in running:
         log, _ = proc.communicate()
         out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
+            failed.append(f"{Path(cmd[0]).name} failed for {Path(cmd[-1]).name} "
+                          f"(exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def build(names: list[str] | None = None) -> dict[str, Path]:
+    """Compile every library of ``names`` (default: all sources) that is
+    not built yet, one nvcc per source in parallel.  Raises on a failure."""
+    names = names or sorted(p.stem for p in CSRC.glob("*.cu"))
+    _compile([([_nvcc(), *NVCC_FLAGS, str(CSRC / f"{name}.cu")], library_path(name))
+              for name in names if not library_path(name).exists()])
     return {name: library_path(name) for name in names}
 
 
@@ -88,3 +100,36 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(build([name])[name]))
         return _loaded[name]
+
+
+class NoHostCompiler(RuntimeError):
+    """Neither ``$CXX`` nor, with it unset, ``c++`` or ``g++`` is on ``PATH``."""
+
+
+def _cxx() -> str:
+    names = [os.environ["CXX"]] if os.environ.get("CXX") else ["c++", "g++"]
+    for name in names:
+        found = shutil.which(name)
+        if found is not None:
+            return found
+    raise NoHostCompiler(f"no host C++ compiler: {' or '.join(names)} not found (set CXX)")
+
+
+def host_library_path(name: str) -> Path:
+    """Where ``native/<name>.cpp`` is built, keyed by the source and the flags."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update((NATIVE / f"{name}.cpp").read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The built library of ``native/<name>.cpp``, building it with the host
+    compiler if needed.  Raises ``NoHostCompiler`` when a build is needed
+    and no compiler exists, ``RuntimeError`` when the compiler fails."""
+    with _lock:
+        out = host_library_path(name)
+        if str(out) not in _loaded:
+            if not out.exists():
+                _compile([([_cxx(), *HOST_FLAGS, str(NATIVE / f"{name}.cpp")], out)])
+            _loaded[str(out)] = ctypes.CDLL(str(out))
+        return _loaded[str(out)]

@@ -17,8 +17,13 @@ order, and bucket shapes stay aligned across processes.  (A per-host bucket
 split would let job counts diverge: a 127-item bucket at group 64 yields one
 job on host 0 and zero on host 1.)
 
-The JAX package's threaded C++ npz reader is not ported: this loader reads
-with numpy only.
+Batches are read by the threaded C++ npz reader (``native/``) where it can
+run, as in the JAX package, else with numpy; both give the same bytes.
+Unlike the JAX loader, nothing falls back quietly: ``use_native="auto"``
+reads with numpy, with a warning, only when no host C++ compiler exists or
+from the first file with a compressed member on; every other failure of
+the reader raises.  ``loader.reader`` and ``loader.reads`` say which reader
+read the batches.
 """
 
 from __future__ import annotations
@@ -29,6 +34,9 @@ from bisect import bisect_left
 from pathlib import Path
 
 import numpy as np
+
+from transformertts_tpu_torch._build import NoHostCompiler
+from transformertts_tpu_torch.native import NativeBatchLoader, NativeReadError
 
 log = logging.getLogger("transformertts_tpu_torch.data")
 
@@ -112,7 +120,11 @@ class BucketedLoader:
         seed: int = 42,
         process_index: int = 0,
         process_count: int = 1,
+        use_native: bool | str = "auto",
+        n_threads: int = 4,
     ):
+        if use_native not in (True, False, "auto"):
+            raise ValueError(f"use_native must be True, False or 'auto', got {use_native!r}")
         self.ds = dataset
         self.batch_size = batch_size
         self.k = grad_acc_steps
@@ -122,6 +134,18 @@ class BucketedLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+
+        # the C++ reader for datasets of files (native/npz_loader.cpp)
+        self.use_native = use_native
+        self._native = None
+        if use_native and hasattr(dataset, "files"):
+            try:
+                self._native = NativeBatchLoader(dataset.files, n_threads=n_threads)
+            except NoHostCompiler as e:
+                if use_native is True:
+                    raise
+                log.warning("reading with numpy, not the native npz reader: %s", e)
+        self.reads = {"native": 0, "numpy": 0}  # micro-batches read by each reader
 
         # bucket assignment (items too long for the largest bucket are dropped)
         self.buckets: dict[tuple[int, int], list[int]] = {}
@@ -150,11 +174,30 @@ class BucketedLoader:
             n += len(idxs) // group if self.drop_last else -(-len(idxs) // group)
         return n
 
-    def _pad_batch(self, idxs: list[int], bp: int, bm: int, n_real: int | None = None) -> dict:
-        """Load+pad one micro-batch; rows at positions >= n_real are
-        repeat-padding for a partial final group — their melspec_lens are
-        zeroed so the length-masked loss/metrics exclude them exactly."""
-        n_real = len(idxs) if n_real is None else n_real
+    @property
+    def reader(self) -> str:
+        """``"native"`` or ``"numpy"``: the reader of the next micro-batch."""
+        return "numpy" if self._native is None else "native"
+
+    def _read(self, idxs: list[int], bp: int, bm: int) -> dict:
+        """The zero-padded rows ``idxs`` and their lengths, by the native
+        reader where it is on, else by numpy."""
+        if self._native is not None:
+            try:
+                batch = self._native.load_batch(np.asarray(idxs, np.int32), bp, bm, self.n_mels)
+            except NativeReadError as e:
+                if self.use_native is True or not e.deflated_only:
+                    raise
+                log.warning("reading with numpy from here on, not the native npz reader: %s", e)
+                self._native.close()
+                self._native = None
+            else:
+                self.reads["native"] += 1
+                return batch
+        self.reads["numpy"] += 1
+        return self._read_numpy(idxs, bp, bm)
+
+    def _read_numpy(self, idxs: list[int], bp: int, bm: int) -> dict:
         b = len(idxs)
         items = [self.ds[i] for i in idxs]
         phoneme = np.zeros((b, bp), np.int32)
@@ -166,10 +209,17 @@ class BucketedLoader:
             p_lens[j], m_lens[j] = len(seq), mel.shape[0]
             phoneme[j, : len(seq)] = seq
             melspec[j, : mel.shape[0]] = mel
-        batch = {
+        return {
             "phoneme": phoneme, "melspec": melspec,
             "phoneme_lens": p_lens, "melspec_lens": m_lens,
         }
+
+    def _pad_batch(self, idxs: list[int], bp: int, bm: int, n_real: int | None = None) -> dict:
+        """Load+pad one micro-batch; rows at positions >= n_real are
+        repeat-padding for a partial final group — their melspec_lens are
+        zeroed so the length-masked loss/metrics exclude them exactly."""
+        n_real = len(idxs) if n_real is None else n_real
+        batch = self._read(idxs, bp, bm)
         batch["melspec_lens"][n_real:] = 0  # mask repeat-padded rows
         # sort desc by phoneme length (ref: dataset.py:74-77)
         order = np.argsort(-batch["phoneme_lens"], kind="stable")

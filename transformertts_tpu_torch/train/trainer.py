@@ -135,9 +135,10 @@ class Trainer:
             mel_buckets=cfg.runtime.mel_buckets,
             n_mels=cfg.model.n_mels,
             seed=cfg.training.seed,
+            n_threads=cfg.training.num_workers,
         )
-        # each data rank loads its rows of every global batch; validation
-        # runs whole on rank 0
+        # each data rank loads its rows of every global batch, on its own
+        # reader threads; validation runs whole on rank 0
         self.train_loader = BucketedLoader(
             train_ds, cfg.training.batch_size // self.mesh.n_data,
             grad_acc_steps=cfg.training.grad_acc_steps, shuffle=True, drop_last=True,
@@ -146,8 +147,10 @@ class Trainer:
             val_ds, cfg.training.batch_size, grad_acc_steps=1,
             shuffle=False, drop_last=False, **common)
         n_batches = self.train_loader.batches_per_epoch()
-        self.log.info("data: %d train / %d val items, %d train batches/epoch",
-                      len(train_ds), len(val_ds), n_batches)
+        self.log.info("data: %d train / %d val items, %d train batches/epoch; reader %s "
+                      "(train) / %s (val), %d threads", len(train_ds), len(val_ds), n_batches,
+                      self.train_loader.reader, self.val_loader.reader,
+                      cfg.training.num_workers)
         if n_batches == 0:
             raise ValueError(
                 f"no full training batch of {cfg.training.batch_size} x "
