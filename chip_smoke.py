@@ -16,7 +16,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    HGMMA (wgmma) instructions in the SASS (where cuobjdump exists; the
    tensor-core kernels must hold some) and the bf16 FFN forward's SASS
    instructions per intermediate element; the rate-0 decode-step kernels'
-   registers and spills must equal ``DECODE_STEP_PTXAS``;
+   registers and spills must equal ``DECODE_STEP_PTXAS`` and the verify
+   kernels' ``DECODE_VERIFY_PTXAS``; the verify kernels' HMMA (mma.sync)
+   instructions are counted: every bf16 one must hold some, no fp32 one;
 2. mask: the device ``keep_mask`` against its plain version, bit for bit;
 3. kernel: every kernel against its plain PyTorch version on the card.
    The decode-step kernel (``decode_step_reference``) at the full width of
@@ -56,6 +58,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 4. decode: the full decode through the kernel loop against the plain loop,
    fp32 weights, B = 2 with ragged lengths, 64 forced frames, W = 0 and 2,
    without and with inference prenet dropout 0.5 (the same hash masks);
+   at ``configs/large_tp.yaml`` widths the kernel decode in fp32 against
+   ``naive_decode`` and the step in bf16 against its plain version (B 1
+   and 8, t 0, 200, 399, within ``TOL``, equal bits);
 5. serve: the serving path, ``make_http_server`` -> ``DynamicBatcher`` ->
    ``Synthesizer`` -> kernel loop, with seeded random weights in bf16:
    13 HTTP requests (12 concurrent, then one alone), one batch at the
@@ -159,10 +164,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     at ``Config()`` and ``paper.yaml`` widths, with the host's time per eager
     call and the kernel's time by stage (its global-timer stamps), at the
     serving shape also with prenet dropout 0.5, and decode frames/s through
-    ``Synthesizer.synthesize``; the verify kernel's device time per pass (K
-    2, 4, 8; K 4 at ``paper.yaml``) beside the step's, its plain version's
-    and its bound, and ``Synthesizer.synthesize``'s frames/s at B = 1 with K
-    = 4 at tau 0, 1e9 and the default between two sequential runs;
+    ``Synthesizer.synthesize``; the verify kernel's device time per pass and
+    by stage (bf16 K 2, 4, 8 and fp32 K 4; bf16 K 4 at ``paper.yaml``)
+    beside the step's, its plain version's and its bound, and
+    ``Synthesizer.synthesize``'s frames/s at B = 1 with K = 4 at tau 0, 1e9
+    and the default between two sequential runs;
 15. time-train: every training and preprocessing kernel beside its plain
     version, its bound and (where PyTorch has a call or a short chain of
     calls for the same function) that (flash, the LN and the FFN kernels
@@ -407,6 +413,7 @@ def phase_build() -> None:
                  "fused_ffn", "fused_ln", "log_mel"):
         kernel_report(name, libs[name])
     check_step_ptxas(libs["decode_step"])
+    check_verify_ptxas(libs["decode_step_verify"])
 
 
 # The rate-0 decode-step library's kernels, by (type, rows), as they were
@@ -432,22 +439,54 @@ DECODE_STEP_PTXAS = {
 }
 
 
+# The verify library's kernels (decode_step_verify.cu), by (type, rows K):
+# registers and ptxas's spill line as first built (none spills).
+DECODE_VERIFY_PTXAS = {
+    ("float", 8): (127, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 7): (119, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 6): (119, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 5): (115, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 4): (107, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 3): (112, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("float", 2): (101, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("__nv_bfloat16", 8): (113, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("__nv_bfloat16", 7): (95, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("__nv_bfloat16", 6): (115, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("__nv_bfloat16", 5): (121, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("__nv_bfloat16", 4): (117, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("__nv_bfloat16", 3): (96, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("__nv_bfloat16", 2): (96, "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+}
+
+
 def check_step_ptxas(path) -> None:
     """The rate-0 decode-step kernels' registers and spills equal
     ``DECODE_STEP_PTXAS``, kernel by kernel."""
+    check_ptxas(path, "decode_step", DECODE_STEP_PTXAS, "rate-0 kernels")
+
+
+def check_verify_ptxas(path) -> None:
+    """The verify kernels' registers and spills equal
+    ``DECODE_VERIFY_PTXAS``, kernel by kernel (none spills)."""
+    check_ptxas(path, "decode_verify", DECODE_VERIFY_PTXAS, "verify kernels")
+
+
+def check_ptxas(path, kernel: str, want: dict, what: str) -> None:
+    """Registers and ptxas's spill line of every ``<kernel>_kernel<type,
+    rows>`` of a library's report equal ``want``'s."""
     import re
 
     rows = ptxas_kernels(path.with_suffix(".log").read_text())
     got = {}
     for short, (_, regs, spill) in zip(demangle([r[0] for r in rows]), rows):
-        found = re.search(r"decode_step_kernel<([\w ]+), (\d+)", short)
+        found = re.search(rf"{kernel}_kernel<([\w ]+), (\d+)", short)
         if found is None:
-            raise AssertionError(f"decode_step: an unexpected kernel {short}")
+            raise AssertionError(f"{kernel}: an unexpected kernel {short}")
         got[(found.group(1), int(found.group(2)))] = (regs, spill)
-    if got != DECODE_STEP_PTXAS:
-        diff = {k: (got.get(k), v) for k, v in DECODE_STEP_PTXAS.items() if got.get(k) != v}
-        raise AssertionError(f"decode_step: registers or spills moved (now, before): {diff}")
-    log(f"[build] decode_step: the {len(got)} rate-0 kernels keep their registers and spills")
+    if got != want:
+        diff = {k: (got.get(k), v) for k, v in want.items() if got.get(k) != v}
+        raise AssertionError(f"{kernel}: registers or spills moved (now, before): {diff}")
+    log(f"[build] {kernel}: the {len(got)} {what} keep their registers and spills")
 
 
 def ptxas_kernels(text: str) -> list[tuple[str, int, str]]:
@@ -608,20 +647,27 @@ def kernel_report(name: str, path) -> None:
         return
     sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                           check=True, timeout=120).stdout
-    counts, fn, body = {}, None, {}
+    counts, mma, fn, body = {}, {}, None, {}
     for ln in sass.splitlines():
         if "Function :" in ln:
             fn = ln.split("Function :")[1].strip()
-            counts[fn], body[fn] = 0, []
+            counts[fn], mma[fn], body[fn] = 0, 0, []
         elif fn is not None and "/*" in ln and ";" in ln:
             body[fn].append(ln)
             counts[fn] += "HGMMA" in ln
+            mma[fn] += "HMMA" in ln
     per = ", ".join(f"{short} {n}" for short, n in zip(demangle(list(counts)), counts.values()))
     log(f"[build] {name}: {sum(counts.values())} HGMMA instructions in the SASS ({per})")
     for must in {"fused_ffn": ("ffn_dh_tc", "ffn_grad_tc", "ffn_fwd_tc"),
                  "flash_attention": ("_tc",)}.get(name, ()):
         if not any(must in fn and n > 0 for fn, n in counts.items()):
             raise AssertionError(f"{name}: no HGMMA instruction in a kernel named *{must}*")
+    if name == "decode_step_verify":  # mma.sync: HMMA in bf16, none in fp32
+        per = dict(zip(demangle(list(mma)), mma.values()))
+        log(f"[build] {name}: HMMA (mma.sync) instructions in the SASS: "
+            + ", ".join(f"{short} {n}" for short, n in per.items()))
+        if any((n > 0) != ("bfloat16" in short) for short, n in per.items()):
+            raise AssertionError(f"{name}: a bf16 kernel without HMMA or an fp32 one with it: {per}")
     for fn, lines in body.items():
         if "ffn_fwd_tc" in fn and "ILi64E" in fn:
             # the slice's epilogue: the instructions between the last product of
@@ -724,7 +770,7 @@ def phase_kernel(cfg, device) -> dict:
                      "decode_step_kernel"),
                     (lambda: decode_step(200, frame, pe_row, bias, *caches, packed,
                                          **prenet_drop(cfg, 3)), "decode_step_kernel"),
-                    (lambda: verify(200), f"decode_step_kernel<__nv_bfloat16, {SPEC_K}, false, true>"),
+                    (lambda: verify(200), f"decode_verify_kernel<__nv_bfloat16, {SPEC_K}>"),
                 ]
                 # every library loaded before the first profiler session: on
                 # the card the profiler showed no kernel of the verify
@@ -1226,6 +1272,54 @@ def check_naive_decode(device) -> None:
         log(f"[decode] large_tp.yaml fp32 B={b} {NAIVE_FRAMES} frames, kernel decode vs "
             f"naive_decode: {', '.join(msg)}; (blocks a cluster, rows a cluster): {plans[0]} "
             f"(bf16 at {SERVE_MAX_LEN} positions: {plans[1]})")
+    check_large_tp_bf16(device)
+
+
+def check_large_tp_bf16(device) -> None:
+    """The decode step at ``large_tp.yaml`` widths in bf16 (the serving
+    dtype) against its plain version (``decode_step_reference``), B = 1 and
+    8, at the serving shape (400 positions, 64 encoder positions), t 0, 200
+    and 399, the expected position on: every output within ``TOL``, equal
+    bits from a second call; logs the worst deviation and the plan taken."""
+    import torch
+
+    from transformertts_tpu_torch.ops.decode_step import (
+        card_plan,
+        decode_step,
+        decode_step_reference,
+        pack_decode_weights,
+    )
+
+    cfg = large_tp_config()
+    m = cfg.model
+    model = make_model(cfg, torch.bfloat16, device, seed=4)
+    packed = pack_decode_weights(model, torch.bfloat16)
+    alpha = float(model.pe.alpha.detach())
+    del model
+    for b in (1, 8):
+        worst, worst_rel = 0.0, 0.0
+        for t in (0, SERVE_MAX_LEN // 2, SERVE_MAX_LEN - 1):
+            (frame, pe_row, bias), caches = step_inputs(cfg, b, t, SERVE_MAX_LEN, 64,
+                                                        torch.bfloat16, device, seed=b * 100 + t)
+            pe_row = alpha * pe_row
+            outs = [decode_step(t, frame, pe_row, bias, *[c.clone() for c in caches], packed,
+                                with_attn_pos=True) for _ in range(2)]
+            if not all(torch.equal(x, y) for x, y in zip(*outs)):
+                raise AssertionError(f"large_tp bf16 B={b} t={t}: a second call gave other bits")
+            ref = decode_step_reference(t, frame, pe_row, bias, *caches, packed, True)
+            for name, o, r in zip(("y", "k_new", "v_new", "pos"), outs[0], ref):
+                err, rel = rel_err(o, r)
+                worst, worst_rel = max(worst, err), max(worst_rel, rel)
+                if not rel <= TOL["bfloat16"] or not torch.isfinite(o).all():
+                    raise AssertionError(f"large_tp bf16 B={b} t={t}: kernel != plain on {name}: "
+                                         f"rel err {rel:.3g}")
+            del caches
+        plan = card_plan(m.decoder_n_layers, m.d_model, m.decoder_d_ffn, m.n_mels,
+                         m.n_mels * m.reduction_factor + m.reduction_factor, b, m.decoder_n_head,
+                         SERVE_MAX_LEN, 64, torch.bfloat16)[:2] if device.type == "cuda" else None
+        log(f"[decode] large_tp.yaml bf16 B={b} n_pos {SERVE_MAX_LEN} Tp 64 t 0/200/399, kernel vs "
+            f"decode_step_reference: max abs err {worst:.2e} (rel {worst_rel:.2e}, TOL "
+            f"{TOL['bfloat16']:g}); (blocks a cluster, rows a cluster) {plan}; equal bits")
 
 
 def _post(url: str, body: dict) -> tuple[int, bytes]:
@@ -1694,7 +1788,7 @@ def check_verify_kernel(what, cfg, ks, device, worst: dict) -> None:
                     errs = []
                     for name, o, rr in zip(("y", "k_new", "v_new"), (y, kn, vn), ref):
                         err, rel = rel_err(o, rr)
-                        errs.append(f"{name} {err:.2e}")
+                        errs.append(f"{name} {err:.2e} (rel {rel:.1e})")
                         worst[k] = max(worst.get(k, 0.0), err)
                         if not rel <= TOL[dtype_name] or not torch.isfinite(o).all():
                             raise AssertionError(f"verify kernel != plain: {what} {dtype_name} "
@@ -1870,60 +1964,84 @@ def verify_bytes_flops(packed, k, t, tp, cfg):
     return w_bytes + cache + io_bytes, flops
 
 
-def time_spec(cfg, device, synth, card: str) -> dict:
+VERIFY_TIMED = (("bfloat16", 2), ("bfloat16", SPEC_K), ("bfloat16", 8), ("float32", SPEC_K))
+
+
+def time_verify_passes(cfg, device, card: str) -> dict:
     """The verify kernel's device time per pass by CUDA-graph replay at the
-    serving shape (400 positions, 64 encoder positions, t 200; K 2, 4, 8 at
-    ``Config()``, K 4 at ``paper.yaml`` widths), beside the sequential step's
-    at B = 1, its plain version's (eager: it reads the acceptance back) and
-    its bound, with the host's time per eager call; then frames/s of
-    ``Synthesizer.synthesize`` (B = 1, 400 frames) with K = 4 at tau 0, 1e9
-    and the default, between two runs of the sequential decode (``synth``).
-    Returns the kernel's rows by (widths, K)."""
+    serving shape (400 positions, 64 encoder positions, t 200): K 2, 4, 8 in
+    bf16 and K 4 in fp32 at ``Config()``, K 4 in bf16 at ``paper.yaml``
+    widths, each beside the B = 1 step's of the same dtype, its plain
+    version's (eager: it reads the acceptance back) and its bound, with the
+    host's time per eager call and the time by stage.  Returns the kernel's
+    rows by (widths, dtype, K)."""
     import torch
 
-    from transformertts_tpu_torch.infer import Synthesizer
     from transformertts_tpu_torch.ops.decode_step import (
         DecodeVerify,
         decode_step,
         pack_decode_weights,
+        pack_verify_weights,
         verify_pass_reference,
     )
 
     rows, t, n_pos, tp = {}, 200, SERVE_MAX_LEN, 64
-    for what, wcfg, ks in (("Config()", cfg, (2, SPEC_K, 8)), ("paper.yaml", paper_config(), (SPEC_K,))):
-        model = make_model(wcfg, torch.bfloat16, device, seed=1)
-        packed = pack_decode_weights(model, torch.bfloat16)
-        alpha = float(model.pe.alpha.detach())
-        del model
-        (frame, pe_row, bias), step_caches = step_inputs(wcfg, 1, t, n_pos, tp, torch.bfloat16,
-                                                         device, seed=7)
-        step_ms = device_ms(lambda: decode_step(t, frame, pe_row, bias, *step_caches, packed))
-        del step_caches
-        for k in ks:
-            caches, rest = verify_inputs(wcfg, k, n_pos, tp, torch.bfloat16, device, 7, alpha)
-            opts = dict(k=k, r=wcfg.model.reduction_factor, n_pos=n_pos, tau=1e9,
-                        stop_threshold=2.0)
-            verify = DecodeVerify(*caches, packed, *rest, **opts)
-            ms = device_ms(lambda: verify(t))
-            host = host_us(lambda: verify(t))
-            plain_ms = time_ms(lambda: verify_pass_reference(t, *caches, packed, *rest, **opts), 5, 1)
-            nbytes, flops = verify_bytes_flops(packed, k, t, tp, wcfg)
-            bound = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_BF16_FLOPS) * 1e3
-            by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_BF16_FLOPS else "operations"
-            rows[(what, k)] = (ms, plain_ms, bound, by)
+    for what, wcfg, cases in (("Config()", cfg, VERIFY_TIMED),
+                              ("paper.yaml", paper_config(), (("bfloat16", SPEC_K),))):
+        for dtype_name in dict.fromkeys(d for d, _ in cases):
+            dtype = getattr(torch, dtype_name)
+            model = make_model(wcfg, dtype, device, seed=1)
+            packed = pack_decode_weights(model, dtype)
+            alpha = float(model.pe.alpha.detach())
+            del model
+            weights = pack_verify_weights(packed)
+            (frame, pe_row, bias), step_caches = step_inputs(wcfg, 1, t, n_pos, tp, dtype,
+                                                             device, seed=7)
+            pe_row = alpha * pe_row
+            step_ms = device_ms(lambda: decode_step(t, frame, pe_row, bias, *step_caches, packed))
+            del step_caches
+            for k in (k for d, k in cases if d == dtype_name):
+                caches, rest = verify_inputs(wcfg, k, n_pos, tp, dtype, device, 7, alpha)
+                opts = dict(k=k, r=wcfg.model.reduction_factor, n_pos=n_pos, tau=1e9,
+                            stop_threshold=2.0)
+                verify = DecodeVerify(*caches, packed, *rest, **opts, verify_weights=weights)
+                ms = device_ms(lambda: verify(t))
+                host = host_us(lambda: verify(t))
+                plain_ms = time_ms(
+                    lambda: verify_pass_reference(t, *caches, packed, *rest, **opts), 5, 1)
+                nbytes, flops = verify_bytes_flops(packed, k, t, tp, wcfg)
+                peak = PEAK_BF16_FLOPS if dtype_name == "bfloat16" else PEAK_FP32_FLOPS
+                bound = max(nbytes / HBM_BYTES_PER_S, flops / peak) * 1e3
+                by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / peak else "operations"
+                rows[(what, dtype_name, k)] = (ms, plain_ms, bound, by)
 
-            def run():
-                tl = verify.timeline_buffer()
-                verify(t, timeline=tl)
-                return tl
+                def run():
+                    tl = verify.timeline_buffer()
+                    verify(t, timeline=tl)
+                    return tl
 
-            log_stage_times(f"{what} bf16 verify pass K={k} t={t}", verify.stages(t), run, card)
-            log(f"[time] {what} bf16 verify pass K={k} n_pos={n_pos} tp={tp} t={t}: kernel "
-                f"{ms * 1e3:.1f} us/pass on the device ({ms * 1e3 / k:.1f} us a position; the "
-                f"B=1 step {step_ms * 1e3:.1f} us), {host:.1f} us of host time per eager call, "
-                f"plain {plain_ms * 1e3:.1f} us/pass (eager), bound {bound * 1e3:.2f} us ({by}, "
-                f"{nbytes / 1e6:.2f} MB) [{card}]")
-            del caches, rest, verify
+                log_stage_times(f"{what} {dtype_name} verify pass K={k} t={t}", verify.stages(t),
+                                run, card)
+                log(f"[time] {what} {dtype_name} verify pass K={k} n_pos={n_pos} tp={tp} t={t}: "
+                    f"kernel {ms * 1e3:.1f} us/pass on the device ({ms * 1e3 / k:.1f} us a "
+                    f"position; the B=1 step {step_ms * 1e3:.1f} us), {host:.1f} us of host time "
+                    f"per eager call, plain {plain_ms * 1e3:.1f} us/pass (eager), bound "
+                    f"{bound * 1e3:.2f} us ({by}, {nbytes / 1e6:.2f} MB) [{card}]")
+                del caches, rest, verify
+    return rows
+
+
+def time_spec(cfg, device, synth, card: str) -> dict:
+    """``time_verify_passes``, then frames/s of ``Synthesizer.synthesize``
+    (B = 1, 400 frames) with K = 4 at tau 0, 1e9 and the default, between
+    two runs of the sequential decode (``synth``).  Returns the verify
+    kernel's rows by (widths, dtype, K)."""
+    import torch
+
+    from transformertts_tpu_torch.infer import Synthesizer
+    from transformertts_tpu_torch.ops.decode_step import DecodeVerify
+
+    rows = time_verify_passes(cfg, device, card)
 
     def frames_per_s(s, what):
         """400 frames, then SPEC_K frames (the set-up and one pass, or
@@ -3281,7 +3399,7 @@ def main(argv=None) -> int:
                 for (what, rb, n_pos, tp, t), r in rows.items() if rb == b},
         })
     # row 1's verify form on the speculative path (B = 1, K = 4)
-    ms, plain, bound, by = spec_rows[("Config()", SPEC_K)]
+    ms, plain, bound, by = spec_rows[("Config()", "bfloat16", SPEC_K)]
     kernels.append({
         "name": f"decode_step_verify (K={SPEC_K}, bf16, n_pos {SERVE_MAX_LEN}, Tp 64, t 200)",
         "route": "cuda", "source": src + "decode_step_verify.cu",
@@ -3289,8 +3407,8 @@ def main(argv=None) -> int:
         "verifies": "transformertts_tpu/infer/decode.py:307",
         "launches": spec["launches"], "max_abs_err": max(spec["worst"].values()),
         "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": None,
-        "shapes": {f"{what} K {k}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), r))
-                   for (what, k), r in spec_rows.items()},
+        "shapes": {f"{what} {dtype} K {k}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), r))
+                   for (what, dtype, k), r in spec_rows.items()},
     })
     # rows 3-9: the record's numbers are those of the largest shape on the
     # path; "shapes" holds every shape of the path

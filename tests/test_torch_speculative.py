@@ -51,11 +51,12 @@ from transformertts_tpu_torch.infer.decode import make_decode_fn
 from transformertts_tpu_torch.models.modules import sinusoid_table
 from transformertts_tpu_torch.ops.decode_step import (
     CLUSTER,
-    _launch_config,
-    attn_chunks,
-    chunks_max,
+    VERIFY_BUFFERS,
     decode_verify_reference,
     pack_decode_weights,
+    pack_verify_weights,
+    verify_chunks,
+    verify_launch_config,
     verify_plan,
 )
 
@@ -315,22 +316,27 @@ def test_verify_launch_config(k):
     """The verify kernel's ``Config`` (what ``DecodeVerify`` hands the C
     entry point, built as the step's is): one cluster of 16, B = 1 (the
     caches' one row, which every row of the pass reads), R = K, the cache's
-    n_pos + K positions, and the plan's sizes and tensors."""
+    n_pos + K positions, the cross-attention items (head, chunk) of one row,
+    the plan's sizes and tensors, the verify copy of the weights and the
+    offsets of the pass's own buffers."""
     jcfg, pcfg = configs()
     packed = pack_decode_weights(port_model(pcfg, jax_model_and_variables(jcfg)[1]))
     m = pcfg.model
     n_pos, tp, r = 40, TP, m.reduction_factor
     plan = verify_plan(m.decoder_n_layers, m.d_model, m.decoder_d_ffn, m.n_mels,
                        m.n_mels * r + r, k, r, m.decoder_n_head, n_pos + k, tp, 4)
-    (stages, pieces, bias), cfg = _launch_config(plan, packed, CLUSTER, 1, k, m.decoder_n_head,
-                                                 n_pos + k, tp)
+    weights = pack_verify_weights(packed)
+    (stages, pieces, bias), cfg, voff = verify_launch_config(plan, packed, weights, k,
+                                                             m.decoder_n_head, n_pos + k, tp)
     assert (cfg.cluster, cfg.B, cfg.R, cfg.n_pos, cfg.tp) == (CLUSTER, 1, k, n_pos + k, tp)
     assert (cfg.L, cfg.H, cfg.dh) == (m.decoder_n_layers, m.decoder_n_head,
                                       m.d_model // m.decoder_n_head)
-    assert (cfg.cross_chunk, cfg.cross_nc) == attn_chunks(tp, k, m.decoder_n_head, CLUSTER)
-    assert cfg.nc_max == chunks_max(k, m.decoder_n_head, CLUSTER)
+    assert (cfg.cross_chunk, cfg.cross_nc) == verify_chunks(tp, m.decoder_n_head)
+    assert (cfg.nc_max, cfg.max_keys) == (plan[2]["nc_max"], plan[2]["max_keys"])
+    assert list(voff) == [plan[2][b] for b in VERIFY_BUFFERS]
+    assert cfg.w[0] == weights["pw1"].data_ptr() and cfg.n_mels == m.n_mels
     assert (cfg.smem_bytes, cfg.n_bias) == (plan[2]["smem_bytes"], plan[2]["n_bias"])
-    assert cfg.n_pieces == plan[1].shape[0] and cfg.max_keys == n_pos + k
+    assert cfg.n_pieces == plan[1].shape[0]
     assert (cfg.stages, cfg.pieces, cfg.bias) == (stages.data_ptr(), pieces.data_ptr(),
                                                   bias.data_ptr())
     assert stages.shape == (CLUSTER, plan[0].shape[0], 4)

@@ -66,6 +66,7 @@ from transformertts_tpu_torch.ops.decode_step import (
     decode_step,
     draft_frames,
     pack_decode_weights,
+    pack_verify_weights,
     prenet_drop_args,
     prenet_keep,
 )
@@ -320,7 +321,7 @@ class SpeculativeDecode:
     bias, ``decode_frame_heads``) and ``accept_reference``."""
 
     def __init__(self, model, cfg, phoneme, lens, max_len, stop_threshold, kernel, packed,
-                 mask_encoder_source=False):
+                 mask_encoder_source=False, verify_weights=None):
         m, rt = cfg.model, cfg.runtime
         dev, tp = phoneme.device, phoneme.shape[1]
         self.model, self.r, self.n_mels = model, m.reduction_factor, m.n_mels
@@ -344,7 +345,7 @@ class SpeculativeDecode:
                 self_k, torch.zeros_like(self_k), ck, cv, packed,
                 self.cross_bias[:, 0, 0, :].float().contiguous(), pe_table, self.frames[0],
                 self.stops[0], k=self.k, r=self.r, n_pos=self.n_pos, tau=self.tau,
-                stop_threshold=stop_threshold, linear=self.linear)
+                stop_threshold=stop_threshold, linear=self.linear, verify_weights=verify_weights)
             self.pass_ = self.verify
         else:
             self.self_k = torch.zeros((L, 1, cap, H, dh), dtype=model.dtype, device=dev)
@@ -407,15 +408,20 @@ def decode_options(cfg: Config, device: torch.device, use_kernel: Optional[bool]
 def weights_packer(model):
     """``packed()`` -> the decoder weights in the kernel's layout, packed
     again whenever a parameter was written since the last pack
-    (``weights_version``)."""
+    (``weights_version``); ``packed(verify=True)`` -> the verify kernel's
+    copy of them (``pack_verify_weights``), made once per pack at its first
+    use, so that no request's set-up makes it again."""
     cache: dict = {}  # "key": the parameters' versions the packed copy was made from
 
-    def packed() -> dict:
+    def packed(verify: bool = False) -> dict:
         key = weights_version(model)
         if cache.get("key") != key:  # the weights changed since the last pack
+            cache.clear()
             cache["packed"] = pack_decode_weights(model, model.dtype)
             cache["key"] = key
-        return cache["packed"]
+        if verify and "verify" not in cache:
+            cache["verify"] = pack_verify_weights(cache["packed"])
+        return cache["verify" if verify else "packed"]
 
     return packed
 
@@ -491,7 +497,9 @@ def make_decode_fn(
                 raise ValueError(f"max_len/r + decode_speculative_k - 1 ({n_pos + spec_k - 1}) "
                                  f"must be <= model.max_len ({cfg.model.max_len})")
             spec = SpeculativeDecode(model, cfg, phoneme, lens, max_len, stop_threshold, kernel,
-                                     packed() if kernel else None, mask_encoder_source)
+                                     packed() if kernel else None, mask_encoder_source,
+                                     packed(verify=True) if kernel and device.type == "cuda"
+                                     else None)
             spec.run()
             return _result(model, spec.frames, spec.stops, spec.t * r, stop_threshold,
                            spec.passes, n_verify_passes=spec.passes)

@@ -82,25 +82,12 @@
 //   kernel moved ptxas's register allocation: up to 1.3 us a step more at
 //   B = 1 and spills at bf16 with 3 rows.)
 //
-// - The verify pass of speculative decoding (kVerify; the JAX package's
-//   infer/decode.py:_speculative_decode, which runs it on XLA only): the
-//   R = K rows of one cluster are K consecutive positions t .. t + K - 1
-//   of ONE utterance.  Row j's input is the drafted frame f0 + j (f0 -
-//   prev) (row 0 the true one), its PE row alpha*PE[t + j]; Config::B is 1
-//   (the caches' one row), so every row reads the utterance's cache
-//   segment, cross K/V and cross bias as a step's row does, and row j
-//   writes its K/V at t + j.  Self-attention scores the shared prefix
-//   [0, t) in chunks as a step does, and the combining stage folds in row
-//   j's own chunk positions t .. t + j in closed form from kBufKv (which
-//   holds every row's fresh k | v).  After the head, block 0 takes every
-//   row's output, accepts the leading run of drafts within tau of the
-//   previous group's last frame (cut at the first group with a stop vote
-//   and at the positions left), writes the accepted frames and stop logits
-//   and the packed result 2 m + vote.  One launch a pass, one cluster;
-//   decode_step_verify.cu builds it as a library of its own, so the step's
-//   kernels keep their code, registers and spills: the kVerify branches
-//   are if constexpr, and what reads Step's verify fields is compiled in
-//   that library only (TTS_DECODE_STEP_VERIFY).
+// - The verify pass of speculative decoding is a kernel of its own,
+//   decode_step_verify.cu, built as a library of its own: it includes this
+//   file for the shared parts (Config, Step, Block, stage_w,
+//   layer_norm_rows) and defines TTS_DECODE_STEP_VERIFY, under which Step
+//   has the pass's fields and this file's entry points are left out, so
+//   that the step's kernels keep their code, registers and spills.
 //
 // Every buffer offset, the plan and the chunks come from the wrapper; the
 // kernel checks only what it is handed.
@@ -257,17 +244,18 @@ struct Step {
   // f0); the accepted frames go to frames_out (the frame buffer's row
   // t r + 1) and their stop logits to stops_out (row t r), 2 m + vote to
   // code; the acceptance tolerance, the stop threshold, the positions left
-  // (n_pos - t) and the reduction factor.  Only the verify library has
-  // them: in the step's Step these fields alone moved ptxas's register
-  // allocation of the step kernels (bf16 R = 8: 64 -> 232 bytes of spill
-  // stores), so they and the two functions that read them (draft,
-  // accept_pass) are compiled there only.
+  // (n_pos - t) and the reduction factor; the byte offsets of the pass's
+  // own shared-memory buffers (decode_step_verify.cu's VerifyBuffer).
+  // Only the verify library has them: in the step's Step these fields alone
+  // moved ptxas's register allocation of the step kernels (bf16 R = 8: 64
+  // -> 232 bytes of spill stores).
   const float* prev;
   float* frames_out;
   float* stops_out;
   int* code;
   float tau, stop_threshold;
   int limit, r;
+  int voff[3];
 #endif
 };
 
@@ -284,8 +272,9 @@ struct StageW {
   int N, K;
 };
 
-// The weight of matrix-vector stage gs (the order of gemv_stages).
-template <typename T>
+// The weight of matrix-vector stage gs (the order of gemv_stages); each
+// row is kPad elements longer than its depth K in memory (row_pad).
+template <typename T, int kPad = 0>
 __device__ StageW<T> stage_w(const Config& c, int gs) {
   const int D = c.H * c.dh;
   auto W = [&](int i) { return static_cast<const T*>(c.w[i]); };
@@ -293,19 +282,28 @@ __device__ StageW<T> stage_w(const Config& c, int gs) {
   if (gs == 1) return {W(2), W(3), D, D};
   if (gs == 2 + 6 * c.L) return {W(18), W(19), c.d_out, D};
   const int l = (gs - 2) / 6, j = (gs - 2) % 6;
-  const size_t DD = static_cast<size_t>(D) * D, DF = static_cast<size_t>(D) * c.F;
+  const size_t DD = static_cast<size_t>(D) * (D + kPad), DF = static_cast<size_t>(D) * (c.F + kPad);
+  const size_t FD = kPad ? static_cast<size_t>(c.F) * (D + kPad) : DF;
   switch (j) {
     case 0: return {W(4) + l * 3 * DD, W(5) + static_cast<size_t>(l) * 3 * D, 3 * D, D};
     case 1: return {W(6) + l * DD, W(7) + static_cast<size_t>(l) * D, D, D};
     case 2: return {W(8) + l * DD, W(9) + static_cast<size_t>(l) * D, D, D};
     case 3: return {W(10) + l * DD, W(11) + static_cast<size_t>(l) * D, D, D};
-    case 4: return {W(12) + l * DF, W(13) + static_cast<size_t>(l) * c.F, c.F, D};
+    case 4: return {W(12) + l * FD, W(13) + static_cast<size_t>(l) * c.F, c.F, D};
     default: return {W(14) + l * DF, W(15) + static_cast<size_t>(l) * D, D, c.F};
   }
 }
 
+// Elements of a weight row in the ring: the verify pass's bf16 weights are
+// laid out with 8 more a row (16 bytes), so that the tensor cores' 8-row
+// loads from shared memory fall in distinct banks.
+template <typename T, bool kVerify>
+__host__ __device__ constexpr int row_pad() {
+  return kVerify && sizeof(T) == 2 ? 8 : 0;
+}
+
 // A block's view of its shared memory and of its place in the launch
-// (kVerify: of a verify pass).
+// (kVerify: of a verify pass, decode_step_verify.cu).
 template <typename T, int R, bool kVerify = false>
 struct Block {
   const Config& c;
@@ -342,10 +340,11 @@ struct Block {
         while (stage_rows()[gs].y <= i) ++gs;
         if (threadIdx.x < 32) {
           const int4 p = pr[i];
-          const StageW<T> sw = stage_w<T>(c, gs);
-          const uint32_t bytes = static_cast<uint32_t>(p.y - p.x) * sw.K * sizeof(T);
+          const StageW<T> sw = stage_w<T, row_pad<T, kVerify>()>(c, gs);
+          const int ld = sw.K + row_pad<T, kVerify>();
+          const uint32_t bytes = static_cast<uint32_t>(p.y - p.x) * ld * sizeof(T);
           mbar_arrive_expect_tx(&mbar()[i], bytes);
-          bulk_copy_g2s(buf<uint8_t>(kBufRing) + p.z, sw.W + static_cast<size_t>(p.x) * sw.K,
+          bulk_copy_g2s(buf<uint8_t>(kBufRing) + p.z, sw.W + static_cast<size_t>(p.x) * ld,
                         bytes, &mbar()[i]);
         }
       }
@@ -384,31 +383,22 @@ enum Epilogue { kEpiF32, kEpiRelu, kEpiReluPe, kEpiDrop1, kEpiDrop2, kEpiQkv, kE
 
 // Column n's value for each of the R rows: to every block's buffer `out`
 // (lane r stores into block r), or to y (kEpiOut); kEpiQkv also writes the
-// new K/V rows into the caches at t (a verify pass: row b at t + b, and the
-// head's outputs also into block 0's kBufAct, for the acceptance).
-template <typename T, int R, int kEpi, bool kV>
-__device__ __forceinline__ void epilogue(Block<T, R, kV>& blk, Buffer out, int layer, int N, int n,
+// new K/V rows into the caches at t.
+template <typename T, int R, int kEpi>
+__device__ __forceinline__ void epilogue(Block<T, R>& blk, Buffer out, int layer, int N, int n,
                                          const float (&v)[R], int lane) {
   const Config& c = blk.c;
   const int D = c.H * c.dh;
 #pragma unroll
   for (int b = 0; b < R; ++b) {
     if (kEpi == kEpiOut) {
-      if constexpr (kV) {
-        if (lane == 0) blk.s.y[b * N + n] = v[b];
-        if (lane == 1) dsmem_store(blk.f(kBufAct) + b * N + n, 0, v[b]);
-      } else {
-        if (lane == 0 && blk.row0 + b < c.B) blk.s.y[(blk.row0 + b) * N + n] = v[b];
-      }
+      if (lane == 0 && blk.row0 + b < c.B) blk.s.y[(blk.row0 + b) * N + n] = v[b];
     } else if (kEpi == kEpiF32) {
       blk.share(out, b * N + n, v[b], lane);
     } else if (kEpi == kEpiRelu) {  // rounded: only a matrix-vector stage reads it
       blk.share(out, b * N + n, round_t<T>(fmaxf(v[b], 0.f)), lane);
     } else if (kEpi == kEpiReluPe) {
-      if constexpr (kV)  // row b's PE row is alpha*PE[t + b]
-        blk.share(out, b * N + n, round_t<T>(fmaxf(v[b], 0.f) + blk.s.pe_row[b * N + n]), lane);
-      else
-        blk.share(out, b * N + n, round_t<T>(fmaxf(v[b], 0.f) + blk.s.pe_row[n]), lane);
+      blk.share(out, b * N + n, round_t<T>(fmaxf(v[b], 0.f) + blk.s.pe_row[n]), lane);
     } else if (kEpi == kEpiDrop1) {  // prenet 1 with dropout
       blk.share(out, b * N + n, round_t<T>(blk.prenet_drop(fmaxf(v[b], 0.f), b, n, 0)), lane);
     } else if (kEpi == kEpiDrop2) {  // prenet 2 with dropout, then + alpha * PE[t]
@@ -422,18 +412,7 @@ __device__ __forceinline__ void epilogue(Block<T, R, kV>& blk, Buffer out, int l
       } else {
         const int m = n - D;
         blk.share(kBufKv, b * 2 * D + m, v[b], lane);
-        if constexpr (kV) {  // the cache's one row (B = 1): row b's at t + b; k_new (L, H, R, dh)
-          if (lane == kMaxCluster) {
-            const int which = m / D, h = (m % D) / c.dh, j = m % c.dh;
-            const T tv = from_f<T>(v[b]);
-            const size_t lsz = static_cast<size_t>(c.H) * c.n_pos * c.dh;
-            T* cache = static_cast<T*>(which ? blk.s.self_v : blk.s.self_k) + layer * lsz;
-            T* fresh = static_cast<T*>(which ? blk.s.v_new : blk.s.k_new) +
-                       static_cast<size_t>(layer) * c.H * R * c.dh;
-            cache[(static_cast<size_t>(h) * c.n_pos + blk.s.t + b) * c.dh + j] = tv;
-            fresh[(static_cast<size_t>(h) * R + b) * c.dh + j] = tv;
-          }
-        } else if (lane == kMaxCluster && blk.row0 + b < c.B) {
+        if (lane == kMaxCluster && blk.row0 + b < c.B) {
           const int which = m / D, h = (m % D) / c.dh, j = m % c.dh;
           const size_t row = static_cast<size_t>(h) * c.B + blk.row0 + b;
           const T tv = from_f<T>(v[b]);
@@ -452,8 +431,8 @@ __device__ __forceinline__ void epilogue(Block<T, R, kV>& blk, Buffer out, int l
 // The block's output columns of stage gs: xs (R, K) in shared memory against
 // its weight pieces in the ring, one warp per column.  Results go to every
 // block's buffer `out` (kEpiOut: to y in global memory).
-template <typename T, int R, int kEpi, bool kV>
-__device__ void gemv(Block<T, R, kV>& blk, int gs, Buffer in, Buffer out, int layer = 0) {
+template <typename T, int R, int kEpi>
+__device__ void gemv(Block<T, R>& blk, int gs, Buffer in, Buffer out, int layer = 0) {
   const Config& c = blk.c;
   const int4 st = blk.stage_rows()[gs];
   const StageW<T> sw = stage_w<T>(c, gs);
@@ -563,30 +542,11 @@ __device__ void layer_norm_rows(Block<T, R, kV>& blk, const float* resid, int la
   __syncthreads();
 }
 
-// q of (local row b, head h) . k_new of local row i in fp32, in one fixed
-// order (lane-strided products, then the shuffle tree), so that every warp
-// that computes it gets the same bits.
-template <typename T, int R, bool kV>
-__device__ float chunk_score(const Block<T, R, kV>& blk, int b, int h, int i) {
-  const int dh = blk.c.dh, D = blk.c.H * dh, lane = threadIdx.x & 31;
-  const float* q = blk.f(kBufQ) + b * D + h * dh;
-  const float* kn = blk.f(kBufKv) + i * 2 * D + h * dh;
-  float v = 0.f;
-  for (int j = lane; j < dh; j += 32) v += q[j] * kn[j];
-  return warp_sum(v);
-}
-
 // q . k_new of (local row b, head h) in fp32, the current position's score,
 // in one fixed order (lane-strided products, then the shuffle tree), so that
-// every warp that computes it gets the same bits.  A verify pass: the
-// largest score of row b over the chunk's positions t .. t + b.
-template <typename T, int R, bool kV>
-__device__ float current_score(const Block<T, R, kV>& blk, int b, int h) {
-  if constexpr (kV) {
-    float m = chunk_score(blk, b, h, 0);
-    for (int i = 1; i <= b; ++i) m = fmaxf(m, chunk_score(blk, b, h, i));
-    return m;
-  }
+// every warp that computes it gets the same bits.
+template <typename T, int R>
+__device__ float current_score(const Block<T, R>& blk, int b, int h) {
   const int dh = blk.c.dh, D = blk.c.H * dh, lane = threadIdx.x & 31;
   const float* q = blk.f(kBufQ) + b * D + h * dh;
   const float* kn = blk.f(kBufKv) + b * 2 * D + h * dh;
@@ -603,8 +563,8 @@ __device__ float current_score(const Block<T, R, kV>& blk, int b, int h) {
 // and every block's kBufPm.  A group of G = dh / vec<T>() threads reads one
 // cache row with 16-byte loads, P = kThreads / G rows a pass, kUnroll
 // passes in flight.
-template <typename T, int R, bool kV>
-__device__ void attn_scores(Block<T, R, kV>& blk, const T* kc, const T* vc, const float* bias,
+template <typename T, int R>
+__device__ void attn_scores(Block<T, R>& blk, const T* kc, const T* vc, const float* bias,
                             int seg_len, int n_keys, int len, int nc) {
   constexpr int V = vec<T>();
   const Config& c = blk.c;
@@ -665,8 +625,8 @@ __device__ void attn_scores(Block<T, R, kV>& blk, const T* kc, const T* vc, cons
 // The global max of (row, head) `pair` from the shared chunk maxima (nc > 1)
 // or the block's own (one chunk), and the current position's score for
 // self-attention.  A max is exact: every block gets the same value.
-template <typename T, int R, bool kV>
-__device__ float pair_max(const Block<T, R, kV>& blk, int pair, int nc, int slot, bool self,
+template <typename T, int R>
+__device__ float pair_max(const Block<T, R>& blk, int pair, int nc, int slot, bool self,
                           float s_cur, bool own) {
   float m = self ? s_cur : -3.0e38f;
   if (own) return fmaxf(m, blk.f(kBufMloc)[slot]);
@@ -677,8 +637,8 @@ __device__ float pair_max(const Block<T, R, kV>& blk, int pair, int nc, int slot
 // Attention, stage B: for each item, e = exp(s - m) against the global max
 // m of its (row, head), as the reference rounds it; shares l_c = sum e,
 // (with_pos) sum e * key, and the context sum over T(e) * v.
-template <typename T, int R, bool kV>
-__device__ void attn_values(Block<T, R, kV>& blk, const T* vc, int seg_len, int n_keys, int len,
+template <typename T, int R>
+__device__ void attn_values(Block<T, R>& blk, const T* vc, int seg_len, int n_keys, int len,
                             int nc, bool self, bool with_pos) {
   constexpr int V = vec<T>();
   const Config& c = blk.c;
@@ -765,11 +725,10 @@ __device__ void attn_values(Block<T, R, kV>& blk, const T* vc, int seg_len, int 
 // xs (R, D) = T(context) from the shared partials of every (row, head),
 // added in chunk order; one warp per (row, head).  Self-attention (self)
 // adds the current position in closed form: its score q . k_new with the
-// fp32 q, its value v_new in fp32 (a verify pass: row b's positions t .. t +
-// b, in order).  With pos_out, block 0 of the cluster writes the head-mean
-// expected position of each row.
-template <typename T, int R, bool kV>
-__device__ void combine_rows(Block<T, R, kV>& blk, int nc, bool self, float* pos_out) {
+// fp32 q, its value v_new in fp32.  With pos_out, block 0 of the cluster
+// writes the head-mean expected position of each row.
+template <typename T, int R>
+__device__ void combine_rows(Block<T, R>& blk, int nc, bool self, float* pos_out) {
   const Config& c = blk.c;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int dh = c.dh, D = c.H * dh;
@@ -780,28 +739,6 @@ __device__ void combine_rows(Block<T, R, kV>& blk, int nc, bool self, float* pos
   for (int pair = warp; pair < R * c.H; pair += kWarps) {
     const int b = pair / c.H, h = pair - b * c.H;
     const int base = pair * nc;
-    if constexpr (kV) {
-      if (self) {
-        const float m = pair_max(blk, pair, nc, 0, true, current_score(blk, b, h), false);
-        float e[R];
-        float den = 0.f;
-        for (int ch = 0; ch < nc; ++ch) den += pl[base + ch];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          e[i] = i <= b ? expf(chunk_score(blk, b, h, i) - m) : 0.f;
-          if (i <= b) den += e[i];
-        }
-        for (int j = lane; j < dh; j += 32) {
-          float acc = 0.f;
-          for (int ch = 0; ch < nc; ++ch) acc += pacc[static_cast<size_t>(base + ch) * dh + j];
-#pragma unroll
-          for (int i = 0; i < R; ++i)
-            if (i <= b) acc += e[i] * blk.f(kBufKv)[i * 2 * D + D + h * dh + j];
-          xs[b * D + h * dh + j] = round_t<T>(acc / den);
-        }
-        continue;
-      }
-    }
     float e_cur = 0.f;
     if (self) {
       const float s_cur = current_score(blk, b, h);
@@ -830,77 +767,15 @@ __device__ void combine_rows(Block<T, R, kV>& blk, int nc, bool self, float* pos
   }
 }
 
-#ifdef TTS_DECODE_STEP_VERIFY
-// A verify pass's row j input, the draft f0 + j (f0 - prev) at column k, in
-// fp32 with each operation rounded as the wrapper's plain version rounds it.
-__device__ __forceinline__ float draft(const Step& s, int j, int k) {
-  return __fadd_rn(s.frame[k], __fmul_rn(static_cast<float>(j), __fsub_rn(s.frame[k], s.prev[k])));
-}
-
-// The end of a verify pass, in block 0 once every row's head output is in
-// its kBufAct (R rows of d_out = r n_mels mel | r stop columns).  Warp j
-// takes row j: ok_j (j >= 1) when max |draft_j - the last frame of group
-// j - 1| <= tau, vote_j when any of its r stop logits has sigmoid >=
-// stop_threshold.  m is 1 plus the leading run of j >= 1 with ok_j and no
-// vote at j - 1, then at most the positions left; the vote is the last
-// accepted group's.  The m r accepted frames go to frames_out, their stop
-// logits to stops_out, 2 m + vote to code.
-template <typename T, int R>
-__device__ void accept_pass(Block<T, R, true>& blk) {
-  const Config& c = blk.c;
-  const Step& s = blk.s;
-  const int nm = c.n_mels, r = s.r;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const float* y = blk.f(kBufAct);
-  float* flag = blk.f(kBufRed);  // ok (R) | vote (R)
-  if (warp < R) {
-    const int j = warp;
-    float err = 0.f;
-    if (j > 0) {
-      const float* last = y + (j - 1) * c.d_out + (r - 1) * nm;
-      for (int k = lane; k < nm; k += 32) err = fmaxf(err, fabsf(__fsub_rn(draft(s, j, k), last[k])));
-    }
-    err = warp_max(err);
-    bool vote = false;
-    for (int i = lane; i < r; i += 32)
-      vote |= __frcp_rn(1.f + expf(-y[j * c.d_out + nm * r + i])) >= s.stop_threshold;
-    vote = __any_sync(0xffffffffu, vote);
-    if (lane == 0) {
-      flag[j] = (j == 0 || err <= s.tau) ? 1.f : 0.f;
-      flag[R + j] = vote ? 1.f : 0.f;
-    }
-  }
-  __syncthreads();
-  int m = 1;  // every thread alike
-  while (m < R && flag[m] != 0.f && flag[R + m - 1] == 0.f) ++m;
-  const int voted = flag[R + m - 1] != 0.f;
-  m = min(m, s.limit);
-  for (int i = threadIdx.x; i < m * r * nm; i += kThreads) {
-    const int f = i / nm, k = i - f * nm;  // frame f of the pass: group f / r, its frame f % r
-    s.frames_out[i] = y[(f / r) * c.d_out + (f % r) * nm + k];
-  }
-  for (int i = threadIdx.x; i < m * r; i += kThreads) s.stops_out[i] = y[(i / r) * c.d_out + nm * r + i % r];
-  if (threadIdx.x == 0) *s.code = 2 * m + voted;
-}
-#endif  // TTS_DECODE_STEP_VERIFY
-
-template <typename T, int R, bool kDrop, bool kVerify = false>
+template <typename T, int R, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1) decode_step_kernel(const Config c, const Step s) {
   extern __shared__ __align__(128) uint8_t smem[];
   const int rank = static_cast<int>(cluster_rank());
-#ifdef TTS_DECODE_STEP_VERIFY
-  static_assert(kVerify, "the verify library builds the verify form only");
-#endif
-  Block<T, R, kVerify> blk{c, s, smem, rank, static_cast<int>(cluster_index()) * R, 0, 0, nullptr, 0};
+  Block<T, R> blk{c, s, smem, rank, static_cast<int>(cluster_index()) * R, 0, 0, nullptr, 0};
   const int n_gs = 3 + 6 * c.L;
   const int D = c.H * c.dh;
-#ifdef TTS_DECODE_STEP_VERIFY  // two stamps more a block: the acceptance's barrier
-  if (s.timeline != nullptr)
-    blk.stamps = s.timeline + static_cast<size_t>(blockIdx.x) * (8 + 20 * c.L);
-#else
   if (s.timeline != nullptr)
     blk.stamps = s.timeline + static_cast<size_t>(blockIdx.x) * (6 + 20 * c.L);
-#endif
 
   // the block's plan rows and biases, the LayerNorm parameters of the first
   // two layers and the first weight pieces, all by bulk copy
@@ -942,12 +817,8 @@ __global__ void __launch_bounds__(kThreads, 1) decode_step_kernel(const Config c
   float* xs = blk.f(kBufXs);
   for (int i = threadIdx.x; i < R * c.n_mels; i += kThreads) {
     const int b = i / c.n_mels, k = i - b * c.n_mels;
-#ifdef TTS_DECODE_STEP_VERIFY  // the verify library instantiates kVerify only
-    xs[i] = round_t<T>(draft(s, b, k));
-#else
     const int row = min(blk.row0 + b, c.B - 1);
     xs[i] = round_t<T>(s.frame[static_cast<size_t>(row) * s.frame_stride + k]);
-#endif
   }
   __syncthreads();  // the mbarriers are initialised, xs holds the frame
   mbar_wait(plan_bar, 0);
@@ -1027,19 +898,15 @@ __global__ void __launch_bounds__(kThreads, 1) decode_step_kernel(const Config c
   // fused mel|stop head; prologue LN3(residual + o) of the last layer
   layer_norm_rows<T, R>(blk, blk.f(kBufRa), c.L - 1, 2, nullptr, false);
   gemv<T, R, kEpiOut>(blk, n_gs - 1, kBufXs, kBufO);
-#ifdef TTS_DECODE_STEP_VERIFY
-  blk.sync();  // every row's head output in block 0
-  if (rank == 0) accept_pass(blk);
-#endif
   if (blk.stamps != nullptr) {
     __syncthreads();
     if (threadIdx.x == 0) blk.stamps[1 + 2 * blk.n_sync] = global_timer_ns();
   }
 }
 
-template <typename T, int R, bool kDrop, bool kVerify = false>
+template <typename T, int R, bool kDrop>
 int launch(const Config& c, const Step& s, cudaStream_t stream) {
-  auto fn = decode_step_kernel<T, R, kDrop, kVerify>;
+  auto fn = decode_step_kernel<T, R, kDrop>;
   static int opted = 0;  // dynamic shared memory this instantiation may take
   if (c.smem_bytes > opted) {
     cudaError_t err =

@@ -510,6 +510,7 @@ THREADS = 512  # threads of a block (kThreads)
 WARPS = THREADS // 32
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may opt in to on Hopper (227 KB)
 PIECE_BYTES = 32 * 1024  # a weight piece, at most (unless one column is larger)
+VERIFY_PIECE_BYTES = 36 * 1024  # a verify weight piece: a 64-column stage of Config() whole
 # kMaxPieces: a bound on the plan, not a buffer (the piece table and its
 # mbarriers take 24 bytes a piece of the block's shared memory, in the layout);
 # fp32 at d_model 1,024 and d_ffn 4,096 takes 682 a block in clusters of 16,
@@ -599,18 +600,30 @@ def decode_plan(n_layers: int, d: int, d_ffn: int, n_mels: int, d_out: int, rows
     ``SMEM_BUFFERS``, ``ring_bytes`` and ``smem_bytes``.  Raises when a
     block's buffers or a piece do not fit."""
     stages = gemv_stages(n_layers, d, d_ffn, n_mels, d_out)
+    cols, pieces, bias, need = _block_pieces(
+        stages, cluster, lambda k: k * itemsize, lambda k: max(1, PIECE_BYTES // (k * itemsize)))
+    layout = decode_smem_layout(rows, n_layers, n_heads, d // n_heads, d_ffn, n_mels, n_pos, tp,
+                                itemsize, len(stages), max(map(len, pieces)), bias, need, cluster)
+    return _plan_rows(stages, cols, pieces, layout)
+
+
+def _block_pieces(stages: list, cluster: int, row_bytes, piece_cols) -> tuple:
+    """Each block's columns of every stage (``split_columns``, the extra
+    columns of successive stages on different blocks) and its weight pieces
+    (stage, col0, col1, bytes) of ``piece_cols(k)`` columns of
+    ``row_bytes(k)`` bytes (k the stage's depth); the bias floats a block
+    holds (a multiple of 4) and the most ring bytes a block's pieces take."""
     cols, first = [], 0
     for _, n, _ in stages:
         cols.append(split_columns(n, cluster, first))
         first = (first + n % cluster) % cluster
-    # every block's pieces: (stage, col0, col1, bytes)
     pieces = []
     for g in range(cluster):
         mine = []
         for s, (_, _, k) in enumerate(stages):
             c0, c1 = cols[s][g]
-            step = max(1, PIECE_BYTES // (k * itemsize))
-            mine += [(s, a, min(a + step, c1), (min(a + step, c1) - a) * k * itemsize)
+            step = piece_cols(k)
+            mine += [(s, a, min(a + step, c1), (min(a + step, c1) - a) * row_bytes(k))
                      for a in range(c0, c1, step)]
         pieces.append(mine)
     n_pieces = max(len(p) for p in pieces)
@@ -619,8 +632,14 @@ def decode_plan(n_layers: int, d: int, d_ffn: int, n_mels: int, d_out: int, rows
     need = max(sum(p[3] for p in mine) for mine in pieces)
     bias = -(-max(sum(c1 - c0 for c0, c1 in (cols[s][g] for s in range(len(stages))))
                   for g in range(cluster)) // 4) * 4  # a bulk copy moves 16-byte multiples
-    layout = decode_smem_layout(rows, n_layers, n_heads, d // n_heads, d_ffn, n_mels, n_pos, tp,
-                                itemsize, len(stages), n_pieces, bias, need, cluster)
+    return cols, pieces, bias, need
+
+
+def _plan_rows(stages: list, cols: list, pieces: list, layout: dict) -> tuple:
+    """(stage rows, piece rows, layout) of ``decode_plan`` from
+    ``_block_pieces``' columns and pieces, placed in the ring of
+    ``layout`` (a block with fewer pieces pads with pieces never issued)."""
+    cluster, n_pieces = len(pieces), max(map(len, pieces))
     stage_rows = np.zeros((len(stages), cluster, 4), np.int32)
     piece_rows = np.zeros((n_pieces, cluster, 4), np.int32)
     piece_rows[:, :, 3] = 1 << 30  # padding: never issued
@@ -748,11 +767,13 @@ class _StepConfig(ctypes.Structure):
 
 
 def _launch_config(plan, packed: dict, cluster: int, b: int, rows: int, n_heads: int, n_pos: int,
-                   tp: int) -> tuple:
+                   tp: int, weights: dict | None = None) -> tuple:
     """The kernel's ``Config`` for ``plan`` (``decode_plan``'s result) with
     clusters of ``cluster`` blocks decoding ``rows`` rows each, ``b`` batch
-    rows of caches of ``n_pos`` and ``tp`` positions, and the plan's
-    tensors on the weights' device that it points to (keep them alive)."""
+    rows of caches of ``n_pos`` and ``tp`` positions, pointing to
+    ``weights`` (default ``packed``, whose shapes give the widths), and the
+    plan's tensors on the weights' device that it points to (keep them
+    alive)."""
     stage_rows, piece_rows, layout = plan
     n_layers, d, dev = packed["sWo"].shape[0], packed["pw1"].shape[0], packed["pw1"].device
     dh = d // n_heads
@@ -772,7 +793,8 @@ def _launch_config(plan, packed: dict, cluster: int, b: int, rows: int, n_heads:
         first_piece=((ctypes.c_int * 2) * MAX_CLUSTER)(
             *[(ctypes.c_int * 2)(*piece_rows[0, g, :2]) for g in range(cluster)]),
         scale=dh ** -0.5,
-        w=(ctypes.c_void_p * len(_PACK_ORDER))(*[packed[k].data_ptr() for k in _PACK_ORDER]),
+        w=(ctypes.c_void_p * len(_PACK_ORDER))(
+            *[(packed if weights is None else weights)[k].data_ptr() for k in _PACK_ORDER]),
         stages=stages.data_ptr(), pieces=pieces.data_ptr(), bias=bias.data_ptr())
     return (stages, pieces, bias), cfg
 
@@ -893,17 +915,182 @@ class DecodeStep:
                            device=self.y.device)
 
 
+# ---------------------------------------------------------- the verify pass
+#
+# The verify kernel (ops/csrc/decode_step_verify.cu) runs the step's chain
+# for the K positions of a pass in one cluster of CLUSTER blocks, with its
+# own matrix-vector stages (bf16 on the tensor cores: 16-column tiles of a
+# block's weight piece against the K rows), attention items (head, chunk)
+# that score all K queries, and its own buffers.  What it is handed besides
+# pointers is computed here.
+
+VERIFY_PAD = 8  # bf16 elements each weight row of the verify copy has more (16 bytes)
+TILE = 16  # output columns of one tensor-core product (kTile)
+TILE_COLS_MAX = 256  # columns of a bf16 verify piece, at most: a warp a tile
+# keys of a verify attention chunk, at least (``verify_chunks``): fewer than
+# a step's MIN_CHUNK, so that a pass's K queries over a prefix of a few
+# hundred keys are scored by all the cluster's blocks, not by one a head
+VERIFY_MIN_CHUNK = 64
+VERIFY_BUFFERS = ("fresh", "stage", "flags")  # the pass's own buffers (VerifyBuffer)
+MAX_SEGS = 16  # key segments of attention's value products, at most (kMaxSegs)
+_MATRICES = ("pw1", "pw2", "sWqkv", "sWo", "cWq", "cWo", "W1", "W2", "head_w")
+
+
+def verify_row_pad(itemsize: int) -> int:
+    """Elements a weight row of the verify copy has more than its depth:
+    ``VERIFY_PAD`` in bf16 (row_pad in the CUDA source), none in fp32."""
+    return VERIFY_PAD if itemsize == 2 else 0
+
+
+@torch.no_grad()
+def pack_verify_weights(packed: dict) -> dict:
+    """The verify kernel's copy of ``pack_decode_weights``' dict: in bf16
+    each weight matrix (out, in) becomes (out, in + ``VERIFY_PAD``), zeros
+    after each row, so that a row is an odd number of 16-byte chunks and the
+    8 rows of a tensor-core load from the shared-memory ring fall in
+    distinct banks; biases and LayerNorm parameters are the same tensors.
+    fp32 needs no copy: the dict itself.  Made once per weights version
+    (``infer.decode.weights_packer``), never per request."""
+    pad = verify_row_pad(packed["pw1"].element_size())
+    if not pad:
+        return packed
+    out = dict(packed)
+    for k in _MATRICES:
+        out[k] = torch.nn.functional.pad(packed[k], (0, pad)).contiguous()
+    return out
+
+
+def verify_piece_cols(k: int, itemsize: int) -> int:
+    """Columns of a verify weight piece of depth k: as many rows (of
+    ``k + verify_row_pad``) as ``VERIFY_PIECE_BYTES`` holds; in bf16 whole
+    tiles of ``TILE`` columns (at most ``TILE_COLS_MAX``), or one tile where
+    a tile takes up to 2 ``PIECE_BYTES``."""
+    row = (k + verify_row_pad(itemsize)) * itemsize
+    step = max(1, VERIFY_PIECE_BYTES // row)
+    if itemsize == 2:
+        if step >= TILE:
+            return min(step - step % TILE, TILE_COLS_MAX)
+        if TILE * row <= 2 * PIECE_BYTES:
+            return TILE
+    return step
+
+
+def tile_split(n_cols: int, k: int) -> tuple:
+    """(tiles, depth slices a tile) of a bf16 verify piece of ``n_cols``
+    columns of depth k, as the kernel takes them: warp w < tiles x slices
+    computes tile w // slices over the depth's 16-wide steps [s nk / slices,
+    (s + 1) nk / slices) of slice s = w % slices (nk = k / 16), and the
+    slices' partial sums are added in slice order."""
+    tiles = -(-n_cols // TILE)
+    return tiles, min(max(1, WARPS // tiles), k // TILE)
+
+
+def verify_chunks(n_keys: int, n_heads: int, cluster: int = CLUSTER) -> tuple:
+    """(keys per chunk, chunks) of a verify pass's attention over n_keys
+    keys: its items (head, chunk) score every row's query, so the keys are
+    cut as a step's of one row (``attn_chunks`` with one row)."""
+    return attn_chunks(n_keys, 1, n_heads, cluster, VERIFY_MIN_CHUNK)
+
+
+def verify_value_segments(k: int, dh: int) -> int:
+    """Key segments of a verify attention item's value products: threads
+    (segment, row, four columns) fill a block's ``THREADS``."""
+    return min(max(1, THREADS // (k * dh // 4)), MAX_SEGS)
+
+
 def verify_plan(n_layers: int, d: int, d_ffn: int, n_mels: int, d_out: int, k: int, r: int,
                 n_heads: int, cap: int, tp: int, itemsize: int) -> tuple:
     """``decode_plan`` of the verify kernel: one cluster of ``CLUSTER``
     blocks whose rows are the K positions of a pass, over a cache of ``cap``
-    positions.  Raises for a K or a head the kernel does not take, and with
-    the plan's message when the plan does not fit a block."""
+    positions; pieces of ``verify_piece_cols`` columns of rows padded by
+    ``verify_row_pad``, and ``verify_smem_layout``.  Raises for a K, a head
+    or (bf16) widths the kernel does not take, and with the layout's
+    message when the plan does not fit a block."""
     if not 2 <= k <= MAX_BATCH or d_out != r * (n_mels + 1) or d_out > max(d, d_ffn):
         raise ValueError(f"decode_verify kernel takes 2 <= K <= {MAX_BATCH} and a head of "
                          f"r (n_mels + 1) <= max(d_model, d_ffn) columns; got K={k}, "
                          f"d_out={d_out}, r={r}")
-    return decode_plan(n_layers, d, d_ffn, n_mels, d_out, k, n_heads, cap, tp, itemsize, CLUSTER)
+    if itemsize == 2 and any(w % TILE for w in (d, d_ffn, n_mels)):
+        raise ValueError(f"decode_verify kernel takes bf16 widths that are multiples of {TILE}; "
+                         f"got (d, d_ffn, n_mels)={(d, d_ffn, n_mels)}")
+    pad = verify_row_pad(itemsize)
+    stages = gemv_stages(n_layers, d, d_ffn, n_mels, d_out)
+    cols, pieces, bias, need = _block_pieces(
+        stages, CLUSTER, lambda kk: (kk + pad) * itemsize,
+        lambda kk: verify_piece_cols(kk, itemsize))
+    layout = verify_smem_layout(
+        k, n_layers, n_heads, d // n_heads, d_ffn, n_mels, cap, tp, itemsize, len(stages),
+        max(map(len, pieces)), bias, need, max(c1 - c0 for st in cols for c0, c1 in st),
+        max(p[3] for mine in pieces for p in mine))
+    return _plan_rows(stages, cols, pieces, layout)
+
+
+def verify_smem_layout(k: int, n_layers: int, n_heads: int, dh: int, d_ffn: int, n_mels: int,
+                       cap: int, tp: int, itemsize: int, n_stages: int, n_pieces: int,
+                       bias_floats: int, ring_need: int, block_cols: int, max_piece: int,
+                       cluster: int = CLUSTER) -> dict:
+    """Byte offsets of the verify kernel's shared-memory buffers, 16-byte
+    aligned: the step's (``SMEM_BUFFERS``, sized for K rows and its own
+    attention items: ``nc_max`` chunks a head at most, ``max_keys`` keys a
+    chunk; ``act`` in bf16 with rows ``verify_row_pad`` longer, the inputs
+    of prenet 2 and FFN 2; ``part`` is the larger of attention's rounded
+    queries and partial sums (``verify_value_segments`` key segments of (K,
+    dh)) and, in bf16, another stage's inputs in bf16 and two sets of 16
+    partial tiles of K rows),
+    then its own (``VERIFY_BUFFERS``); the ring takes what is left of
+    ``SMEM_LIMIT``, at most ``ring_need``.  Raises when the ring cannot hold
+    the largest piece and less than all of them."""
+    d = n_heads * dh
+    chunks = [verify_chunks(n, n_heads, cluster) for n in range(1, max(cap, tp) + 1)]
+    ncm, max_keys = max(nc for _, nc in chunks), max(ln for ln, _ in chunks)
+    items = -(-n_heads * ncm // cluster)  # (head, chunk) items a block, at most
+    part = 4 * max(k * dh, verify_value_segments(k, dh) * k * dh)
+    act = 4 * k * max(d, d_ffn)
+    if itemsize == 2:  # the inputs of prenet 2 and FFN 2 in bf16 in act, the others in part
+        pad = verify_row_pad(itemsize)
+        part = max(part, 2 * k * (max(n_mels, d) + pad) + 4 * 2 * WARPS * TILE * k)
+        act = 2 * k * (max(d, d_ffn) + pad)
+    floats = {
+        "red": (WARPS + 1) * 2 * (1 << (k - 1).bit_length()), "bias": bias_floats,
+        "ln": 2 * 6 * d,
+        "ra": k * d, "rb": k * d, "o": k * d, "q": k * d,
+        "kv": 2 * k * d, "xs": k * max(d, n_mels),
+        "pm": k * n_heads * ncm, "pl": k * n_heads * ncm, "ppos": 0,
+        "pacc": k * n_heads * ncm * dh, "mloc": items * k, "posh": 0,
+        "scores": items * k * max_keys,
+        "fresh": n_heads * k * k, "stage": k * (block_cols + 8), "flags": 2 * k * cluster,
+    }
+    sizes = {"stages": 16 * n_stages, "pieces": 16 * n_pieces, "mbar": 8 * (n_pieces + n_layers + 1),
+             "part": part, "act": act, **{name: 4 * v for name, v in floats.items()}}
+    out, at = {}, 0
+    for name in SMEM_BUFFERS[:-1] + VERIFY_BUFFERS:
+        out[name] = at
+        at += -(-sizes[name] // 16) * 16
+    out["ring"] = at
+    out["n_bias"], out["nc_max"], out["max_keys"] = bias_floats, ncm, max_keys
+    out["ring_bytes"] = min((SMEM_LIMIT - at) // 16 * 16, -(-ring_need // 16) * 16)
+    out["smem_bytes"] = at + max(out["ring_bytes"], 0)
+    if out["ring_bytes"] < max_piece and out["ring_bytes"] < ring_need:
+        raise ValueError(f"decode_verify: the kernel's buffers take {at} bytes of shared memory, "
+                         f"too much of the {SMEM_LIMIT} a block may have")
+    return out
+
+
+def verify_launch_config(plan, packed: dict, weights: dict, k: int, n_heads: int, cap: int,
+                         tp: int) -> tuple:
+    """The verify kernel's ``Config`` for ``plan`` (``verify_plan``'s),
+    ``packed`` (the widths and biases) and ``weights``
+    (``pack_verify_weights(packed)``, its pointers), the plan's tensors it
+    points to, and the byte offsets of ``VERIFY_BUFFERS`` (keep all alive):
+    one cluster, B = 1 (the caches' one row, which every row of the pass
+    reads), R = K, the cross-attention chunks of ``verify_chunks``, and the
+    layout's ``nc_max`` and ``max_keys``."""
+    tensors, cfg = _launch_config(plan, packed, CLUSTER, 1, k, n_heads, cap, tp, weights)
+    layout = plan[2]
+    cfg.cross_chunk, cfg.cross_nc = verify_chunks(tp, n_heads)
+    cfg.nc_max, cfg.max_keys = layout["nc_max"], layout["max_keys"]
+    voff = (ctypes.c_int * len(VERIFY_BUFFERS))(*[layout[b] for b in VERIFY_BUFFERS])
+    return tensors, cfg, voff
 
 
 def _verify_lib():
@@ -913,7 +1100,7 @@ def _verify_lib():
     lib = _build.load("decode_step_verify")
     if not getattr(lib, "_argtypes_set", False):
         i, p, f = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-        lib.tts_decode_verify.argtypes = [p, i, i, i, i] + [p] * 14 + [f, f, i, i, p, p]
+        lib.tts_decode_verify.argtypes = [p, i, i, i, i] + [p] * 14 + [f, f, i, i, p, p, p]
         lib.tts_decode_verify.restype = i
         lib.tts_decode_step_config_bytes.restype = ctypes.c_long
         if lib.tts_decode_step_config_bytes() != ctypes.sizeof(_StepConfig):
@@ -928,7 +1115,8 @@ class DecodeVerify:
 
         verify = DecodeVerify(self_k, self_v, cross_k, cross_v, packed, cross_bias,
                               pe_table, frames, stops, k=K, r=r, n_pos=n_pos, tau=tau,
-                              stop_threshold=threshold, linear=True)
+                              stop_threshold=threshold, linear=True,
+                              verify_weights=pack_verify_weights(packed))
         code = verify(t)  # (1,) int32 on the device: 2 m + vote
 
     ``self_k`` / ``self_v`` (L, H, 1, n_pos + K, dh) and ``cross_k`` /
@@ -939,19 +1127,23 @@ class DecodeVerify:
     the pass writes (the accepted m groups' frames and stop logits) as it
     writes the caches (rows t .. t + K - 1).  ``y``, ``k_new``, ``v_new``
     hold the last pass's outputs (as ``decode_verify_reference``'s).
+    ``verify_weights``: ``pack_verify_weights(packed)``, which the kernel
+    reads; a caller that decodes more than once keeps it per weights version
+    (made here when not given).
 
     On CUDA tensors each call is one C call and one launch of the verify
-    kernel, or it raises: it never falls back.  2 <= K <= 8, and the
-    kernel's plan must fit a block (``decode_plan(rows=K)``: at
-    ``configs/paper.yaml`` widths K <= 4).  On CPU tensors the call runs
-    ``verify_pass_reference``.  ``launches`` counts this pass's launches,
-    ``DecodeVerify.launches_total`` every instance's."""
+    kernel, or it raises: it never falls back.  2 <= K <= 8, bf16 widths
+    multiples of 16, and the kernel's plan must fit a block
+    (``verify_plan``: at ``configs/paper.yaml`` widths K <= 4).  On CPU
+    tensors the call runs ``verify_pass_reference``.  ``launches`` counts
+    this pass's launches, ``DecodeVerify.launches_total`` every
+    instance's."""
 
     launches_total = 0
 
     def __init__(self, self_k, self_v, cross_k, cross_v, packed, cross_bias, pe_table, frames,
                  stops, *, k: int, r: int, n_pos: int, tau: float, stop_threshold: float,
-                 linear: bool = True):
+                 linear: bool = True, verify_weights: dict | None = None):
         n_layers, n_heads, _, cap, dh = self_k.shape
         tp, dev = cross_k.shape[3], self_k.device
         d, d_ffn = n_heads * dh, packed["W1"].shape[1]
@@ -970,20 +1162,27 @@ class DecodeVerify:
         if dev.type == "cpu":
             return
         _check_fixed_args(self_k, self_v, cross_k, cross_v, packed)
+        itemsize = packed["pw1"].element_size()
+        weights = pack_verify_weights(packed) if verify_weights is None else verify_weights
+        pad = verify_row_pad(itemsize)
+        shapes = _packed_shapes(n_layers, d, d_ffn, n_mels, d_out)
+        _check_tensors({name: (weights[name], packed[name].dtype,
+                               shapes[name][:-1] + (shapes[name][-1] + pad,))
+                        for name in _MATRICES}, dev)
         _check_tensors({"cross_bias": (cross_bias, torch.float32, (1, tp)),
                         "pe_table": (pe_table, torch.float32, (pe_table.shape[0], d)),
                         "frames": (frames, torch.float32, (frames.shape[0], n_mels)),
                         "stops": (stops, torch.float32, (stops.shape[0],))}, dev)
-        plan = verify_plan(
-            n_layers, d, d_ffn, n_mels, d_out, k, r, n_heads, cap, tp, packed["pw1"].element_size())
+        plan = verify_plan(n_layers, d, d_ffn, n_mels, d_out, k, r, n_heads, cap, tp, itemsize)
         lib = _verify_lib()
-        # B = 1: the caches' one row, which every row of the pass reads
-        self._plan, self._cfg = _launch_config(plan, packed, CLUSTER, 1, k, n_heads, cap, tp)
+        self._plan, self._cfg, self._voff = verify_launch_config(plan, packed, weights, k,
+                                                                 n_heads, cap, tp)
+        self._weights = weights  # the pointers stay valid
         self.y = torch.empty((k, d_out), dtype=torch.float32, device=dev)
         self.k_new = torch.empty((n_layers, n_heads, k, dh), dtype=self_k.dtype, device=dev)
         self.v_new = torch.empty_like(self.k_new)
         self.code = torch.zeros((1,), dtype=torch.int32, device=dev)
-        self._self_chunks = [attn_chunks(t, k, n_heads, CLUSTER) for t in range(n_pos)]
+        self._self_chunks = [verify_chunks(t, n_heads) for t in range(n_pos)]
         self.layout = plan[2]
         self._is_bf16 = int(packed["pw1"].dtype == torch.bfloat16)
         self._row = n_mels * 4  # bytes of a frame
@@ -1016,7 +1215,7 @@ class DecodeVerify:
         rc = self._call(
             ctypes.byref(self._cfg), self._is_bf16, t, chunk, nc, f0, prev, pe + t * self._d4,
             cb, sk, sv, ck, cv, y, kn, vn, f0 + self._row, stops + t * r * 4,
-            self.code.data_ptr(), self.tau, self.stop_threshold, self.n_pos - t, r,
+            self.code.data_ptr(), self.tau, self.stop_threshold, self.n_pos - t, r, self._voff,
             timeline.data_ptr() if timeline is not None else None,
             _current_stream(self.y.device))
         if rc != 0:
