@@ -3,7 +3,8 @@ and the step from a loader batch to the device.
 
 ``prefetch`` overlaps host-side batch assembly (npz decode + pad) with
 device execution.  A bounded queue keeps at most ``depth`` batches in flight
-so memory stays flat.
+so memory stays flat.  Each wait of the consumer on the queue is a
+``data.wait`` span (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -14,10 +15,16 @@ from typing import Iterable, Iterator
 
 import torch
 
+from transformertts_tpu_torch.utils import trace
+
 _SENTINEL = object()
 
 
-def prefetch(iterable: Iterable, depth: int = 2) -> Iterator:
+def prefetch(iterable: Iterable, depth: int = 2, waits: list | None = None) -> Iterator:
+    """The items of ``iterable``, assembled in a background thread.  Each
+    ``data.wait`` span is also appended to ``waits`` when given (the
+    sentinel's last one included), so a caller reads its own waits whatever
+    the ring holds."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     error: list[BaseException] = []
 
@@ -33,7 +40,10 @@ def prefetch(iterable: Iterable, depth: int = 2) -> Iterator:
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with trace.span("data.wait") as s:
+            item = q.get()
+        if waits is not None:
+            waits.append(s)
         if item is _SENTINEL:
             if error:
                 raise error[0]

@@ -4,6 +4,12 @@
 KV-cached decode (the CUDA decode-step kernel on the GPU), mel
 denormalization, Griffin-Lim waveforms — behind one object, one-shot
 (``synthesize``) or streamed chunk by chunk (``stream``).
+
+Spans (``utils/trace.py``): ``synth.g2p`` (text to padded ids) and
+``synth.deliver`` (copies to the host, per-row slicing, denormalization)
+around the decode's own (``decode.*``), all under one trace id per call: the
+caller's (a batch of ``DynamicBatcher``) or a new one.  A stream keeps its
+trace id across its chunks.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from transformertts_tpu_torch.infer.streaming import make_stream_fns, stream_chu
 from transformertts_tpu_torch.models import TransformerTTS
 from transformertts_tpu_torch.text import G2p, phonemize
 from transformertts_tpu_torch.train.checkpoint import load_eval_weights
+from transformertts_tpu_torch.utils import trace
 
 
 class Synthesizer:
@@ -111,32 +118,35 @@ class Synthesizer:
         ``stop_threshold`` None takes ``cfg.runtime.stop_threshold``."""
         if isinstance(texts, str):
             texts = [texts]
-        seqs = [self.text_to_ids(t) for t in texts]
-        bucket = pick_bucket(
-            max(len(s) for s in seqs), self.cfg.runtime.phoneme_buckets
-        ) or self.cfg.runtime.phoneme_buckets[-1]
-        b = len(seqs)
-        phoneme = np.zeros((b, bucket), np.int32)
-        lens = np.zeros((b,), np.int32)
-        for i, s in enumerate(seqs):
-            s = s[:bucket]
-            phoneme[i, : len(s)] = s
-            lens[i] = len(s)
+        with trace.scope():
+            with trace.span("synth.g2p"):
+                seqs = [self.text_to_ids(t) for t in texts]
+                bucket = pick_bucket(
+                    max(len(s) for s in seqs), self.cfg.runtime.phoneme_buckets
+                ) or self.cfg.runtime.phoneme_buckets[-1]
+                b = len(seqs)
+                phoneme = np.zeros((b, bucket), np.int32)
+                lens = np.zeros((b,), np.int32)
+                for i, s in enumerate(seqs):
+                    s = s[:bucket]
+                    phoneme[i, : len(s)] = s
+                    lens[i] = len(s)
 
-        decode = self._decode_fn(max_len or self.cfg.runtime.infer_max_len, stop_threshold)
-        out = decode(phoneme, lens)
-        self.steps_decoded += out["n_steps"]
-        post = out["post_melspec"].cpu().numpy()
-        per_row = out["n_frames_per_row"].cpu().numpy()
-        mels = []
-        for i in range(b):
-            # per-row usable length: frames up to this row's own stop vote,
-            # bounded by the global stop step
-            n = max(int(per_row[i]), 1)
-            mel = post[i, :n].T  # (n_mels, T)
-            if denormalize and self.stats is not None:
-                mel = denormalize_mel(mel, self.stats["mean"], self.stats["std"])
-            mels.append(mel.astype(np.float32))
+            decode = self._decode_fn(max_len or self.cfg.runtime.infer_max_len, stop_threshold)
+            out = decode(phoneme, lens)
+            self.steps_decoded += out["n_steps"]
+            with trace.span("synth.deliver"):
+                post = out["post_melspec"].cpu().numpy()
+                per_row = out["n_frames_per_row"].cpu().numpy()
+                mels = []
+                for i in range(b):
+                    # per-row usable length: frames up to this row's own stop vote,
+                    # bounded by the global stop step
+                    n = max(int(per_row[i]), 1)
+                    mel = post[i, :n].T  # (n_mels, T)
+                    if denormalize and self.stats is not None:
+                        mel = denormalize_mel(mel, self.stats["mean"], self.stats["std"])
+                    mels.append(mel.astype(np.float32))
         return mels
 
     def stream(
@@ -155,26 +165,36 @@ class Synthesizer:
         padded to the smallest bucket that holds it, and ``max_len``
         (default ``runtime.infer_max_len``) is rounded up to whole chunks:
         the decode still ends at the stop vote."""
-        seq = self.text_to_ids(text)
-        buckets = self.cfg.runtime.phoneme_buckets
-        bucket = pick_bucket(len(seq), buckets) or buckets[-1]
-        n = min(len(seq), bucket)
-        phoneme = np.zeros((1, bucket), np.int32)
-        phoneme[0, :n] = seq[:n]
-        lens = np.array([n], np.int32)
-        max_len = max_len or self.cfg.runtime.infer_max_len
-        max_len = -(-max_len // chunk) * chunk
-        key = (max_len, chunk)
-        if key not in self._streams:
-            self._streams[key] = make_stream_fns(self.model, self.cfg, max_len=max_len,
-                                                 chunk=chunk, device=self.device)
-        fns = self._streams[key]
-        for _, post, steps in stream_chunks(fns, self.cfg, fns[0](phoneme, lens), max_len):
-            self.steps_decoded += steps
-            mel = post[0].T  # (n_mels, <= chunk)
-            if denormalize and self.stats is not None:
-                mel = denormalize_mel(mel, self.stats["mean"], self.stats["std"])
-            yield mel.astype(np.float32)
+        with trace.scope() as tid:
+            with trace.span("synth.g2p"):
+                seq = self.text_to_ids(text)
+                buckets = self.cfg.runtime.phoneme_buckets
+                bucket = pick_bucket(len(seq), buckets) or buckets[-1]
+                n = min(len(seq), bucket)
+                phoneme = np.zeros((1, bucket), np.int32)
+                phoneme[0, :n] = seq[:n]
+                lens = np.array([n], np.int32)
+            max_len = max_len or self.cfg.runtime.infer_max_len
+            max_len = -(-max_len // chunk) * chunk
+            key = (max_len, chunk)
+            if key not in self._streams:
+                self._streams[key] = make_stream_fns(self.model, self.cfg, max_len=max_len,
+                                                     chunk=chunk, device=self.device)
+            fns = self._streams[key]
+            chunks = stream_chunks(fns, self.cfg, fns[0](phoneme, lens), max_len)
+        while True:
+            with trace.scope(tid):  # each resumption decodes under the request's trace
+                item = next(chunks, None)
+                if item is None:
+                    return
+                _, post, steps = item
+                self.steps_decoded += steps
+                with trace.span("synth.deliver"):
+                    mel = post[0].T  # (n_mels, <= chunk)
+                    if denormalize and self.stats is not None:
+                        mel = denormalize_mel(mel, self.stats["mean"], self.stats["std"])
+                    mel = mel.astype(np.float32)
+            yield mel
 
     def mel_to_wav(self, mel: np.ndarray) -> np.ndarray:
         """(n_mels, T) log-mel (as ``synthesize`` returns it) -> waveform by

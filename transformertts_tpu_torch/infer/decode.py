@@ -39,6 +39,17 @@ JAX loop's key).
 
 The loop runs in Python and reads the stop votes back once per step.
 
+Spans (``utils/trace.py``): ``decode.init`` (``DecodeState`` and
+``SpeculativeDecode`` set-up) holds ``decode.encode``, ``decode.cross_kv``
+and one ``decode.plan`` per chunk of rows (``KernelRows`` or ``PlainRows``:
+the PE table, the permuted cross K/V, the caches and the ``DecodeStep``);
+``decode.loop`` is one call of ``run_each``, ``run_lockstep`` or
+``SpeculativeDecode.run`` with ``steps`` (the steps run, as ``n_steps``
+counts them) and ``readback_ns`` (the host's time in the stop readbacks,
+two clock reads a step: the rest of the loop is host work); under a running
+profiler each step is a ``decode.step`` range as well.  ``decode.postnet``
+is the postnet and the rows' lengths of the result.
+
 Speculative decode (``runtime.decode_speculative_k`` K > 1, one utterance:
 JAX ``_speculative_decode``) is ``SpeculativeDecode``: each pass drafts K -
 1 inputs, verifies the K positions at once and advances by the accepted
@@ -49,6 +60,7 @@ accepts and writes the frames.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import torch
@@ -70,6 +82,7 @@ from transformertts_tpu_torch.ops.decode_step import (
     prenet_drop_args,
     prenet_keep,
 )
+from transformertts_tpu_torch.utils import trace
 
 
 def per_row_lengths(stops: torch.Tensor, n_frames: int, stop_threshold: float) -> torch.Tensor:
@@ -115,6 +128,26 @@ def prenet_dropout_step(model, frame, t: int, rate: float, seed: int, row0: int 
     return (x.float() + model.pe.alpha.float() * pe_row).to(dtype)
 
 
+def _steps(stopped: torch.Tensor, more, step) -> int:
+    """Calls ``step()`` while ``more()`` and some row of ``stopped`` has not
+    voted, reading the votes back before each step; returns the nanoseconds
+    those readbacks took (the host waiting for the device).  Under a running
+    profiler each step is a ``decode.step`` range."""
+    waited, ranged = 0, trace.profiling()
+    while more():
+        t0 = time.perf_counter_ns()
+        done = bool(stopped.all())
+        waited += time.perf_counter_ns() - t0
+        if done:
+            break
+        if ranged:
+            with trace.step_range("decode.step"):
+                step()
+        else:
+            step()
+    return waited
+
+
 class DecodeRows:
     """One chunk of rows of a ``DecodeState``: the step body and what only
     this chunk's steps read (caches, window center).  ``frames``, ``stops``
@@ -150,10 +183,10 @@ class DecodeRows:
             self.center = torch.maximum(self.center, exp_pos)
         self.t += 1
 
-    def run(self, until: int) -> None:
-        """Steps until position ``until`` or until every row has voted."""
-        while self.t < until and not bool(self.stopped.all()):
-            self.step()
+    def run(self, until: int) -> int:
+        """Steps until position ``until`` or until every row has voted;
+        returns the nanoseconds spent reading the votes back."""
+        return _steps(self.stopped, lambda: self.t < until, self.step)
 
 
 class PlainRows(DecodeRows):
@@ -261,20 +294,25 @@ class DecodeState:
         b, tp = phoneme.shape
         dev, n_mels = phoneme.device, cfg.model.n_mels
         self.n_pos = max_len // cfg.model.reduction_factor
-        memory = model.encode(phoneme, lens if mask_encoder_source else None)
-        cross_kv = model.build_cross_cache(memory)  # L x ((B, Tp, H, dh) x 2)
-        cross_bias = padding_bias(lens, tp)  # (B, 1, 1, Tp)
-        self.frames = torch.zeros((b, max_len + 1, n_mels), dtype=torch.float32, device=dev)
-        self.stops = torch.full((b, max_len), NEG_INF, dtype=torch.float32, device=dev)
-        self.stopped = torch.zeros((b,), dtype=torch.bool, device=dev)
-        step = chunk if kernel else b
-        self.rows = []
-        for i in range(0, b, step):
-            part = slice(i, i + step)
-            args = (model, cfg, self.frames[part], self.stops[part], self.stopped[part],
-                    [(k[part], v[part]) for k, v in cross_kv], cross_bias[part], self.n_pos,
-                    stop_threshold, i, prenet_dropout)
-            self.rows.append(KernelRows(*args, packed=packed) if kernel else PlainRows(*args))
+        with trace.span("decode.init"):
+            with trace.span("decode.encode"):
+                memory = model.encode(phoneme, lens if mask_encoder_source else None)
+            with trace.span("decode.cross_kv"):
+                cross_kv = model.build_cross_cache(memory)  # L x ((B, Tp, H, dh) x 2)
+                cross_bias = padding_bias(lens, tp)  # (B, 1, 1, Tp)
+            self.frames = torch.zeros((b, max_len + 1, n_mels), dtype=torch.float32, device=dev)
+            self.stops = torch.full((b, max_len), NEG_INF, dtype=torch.float32, device=dev)
+            self.stopped = torch.zeros((b,), dtype=torch.bool, device=dev)
+            step = chunk if kernel else b
+            self.rows = []
+            for i in range(0, b, step):
+                part = slice(i, i + step)
+                args = (model, cfg, self.frames[part], self.stops[part], self.stopped[part],
+                        [(k[part], v[part]) for k, v in cross_kv], cross_bias[part],
+                        self.n_pos, stop_threshold, i, prenet_dropout)
+                with trace.span("decode.plan", rows=min(step, b - i)):
+                    self.rows.append(KernelRows(*args, packed=packed) if kernel
+                                     else PlainRows(*args))
 
     @property
     def t(self) -> int:
@@ -288,15 +326,22 @@ class DecodeState:
 
     def run_each(self, until: int) -> None:
         """Each chunk to position ``until`` or its own rows' votes, in turn."""
-        for rows in self.rows:
-            rows.run(until)
+        with trace.span("decode.loop") as s:
+            before = self.n_steps
+            s.attrs["readback_ns"] = sum([rows.run(until) for rows in self.rows])
+            s.attrs["steps"] = self.n_steps - before
 
     def run_lockstep(self, until: int) -> None:
         """Every chunk takes each step, until position ``until`` or until
         every row of the batch has voted (the JAX stream's global stop)."""
-        while self.t < until and not bool(self.stopped.all()):
+        def step() -> None:
             for rows in self.rows:
                 rows.step()
+
+        with trace.span("decode.loop") as s:
+            before = self.n_steps
+            s.attrs["readback_ns"] = _steps(self.stopped, lambda: self.t < until, step)
+            s.attrs["steps"] = self.n_steps - before
 
 
 class SpeculativeDecode:
@@ -328,11 +373,21 @@ class SpeculativeDecode:
         self.k, self.n_pos = int(rt.decode_speculative_k), max_len // m.reduction_factor
         self.tau, self.stop_threshold = float(rt.decode_speculative_tau), stop_threshold
         self.linear = rt.decode_speculative_draft == "linear"
-        memory = model.encode(phoneme, lens if mask_encoder_source else None)
-        self.cross_kv = model.build_cross_cache(memory)  # L x ((1, Tp, H, dh) x 2)
-        self.cross_bias = padding_bias(lens, tp)  # (1, 1, 1, Tp)
-        self.frames = torch.zeros((1, max_len + 1, m.n_mels), dtype=torch.float32, device=dev)
-        self.stops = torch.full((1, max_len), NEG_INF, dtype=torch.float32, device=dev)
+        with trace.span("decode.init"):
+            with trace.span("decode.encode"):
+                memory = model.encode(phoneme, lens if mask_encoder_source else None)
+            with trace.span("decode.cross_kv"):
+                self.cross_kv = model.build_cross_cache(memory)  # L x ((1, Tp, H, dh) x 2)
+                self.cross_bias = padding_bias(lens, tp)  # (1, 1, 1, Tp)
+            self.frames = torch.zeros((1, max_len + 1, m.n_mels), dtype=torch.float32,
+                                      device=dev)
+            self.stops = torch.full((1, max_len), NEG_INF, dtype=torch.float32, device=dev)
+            with trace.span("decode.plan", rows=1):
+                self._plan(model, m, dev, kernel, packed, stop_threshold, verify_weights)
+        self.t = self.passes = 0
+
+    def _plan(self, model, m, dev, kernel, packed, stop_threshold, verify_weights) -> None:
+        """The caches and the pass: the verify kernel's, or the plain one's."""
         cap = self.n_pos + self.k  # the chunk's rows past n_pos stay in the caches
         L, H, dh = m.decoder_n_layers, m.decoder_n_head, m.d_model // m.decoder_n_head
         if kernel:
@@ -353,7 +408,6 @@ class SpeculativeDecode:
             self.rows = torch.arange(self.k, device=dev)[:, None]
             self.cols = torch.arange(cap, device=dev)[None, :]
             self.pass_ = self.plain_pass
-        self.t = self.passes = 0
 
     def plain_pass(self, t: int) -> int:
         """One pass through the model's modules; returns 2 m + vote."""
@@ -380,12 +434,22 @@ class SpeculativeDecode:
 
     def run(self) -> None:
         """Passes until position n_pos or a stop vote."""
-        stopped = False
-        while self.t < self.n_pos and not stopped:
-            code = int(self.pass_(self.t))  # the pass's one readback
-            self.t += code // 2
-            stopped = bool(code & 1)
-            self.passes += 1
+        with trace.span("decode.loop") as s:
+            stopped, waited, ranged, before = False, 0, trace.profiling(), self.passes
+            while self.t < self.n_pos and not stopped:
+                if ranged:
+                    with trace.step_range("decode.step"):
+                        out = self.pass_(self.t)
+                else:
+                    out = self.pass_(self.t)
+                t0 = time.perf_counter_ns()
+                code = int(out)  # the pass's one readback
+                waited += time.perf_counter_ns() - t0
+                self.t += code // 2
+                stopped = bool(code & 1)
+                self.passes += 1
+            s.attrs["readback_ns"] = waited
+            s.attrs["steps"] = self.passes - before
 
 
 def decode_options(cfg: Config, device: torch.device, use_kernel: Optional[bool]) -> tuple:
@@ -490,25 +554,26 @@ def make_decode_fn(
     def decode(phoneme, phoneme_lens) -> dict:
         phoneme = torch.as_tensor(phoneme, dtype=torch.long, device=device)
         lens = torch.as_tensor(phoneme_lens, dtype=torch.long, device=device)
-        if spec_k > 1 and phoneme.shape[0] == 1:  # one utterance; batches fall through
-            if n_pos + spec_k - 1 > cfg.model.max_len:
-                # the pass reads PE rows [t, t + K): past the table's end they
-                # would shift even position 0's encoding, which is always accepted
-                raise ValueError(f"max_len/r + decode_speculative_k - 1 ({n_pos + spec_k - 1}) "
-                                 f"must be <= model.max_len ({cfg.model.max_len})")
-            spec = SpeculativeDecode(model, cfg, phoneme, lens, max_len, stop_threshold, kernel,
-                                     packed() if kernel else None, mask_encoder_source,
-                                     packed(verify=True) if kernel and device.type == "cuda"
-                                     else None)
-            spec.run()
-            return _result(model, spec.frames, spec.stops, spec.t * r, stop_threshold,
-                           spec.passes, n_verify_passes=spec.passes)
-        state = DecodeState(model, cfg, phoneme, lens, max_len, stop_threshold, kernel,
-                            packed() if kernel else None, chunk, prenet_dropout,
-                            mask_encoder_source)
-        state.run_each(n_pos)
-        return _result(model, state.frames, state.stops, state.t * r, stop_threshold,
-                       state.n_steps)
+        with trace.scope():  # one decode, one trace (the caller's when it has one)
+            if spec_k > 1 and phoneme.shape[0] == 1:  # one utterance; batches fall through
+                if n_pos + spec_k - 1 > cfg.model.max_len:
+                    # the pass reads PE rows [t, t + K): past the table's end they
+                    # would shift even position 0's encoding, which is always accepted
+                    raise ValueError(f"max_len/r + decode_speculative_k - 1 ({n_pos + spec_k - 1}) "
+                                     f"must be <= model.max_len ({cfg.model.max_len})")
+                spec = SpeculativeDecode(model, cfg, phoneme, lens, max_len, stop_threshold, kernel,
+                                         packed() if kernel else None, mask_encoder_source,
+                                         packed(verify=True) if kernel and device.type == "cuda"
+                                         else None)
+                spec.run()
+                return _result(model, spec.frames, spec.stops, spec.t * r, stop_threshold,
+                               spec.passes, n_verify_passes=spec.passes)
+            state = DecodeState(model, cfg, phoneme, lens, max_len, stop_threshold, kernel,
+                                packed() if kernel else None, chunk, prenet_dropout,
+                                mask_encoder_source)
+            state.run_each(n_pos)
+            return _result(model, state.frames, state.stops, state.t * r, stop_threshold,
+                           state.n_steps)
 
     return decode
 
@@ -553,12 +618,15 @@ def _result(model, frames, stops, n_frames: int, stop_threshold: float, n_steps:
             **extra) -> dict:
     """``make_decode_fn``'s dict from a decode's buffers."""
     pred = frames[:, 1:, :]
+    with trace.span("decode.postnet"):
+        post = model.apply_postnet(pred).float()
+        per_row = per_row_lengths(stops, n_frames, stop_threshold)
     return {
         "pred_melspec": pred,
-        "post_melspec": model.apply_postnet(pred).float(),
+        "post_melspec": post,
         "pred_stop": stops,
         "n_frames": n_frames,
-        "n_frames_per_row": per_row_lengths(stops, n_frames, stop_threshold),
+        "n_frames_per_row": per_row,
         "n_steps": n_steps,
         **extra,
     }

@@ -13,6 +13,16 @@ chunks of 8 rows) instead of B=1 per request.
 
 The HTTP front end serves mel spectrograms, or with ``format: "wav"``
 Griffin-Lim waveforms (``Synthesizer.mel_to_wav``).
+
+Spans (``utils/trace.py``): ``batcher.queued``, one per request from
+``submit`` to the start of its batch's ``synthesize``, under the request's
+own trace id; ``batcher.wait``, the worker blocked on an empty queue;
+``batcher.fill``, from taking a batch's first request to closing the batch;
+``batcher.batch`` (``rows``; ``requests``: the requests' trace ids),
+``synthesize`` through delivery, whose trace id ``fill`` and the
+synthesizer's spans share (``synth.g2p``, ``decode.*``, ``synth.deliver``).
+``GET /healthz`` adds ``trace``: per span name over the ring, the count and
+the p50 and p95 ms.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from typing import Optional
 import numpy as np
 
 from transformertts_tpu_torch.dsp.griffin_lim import wav_bytes
+from transformertts_tpu_torch.utils import trace
 
 
 @dataclass
@@ -36,6 +47,8 @@ class _Request:
     text: str
     future: Future = field(default_factory=Future)
     t_submit: float = field(default_factory=time.monotonic)
+    t_ns: int = field(default_factory=time.perf_counter_ns)  # the spans' clock
+    trace: int = field(default_factory=trace.new_id)
 
 
 class DynamicBatcher:
@@ -129,52 +142,59 @@ class DynamicBatcher:
 
     # ------------------------------------------------------------- worker
 
-    def _collect(self) -> list[_Request] | None:
-        """Block for the first request, then fill the batch until full or
-        the wait window closes.  Returns None on shutdown."""
-        first = self._q.get()
-        if first is None:
-            return None
+    def _collect(self, first: _Request) -> list[_Request]:
+        """Fill the batch after its first request until full or the wait
+        window closes."""
         batch = [first]
-        deadline = time.monotonic() + self.max_wait_s
-        while len(batch) < self.max_batch:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
-            try:
-                nxt = self._q.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if nxt is None:
-                # shutdown sentinel: serve what we have, then exit next loop
-                self._q.put(None)
-                break
-            batch.append(nxt)
+        with trace.span("batcher.fill"):
+            deadline = time.monotonic() + self.max_wait_s
+            while len(batch) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    # shutdown sentinel: serve what we have, then exit next loop
+                    self._q.put(None)
+                    break
+                batch.append(nxt)
         return batch
 
     def _run(self) -> None:
         while True:
-            batch = self._collect()
-            if batch is None:
+            with trace.span("batcher.wait"):
+                first = self._q.get()  # block for the first request
+            if first is None:  # shutdown
                 return
-            try:
-                mels = self.synth.synthesize(
-                    [r.text for r in batch], max_len=self.max_len
-                )
-            except Exception as e:  # deliver the failure to every waiter
-                for r in batch:
-                    if not r.future.cancelled():
-                        r.future.set_exception(e)
-                continue
-            now = time.monotonic()
-            with self._stats_lock:
-                self.n_batches += 1
-                self.n_requests += len(batch)
-                self.batch_hist[len(batch)] = self.batch_hist.get(len(batch), 0) + 1
-                self.total_latency_s += sum(now - r.t_submit for r in batch)
-            for r, mel in zip(batch, mels):
+            with trace.scope():  # the batch's trace: its fill, batch and decode
+                batch = self._collect(first)
+                with trace.span("batcher.batch", rows=len(batch),
+                                requests=tuple(r.trace for r in batch)):
+                    self._serve(batch)
+
+    def _serve(self, batch: list[_Request]) -> None:
+        start = time.perf_counter_ns()
+        for r in batch:
+            trace.record("batcher.queued", r.t_ns, start, trace_id=r.trace)
+        try:
+            mels = self.synth.synthesize([r.text for r in batch], max_len=self.max_len)
+        except Exception as e:  # deliver the failure to every waiter
+            for r in batch:
                 if not r.future.cancelled():
-                    r.future.set_result(mel)
+                    r.future.set_exception(e)
+            return
+        now = time.monotonic()
+        with self._stats_lock:
+            self.n_batches += 1
+            self.n_requests += len(batch)
+            self.batch_hist[len(batch)] = self.batch_hist.get(len(batch), 0) + 1
+            self.total_latency_s += sum(now - r.t_submit for r in batch)
+        for r, mel in zip(batch, mels):
+            if not r.future.cancelled():
+                r.future.set_result(mel)
 
 
 # ---------------------------------------------------------------- HTTP
@@ -184,7 +204,8 @@ def make_http_server(batcher: DynamicBatcher, host: str = "127.0.0.1", port: int
 
     POST /synthesize  {"text": "...", "format": "mel"|"wav"}
         -> .npy bytes (mel, shape (n_mels, T)) or RIFF wav bytes
-    GET  /healthz     -> {"ok": true, ...batcher stats}
+    GET  /healthz     -> {"ok": true, ...batcher stats, "trace": per span name
+                         the count and p50 / p95 ms (``utils.trace.summary``)}
 
     Handler threads block on their own future while the single worker
     thread batches across them — concurrency IS the batching signal.
@@ -206,7 +227,7 @@ def make_http_server(batcher: DynamicBatcher, host: str = "127.0.0.1", port: int
 
         def do_GET(self):
             if self.path == "/healthz":
-                self._json(200, {"ok": True, **batcher.stats()})
+                self._json(200, {"ok": True, **batcher.stats(), "trace": trace.summary()})
             else:
                 self._json(404, {"error": "unknown path"})
 

@@ -22,6 +22,10 @@ CLAMPED into ``[0, max_len]``, then trimmed: a clamped edge coincides with
 the one-shot buffer's edge (where each conv layer pads alike), an unclamped
 one has ``overlap`` frames of real context, so the trimmed interior equals
 the postnet over the whole buffer.
+
+Spans (``utils/trace.py``): ``init`` is ``DecodeState``'s ``decode.init``,
+each ``chunk_fn`` one ``decode.loop``, each ``post_fn`` one
+``decode.postnet``, and each chunk's copies to the host ``synth.deliver``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 from transformertts_tpu_torch.config import Config
 from transformertts_tpu_torch.device import resolve_device
 from transformertts_tpu_torch.infer.decode import DecodeState, decode_options, weights_packer
+from transformertts_tpu_torch.utils import trace
 
 
 def postnet_overlap(cfg: Config) -> int:
@@ -105,7 +110,8 @@ def make_stream_fns(
     def post_fn(frames: torch.Tensor, start: int) -> torch.Tensor:
         lo = min(max(start - overlap, 0), max_len - win_len)
         window = frames[:, lo + 1: lo + 1 + win_len]
-        post = model.apply_postnet(window).float()
+        with trace.span("decode.postnet"):
+            post = model.apply_postnet(window).float()
         return post[:, start - lo: start - lo + chunk]
 
     return init, chunk_fn, post_fn
@@ -126,12 +132,15 @@ def stream_chunks(fns, cfg: Config, state: DecodeState, max_len: int,
         state, pred, n = chunk_fn(state)
         steps += state.n_steps - before
         if n:
-            pending.append((t, pred[:, :n].cpu().numpy(), n))
+            with trace.span("synth.deliver"):
+                pending.append((t, pred[:, :n].cpu().numpy(), n))
         t += n
         done = n < pred.shape[1] or t >= max_len
         while pending and (done or pending[0][0] + pending[0][2] + overlap <= t):
             s, p, n_p = pending.pop(0)
-            post = post_fn(state.frames, s)[:, :n_p].cpu().numpy()
+            post = post_fn(state.frames, s)[:, :n_p]
+            with trace.span("synth.deliver"):
+                post = post.cpu().numpy()
             yield p, post, steps
             steps = 0
         if done:

@@ -32,6 +32,14 @@ the replicated parameters' over the model ranks too), the metrics are
 summed likewise, the global gradient norm counts each sharded parameter's
 squares over the model ranks and each replicated one once, and every rank
 then reads the same norm and loss and skips, or not, together.
+
+Spans (``utils/trace.py``): ``train.step`` (``micro``; ``frames``: the
+padded mel frames) holds one ``train.micro`` per micro-batch
+(``train.forward_free``, the gradient-free forward and the mixing, under
+scheduled sampling; ``train.forward``, the forward and the loss;
+``train.backward``), then ``train.grads`` (divide, sum over ranks, norm),
+``train.readback`` (the non-finite guard's readback: the host's wait for the
+device) and ``train.optimizer`` (the update and the EMA).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from transformertts_tpu_torch.train.loss import (
 from transformertts_tpu_torch.train.metrics import mel_cepstral_distortion, stop_token_metrics
 from transformertts_tpu_torch.train.sampling import apply_teacher_forcing
 from transformertts_tpu_torch.train.schedules import noam_schedule
+from transformertts_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -161,29 +170,32 @@ def _micro_loss(model: TransformerTTS, cfg: Config, batch: dict, p_tf: float, se
     layout = model.layout
     target_in = melspec
     if scheduled_sampling:
-        with torch.no_grad():  # forward #1: train mode, no gradient, no postnet
+        with trace.span("train.forward_free"), torch.no_grad():
+            # forward #1: train mode, no gradient, no postnet
             out1 = model(phoneme, melspec, p_lens, m_lens, return_alignments=False,
                          compute_postnet=False, train=True, rng=DropoutRng(seeds[0], device))
-        mix_rng = torch.Generator(device=device).manual_seed(seeds[2])
-        target_in = apply_teacher_forcing(
-            mix_rng, out1["pred_melspec"], melspec, m_lens, p_tf,
-            cfg.training.scheduled_sampling_block, layout)
+            mix_rng = torch.Generator(device=device).manual_seed(seeds[2])
+            target_in = apply_teacher_forcing(
+                mix_rng, out1["pred_melspec"], melspec, m_lens, p_tf,
+                cfg.training.scheduled_sampling_block, layout)
 
     need_align = cfg.loss.guided_attn_weight > 0.0
     if ga_w is None:
         ga_w = cfg.loss.guided_attn_weight
-    out = model(phoneme, target_in, p_lens, m_lens, return_alignments=need_align,
-                train=True, rng=DropoutRng(seeds[1], device))
-    losses = tts_loss(out, melspec, m_lens, cfg.loss.stop_weight, cfg.loss.post_mel_weight,
-                      cfg.loss.stop_gate_k, layout)
-    total = losses["total"]
-    if need_align:
-        ga = guided_attention_loss(out["alignments"], m_lens, p_lens, cfg.loss.guided_attn_sigma,
-                                   layout)
-        losses["guided_attn"] = ga
-        total = total + ga_w * ga
-    losses["total"] = total
-    total.backward()
+    with trace.span("train.forward"):
+        out = model(phoneme, target_in, p_lens, m_lens, return_alignments=need_align,
+                    train=True, rng=DropoutRng(seeds[1], device))
+        losses = tts_loss(out, melspec, m_lens, cfg.loss.stop_weight, cfg.loss.post_mel_weight,
+                          cfg.loss.stop_gate_k, layout)
+        total = losses["total"]
+        if need_align:
+            ga = guided_attention_loss(out["alignments"], m_lens, p_lens,
+                                       cfg.loss.guided_attn_sigma, layout)
+            losses["guided_attn"] = ga
+            total = total + ga_w * ga
+        losses["total"] = total
+    with trace.span("train.backward"):
+        total.backward()
     return {k: v.detach() for k, v in losses.items()}, target_in
 
 
@@ -246,52 +258,60 @@ def make_train_step(
         if state.model is not model:
             raise ValueError("the state belongs to another model than this step")
         k = len(batch["phoneme"])
-        params = dict(model.named_parameters())
-        stats = _batch_stats(model)
-        old_stats = {name: buf.clone() for name, buf in stats.items()}
-        model.zero_grad(set_to_none=True)
-        seeds = torch.randint(0, 2**62, (k, 3), generator=generator).tolist()
+        mel_shape = batch["melspec"].shape  # (K, B, T_m, n_mels)
+        with trace.span("train.step", micro=k, frames=k * mel_shape[1] * mel_shape[2]):
+            params = dict(model.named_parameters())
+            stats = _batch_stats(model)
+            old_stats = {name: buf.clone() for name, buf in stats.items()}
+            model.zero_grad(set_to_none=True)
+            seeds = torch.randint(0, 2**62, (k, 3), generator=generator).tolist()
 
-        losses, mixed = [], None
-        for i in range(k):
-            micro_losses, target_in = _micro_loss(
-                model, cfg, _to_device(batch, model.device, i), p_tf, seeds[i],
-                scheduled_sampling, ga_w)
-            losses.append(micro_losses)
-            if i == 0:
-                mixed = target_in
+            losses, mixed = [], None
+            for i in range(k):
+                with trace.span("train.micro"):
+                    micro_losses, target_in = _micro_loss(
+                        model, cfg, _to_device(batch, model.device, i), p_tf, seeds[i],
+                        scheduled_sampling, ga_w)
+                losses.append(micro_losses)
+                if i == 0:
+                    mixed = target_in
 
-        layout = model.layout
-        names = [name for name, p in params.items() if p.grad is not None]
-        grads = dict(zip(names, torch._foreach_div([params[n].grad for n in names], float(k))))
-        for name, p in params.items():  # a parameter the loss never reached
-            if name not in grads:
-                grads[name] = torch.zeros_like(p)
-        grads = {name: grads[name] for name in params}  # one order on every rank
-        _sum_grads(layout, grads)
-        metrics = {name: torch.stack([m[name] for m in losses]).mean() for name in losses[0]}
-        metrics = dict(zip(metrics, layout.total(torch.stack(list(metrics.values())))))
-        grad_norm = _global_norm(layout, grads)
-        metrics["grad_norm"] = grad_norm
+            layout = model.layout
+            with trace.span("train.grads"):
+                names = [name for name, p in params.items() if p.grad is not None]
+                grads = dict(zip(names, torch._foreach_div([params[n].grad for n in names],
+                                                           float(k))))
+                for name, p in params.items():  # a parameter the loss never reached
+                    if name not in grads:
+                        grads[name] = torch.zeros_like(p)
+                grads = {name: grads[name] for name in params}  # one order on every rank
+                _sum_grads(layout, grads)
+                metrics = {name: torch.stack([m[name] for m in losses]).mean()
+                           for name in losses[0]}
+                metrics = dict(zip(metrics, layout.total(torch.stack(list(metrics.values())))))
+                grad_norm = _global_norm(layout, grads)
+                metrics["grad_norm"] = grad_norm
 
-        # failure detection: a non-finite step is skipped wholesale (the one readback)
-        norm_host, total_host = torch.stack([grad_norm, metrics["total"]]).tolist()
-        ok = math.isfinite(norm_host) and math.isfinite(total_host)
-        metrics["skipped"] = torch.tensor(0.0 if ok else 1.0, device=model.device)
-        if ok:
-            optimizer.apply_(params, grads, state.opt_state, norm_host)
-            if state.ema_params is not None:  # EMA trails the POST-update parameters
+            # failure detection: a non-finite step is skipped wholesale (the one readback)
+            with trace.span("train.readback"):
+                norm_host, total_host = torch.stack([grad_norm, metrics["total"]]).tolist()
+            ok = math.isfinite(norm_host) and math.isfinite(total_host)
+            metrics["skipped"] = torch.tensor(0.0 if ok else 1.0, device=model.device)
+            if ok:
+                with trace.span("train.optimizer"):
+                    optimizer.apply_(params, grads, state.opt_state, norm_host)
+                    if state.ema_params is not None:  # EMA trails the POST-update parameters
+                        with torch.no_grad():
+                            ema = [state.ema_params[n] for n in params]
+                            torch._foreach_mul_(ema, decay)
+                            torch._foreach_add_(ema, [p.detach() for p in params.values()],
+                                                alpha=1.0 - decay)
+            else:
                 with torch.no_grad():
-                    ema = [state.ema_params[n] for n in params]
-                    torch._foreach_mul_(ema, decay)
-                    torch._foreach_add_(ema, [p.detach() for p in params.values()],
-                                        alpha=1.0 - decay)
-        else:
-            with torch.no_grad():
-                for name, buf in stats.items():
-                    buf.copy_(old_stats[name])
-        model.zero_grad(set_to_none=True)
-        state.step += 1
+                    for name, buf in stats.items():
+                        buf.copy_(old_stats[name])
+            model.zero_grad(set_to_none=True)
+            state.step += 1
         if return_mixed_inputs:
             return state, metrics, mixed
         return state, metrics

@@ -204,16 +204,14 @@ class Trainer:
         gen = torch.Generator().manual_seed(t.seed + 1000 + epoch)
         ga_w = self._guided_weight(epoch)
 
-        step_metrics, step_s, wait_s = [], [], []
+        step_metrics, step_s, waits = [], [], []  # waits: the epoch's data.wait spans
         audio_seconds = 0.0
         prof = None
         t_start = time.perf_counter()
-        batches = prefetch(self.train_loader.epoch(epoch))
+        batches = prefetch(self.train_loader.epoch(epoch), waits=waits)
         while True:
-            t0 = time.perf_counter()
             batch = next(batches, None)  # blocked here = the loader holds the step back
             t1 = time.perf_counter()
-            wait_s.append(t1 - t0)
             if batch is None:
                 break
             if profile_steps and len(step_s) == 1 and prof is None and self.rank0:
@@ -279,8 +277,8 @@ class Trainer:
         avg["step_ms_median"] = 1e3 * statistics.median(step_s) if step_s else float("nan")
         # the first batch overlaps no step; the later ones show whether the
         # loader keeps up with the steps
-        avg["loader_wait_share"] = sum(wait_s) / elapsed
-        avg["loader_wait_first_ms"] = 1e3 * wait_s[0]
+        avg["loader_wait_share"] = sum(s.ns for s in waits) * 1e-9 / elapsed
+        avg["loader_wait_first_ms"] = waits[0].ns * 1e-6
         avg["p_tf"] = p_tf
         if ga_w is not None:
             avg["ga_w"] = float(ga_w)
