@@ -169,3 +169,185 @@ def test_decode_gate_on_cuda(monkeypatch):
     assert make_decode_fn(model, cfg, max_len=8, use_kernel=False) is not None
     _, on = configs()
     assert make_decode_fn(model, on, max_len=8) is not None
+
+
+# ------------------------------------- the decode step prepared once per shape
+
+def _plan_hits(fn, phoneme, lens):
+    """``hit`` of each ``decode.plan`` span of one decode (stream or not)."""
+    import time
+
+    from transformertts_tpu_torch.utils import trace
+
+    t0 = time.perf_counter_ns()
+    out = fn(phoneme, lens)
+    return out, [s.attrs["hit"] for s in trace.spans()
+                 if s.name == "decode.plan" and s.start_ns >= t0]
+
+
+@pytest.mark.parametrize("n_pos", [1, 12, 576])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pe_table_is_the_numpy_table_bit_for_bit(dtype, n_pos):
+    """The kernel loop's PE rows, ``alpha * PE[:n_pos]`` from the model's
+    own table, are the float64-built numpy table's rows times alpha, bit for
+    bit, whatever the compute dtype (the table stays fp32)."""
+    import torch
+
+    from transformertts_tpu_torch.infer.decode import pe_table
+    from transformertts_tpu_torch.models import TransformerTTS
+    from transformertts_tpu_torch.models.modules import sinusoid_table
+
+    _, pcfg = configs()
+    m = pcfg.model
+    model = TransformerTTS(m, dtype=getattr(torch, dtype), device="cpu",
+                           generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.pe.alpha.fill_(0.7312)
+    assert model.pe.pe.dtype == torch.float32
+    want = (model.pe.alpha.float() * torch.from_numpy(
+        sinusoid_table(m.max_len, m.d_model))).float()[:n_pos]
+    got = pe_table(model, n_pos)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["oneshot", "stream"])
+def test_decode_plan_hits_after_the_first_decode_of_a_shape(kind):
+    """Each kernel-loop ``decode.plan`` span carries ``hit``: false at the
+    first decode of a (rows, n_pos, max(n_pos, Tp)) shape, true at the next,
+    also for another prompt bucket under n_pos, and false again after a
+    parameter was written; a decode and a stream sharing one
+    ``DecodeWeights`` share its shapes.  Cold and warm decodes give the
+    same frames, stop logits and lengths, bit for bit."""
+    import torch
+
+    from transformertts_tpu_torch.infer.decode import DecodeWeights
+    from transformertts_tpu_torch.infer.streaming import make_stream_fns, stream_chunks
+
+    jcfg, pcfg = configs(decode_megakernel_max_batch=2)
+    model = port_model(pcfg, jax_model_and_variables(jcfg)[1])
+    weights = DecodeWeights(model)
+    one = make_decode_fn(model, pcfg, max_len=24, stop_threshold=2.0, use_kernel=True,
+                         device="cpu", weights=weights)
+    if kind == "stream":
+        fns = make_stream_fns(model, pcfg, max_len=24, chunk=8, stop_threshold=2.0,
+                              use_kernel=True, device="cpu", weights=weights)
+
+        def fn(phoneme, lens):
+            state = fns[0](phoneme, lens)
+            list(stream_chunks(fns, pcfg, state, 24))
+            return {"pred_melspec": state.frames, "pred_stop": state.stops}
+    else:
+        fn = one
+    phoneme, lens = _inputs(2)  # Tp 16 under n_pos 24: chunks of 2 rows
+    cold, hits = _plan_hits(fn, phoneme, lens)
+    assert hits == [False]
+    warm, hits = _plan_hits(fn, phoneme, lens)
+    assert hits == [True]
+    for k in ("pred_melspec", "pred_stop"):
+        assert torch.equal(cold[k], warm[k]), k
+    assert _plan_hits(fn, phoneme[:, :8], np.minimum(lens, 8))[1] == [True]  # another bucket
+    assert _plan_hits(fn, np.tile(phoneme, (1, 2)), lens)[1] == [False]  # Tp 32 over n_pos
+    assert _plan_hits(fn, phoneme[:1], lens[:1])[1] == [False]  # one row: another shape
+    assert _plan_hits(one if kind == "stream" else fn, phoneme[:1], lens[:1])[1] == [True]
+    with torch.no_grad():
+        model.decoder.layers[0].ffn.Dense_0.bias.add_(0.25)
+    assert _plan_hits(fn, phoneme, lens)[1] == [False]
+    assert _plan_hits(fn, phoneme, lens)[1] == [True]
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The decode library's occupancy query answered as a card that holds
+    7 clusters of 16 blocks, 11 of 12 and 16 of 8: ``DecodeWeights`` then
+    prepares the kernel's plan and tables for a CUDA device name, on the
+    CPU tensors of the model (the kernel itself never runs)."""
+    from transformertts_tpu_torch.ops import decode_step as ds
+
+    class Card:
+        def tts_decode_step_max_clusters(self, is_bf16, rows, smem, cluster):
+            return {16: 7, 12: 11, 8: 16}[cluster] if smem <= ds.SMEM_LIMIT else 0
+
+    monkeypatch.setattr(ds, "_lib", lambda name="decode_step": Card())
+    ds._card_plan_of.cache_clear()
+    yield
+    ds._card_plan_of.cache_clear()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_parameter_write_gives_a_new_bias_table(fake_card, dtype):
+    """The step's preparation is kept per shape beside the packed weights:
+    another Tp under n_pos takes the same one; after a parameter write the
+    weights are packed again and the shape prepared again, with a bias
+    table of the new biases, PE rows of the new alpha and the new weights'
+    pointers."""
+    import torch
+
+    from transformertts_tpu_torch.infer.decode import DecodeWeights, pe_table
+    from transformertts_tpu_torch.models import TransformerTTS
+    from transformertts_tpu_torch.ops.decode_step import (
+        _PACK_ORDER,
+        bias_table,
+        pack_decode_weights,
+        stage_biases,
+    )
+
+    _, pcfg = configs()
+    m = pcfg.model
+    model = TransformerTTS(m, dtype=getattr(torch, dtype), device="cpu",
+                           generator=torch.Generator().manual_seed(1))
+    weights, cuda = DecodeWeights(model), torch.device("cuda", 0)
+    packed, pe, prep, hit = weights.prepared(3, 24, 16, cuda)
+    assert not hit and prep.shape == (3, 24, 24) and prep.cluster == 16 and prep.rows == 1
+    again = weights.prepared(3, 24, 8, cuda)
+    assert again[3] and again[2] is prep and again[1] is pe and again[0] is packed
+    with torch.no_grad():
+        model.decoder.layers[1].self_attn.out_proj.bias.add_(1.5)
+        model.pe.alpha.mul_(3.0)
+    packed2, pe2, prep2, hit2 = weights.prepared(3, 24, 16, cuda)
+    assert not hit2 and packed2 is not packed
+    want = bias_table(stage_biases(pack_decode_weights(model, model.dtype), m.decoder_n_layers),
+                      prep2.plan[0], prep2.plan[1], prep2.plan[2]["n_bias"])
+    assert torch.equal(prep2.tensors[2], want) and not torch.equal(prep2.tensors[2], prep.tensors[2])
+    assert torch.equal(pe2, pe_table(model, 24)) and not torch.equal(pe2, pe)
+    assert prep2.pointers == tuple(packed2[k].data_ptr() for k in _PACK_ORDER)
+
+
+def test_decode_weights_under_threads(fake_card):
+    """Threads preparing the same shapes at once get one preparation a
+    shape: the lock keeps a second one from replacing the first."""
+    import sys
+    import threading
+
+    import torch
+
+    from transformertts_tpu_torch.infer.decode import DecodeWeights
+    from transformertts_tpu_torch.models import TransformerTTS
+
+    _, pcfg = configs()
+    model = TransformerTTS(pcfg.model, dtype=torch.float32, device="cpu",
+                           generator=torch.Generator().manual_seed(2))
+    weights, cuda = DecodeWeights(model), torch.device("cuda", 0)
+    shapes = [(b, n_pos, 16) for b in (1, 2, 3) for n_pos in (12, 24)]
+    seen: dict = {}
+    lock = threading.Lock()
+
+    def work(i):
+        for j in range(30):
+            shape = shapes[(i + j) % len(shapes)]
+            _, pe, prep, _ = weights.prepared(*shape, cuda)
+            with lock:
+                seen.setdefault(shape, set()).add((id(pe), id(prep)))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert sorted(seen) == sorted(shapes)
+    assert all(len(ids) == 1 for ids in seen.values()), seen

@@ -18,6 +18,7 @@ global max, and differ only in the order of fp32 sums.
 """
 
 import dataclasses
+import types
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 from transformertts_tpu_torch.config import Config, load_config, tiny_config
 from transformertts_tpu_torch.models import TransformerTTS
 from transformertts_tpu_torch.models.masks import NEG_INF
+from transformertts_tpu_torch.ops import decode_step as decode_step_mod
 from transformertts_tpu_torch.ops.decode_step import (
     CLUSTER,
     MAX_PIECES,
@@ -36,6 +38,8 @@ from transformertts_tpu_torch.ops.decode_step import (
     DecodeStep,
     _layer_norm,
     attn_chunks,
+    bias_table,
+    card_plan,
     chunks_max,
     decode_plan,
     decode_step_reference,
@@ -43,6 +47,8 @@ from transformertts_tpu_torch.ops.decode_step import (
     pack_decode_weights,
     ring_placement,
     rows_per_cluster,
+    self_chunks,
+    stage_biases,
 )
 
 WIDTHS = {
@@ -199,6 +205,126 @@ def test_prepared_step_refuses_cpu_tensors():
     caches = [torch.zeros((m.decoder_n_layers, m.decoder_n_head, 1, n, dh)) for n in (8, 8, 4, 4)]
     with pytest.raises(ValueError, match="is on cpu"):
         DecodeStep(*caches, packed)
+
+
+# --------------------------------------------------- plans made once per shape
+
+def _assert_same_plan(got, want):
+    assert [np.array_equal(a, b) for a, b in zip(got[:2], want[:2])] == [True, True]
+    assert got[2] == want[2]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("rows,cluster", [(1, 16), (2, 16), (1, 12), (1, 8)])
+@pytest.mark.parametrize("widths", ["config", "paper"])
+def test_memoised_plan_equals_a_fresh_one(widths, rows, cluster, itemsize):
+    """``decode_plan`` is memoised: a second call, and a call with another
+    encoder length under the cache's (the plan reads them as ``max(n_pos,
+    tp)``), give the plan computed afresh, arrays and layout; the shared
+    arrays are read-only and each caller gets its own layout."""
+    m = WIDTHS[widths]
+    d_out = m.n_mels * m.reduction_factor + m.reduction_factor
+    args = (m.decoder_n_layers, m.d_model, m.decoder_d_ffn, m.n_mels, d_out, rows,
+            m.decoder_n_head)
+    fresh = decode_step_mod._plan_of.__wrapped__(*args, 576, itemsize, cluster)
+    first = decode_plan(*args, 576, 192, itemsize, cluster)
+    for tp in (192, 64, 576):
+        got = decode_plan(*args, 576, tp, itemsize, cluster)
+        _assert_same_plan(got, fresh)
+        assert got[0] is first[0] and got[1] is first[1] and got[2] is not first[2]
+        assert not got[0].flags.writeable and not got[1].flags.writeable
+    longer = decode_plan(*args, 576, 600, itemsize, cluster)  # more keys: another plan
+    assert longer[2]["scores"] == fresh[2]["scores"] and longer[2] != fresh[2]
+
+
+class _FakeCard:
+    """The decode library's occupancy query on a card that holds 7 clusters
+    of 16 blocks, 11 of 12 and 16 of 8 (none where the block's shared
+    memory is over the limit); counts the queries."""
+
+    def __init__(self):
+        self.queries = 0
+
+    def tts_decode_step_max_clusters(self, is_bf16, rows, smem, cluster):
+        self.queries += 1
+        return {16: 7, 12: 11, 8: 16}[cluster] if smem <= SMEM_LIMIT else 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    card = _FakeCard()
+    monkeypatch.setattr(decode_step_mod, "_lib", lambda name="decode_step": card)
+    decode_step_mod._card_plan_of.cache_clear()
+    yield card
+    decode_step_mod._card_plan_of.cache_clear()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 6, 8])
+@pytest.mark.parametrize("widths", ["config", "paper"])
+def test_memoised_card_plan_equals_a_fresh_one(fake_card, widths, b, dtype):
+    """``card_plan`` is memoised on its integers, the dtype and the device:
+    a second call and another encoder length under the cache's ask the card
+    nothing more and give the fresh computation's clusters, rows and plan
+    (B <= 7 in clusters of 16 one row each, B = 8 in clusters of 12 here)."""
+    m = WIDTHS[widths]
+    d_out = m.n_mels * m.reduction_factor + m.reduction_factor
+    args = (m.decoder_n_layers, m.d_model, m.decoder_d_ffn, m.n_mels, d_out, b, m.decoder_n_head)
+    fresh = decode_step_mod._card_plan_of.__wrapped__(*args, 576, dtype,
+                                                      decode_step_mod._device_index())
+    assert fresh[:2] == ((16, 1) if b <= 7 else (12, 1))
+    asked = fake_card.queries
+    for tp in (96, 192, 576):
+        got = card_plan(*args, 576, tp, dtype)
+        assert got[:2] == fresh[:2]
+        _assert_same_plan(got[2], fresh[2])
+    assert fake_card.queries - asked <= 2  # the first call's probes only
+    asked = fake_card.queries
+    card_plan(*args, 576, 64, dtype)
+    assert fake_card.queries == asked
+
+
+def test_self_chunks_are_attn_chunks():
+    """The memoised self-attention chunks of every position."""
+    got = self_chunks(300, 2, 4, 16)
+    assert got is self_chunks(300, 2, 4, 16)
+    assert got == tuple(attn_chunks(t, 2, 4, 16) for t in range(300))
+
+
+def _bias_table_per_slice(biases, stage_rows, piece_rows, n_bias):
+    """The bias table as it was built before, one host copy a slice."""
+    cluster = stage_rows.shape[1]
+    table = torch.zeros((cluster, n_bias), dtype=torch.float32)
+    for g in range(cluster):
+        for s, bias in enumerate(biases):
+            first, end, at, _ = (int(v) for v in stage_rows[s, g])
+            if end > first:
+                c0, c1 = int(piece_rows[first, g, 0]), int(piece_rows[end - 1, g, 1])
+                table[g, at:at + c1 - c0] = bias[c0:c1].float().cpu()
+    return table
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows,cluster", [(1, 16), (2, 16), (1, 12)])
+def test_bias_table_from_one_copy_equals_the_per_slice_one(rows, cluster, dtype):
+    """The bias table filled from one host copy of every stage's bias is
+    the per-slice table, bit for bit, at ``Config()``-like widths."""
+    m = dataclasses.replace(tiny_config().model, d_model=64, decoder_n_head=2, decoder_d_ffn=128)
+    model = TransformerTTS(m, dtype=dtype, device="cpu",
+                           generator=torch.Generator().manual_seed(rows * 10 + cluster))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(generator=torch.Generator().manual_seed(p.numel()))
+    packed = pack_decode_weights(model, dtype)
+    d_out = m.n_mels * m.reduction_factor + m.reduction_factor
+    stage_rows, piece_rows, layout = decode_plan(
+        m.decoder_n_layers, m.d_model, m.decoder_d_ffn, m.n_mels, d_out, rows, m.decoder_n_head,
+        40, 16, packed["pw1"].element_size(), cluster)
+    biases = stage_biases(packed, m.decoder_n_layers)
+    got = bias_table(biases, stage_rows, piece_rows, layout["n_bias"])
+    want = _bias_table_per_slice(biases, stage_rows, piece_rows, layout["n_bias"])
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want) and bool((got != 0).any())
 
 
 # ------------------------------------------------- the chunked softmax, plainly

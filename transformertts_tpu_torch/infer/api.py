@@ -26,7 +26,7 @@ from transformertts_tpu_torch.data.dataset import load_stats, pick_bucket
 from transformertts_tpu_torch.device import resolve_device
 from transformertts_tpu_torch.dsp import denormalize_mel
 from transformertts_tpu_torch.dsp.griffin_lim import griffin_lim
-from transformertts_tpu_torch.infer.decode import make_decode_fn
+from transformertts_tpu_torch.infer.decode import DecodeWeights, make_decode_fn, prepare_decode
 from transformertts_tpu_torch.infer.streaming import make_stream_fns, stream_chunks
 from transformertts_tpu_torch.models import TransformerTTS
 from transformertts_tpu_torch.text import G2p, phonemize
@@ -70,6 +70,9 @@ class Synthesizer:
             except (FileNotFoundError, OSError):
                 stats = None
         self.stats = stats
+        # packed weights and per-shape decode preparation, shared by every
+        # decode and stream function below
+        self._weights = DecodeWeights(self.model)
         self._decoders: dict[tuple, object] = {}
         self._streams: dict[tuple, tuple] = {}
         self.steps_decoded = 0  # decode steps run, summed over batches and row chunks
@@ -79,7 +82,7 @@ class Synthesizer:
         if key not in self._decoders:
             self._decoders[key] = make_decode_fn(
                 self.model, self.cfg, max_len=max_len, stop_threshold=stop_threshold,
-                device=self.device,
+                device=self.device, weights=self._weights,
             )
         return self._decoders[key]
 
@@ -93,8 +96,11 @@ class Synthesizer:
         buckets: Optional[tuple[int, ...]] = None,
         max_len: Optional[int] = None,
     ) -> int:
-        """One dummy decode per (bucket, batch size), so that the kernels
-        are built and loaded before the first request.  Returns the count."""
+        """One dummy decode per (bucket, batch size) to ``max_len`` frames,
+        so that the kernels are built and loaded before the first request,
+        and each (bucket, batch size) prepared at ``runtime.infer_max_len``
+        as well, the length requests decode to by default.  Returns the
+        count of decodes."""
         buckets = tuple(buckets or self.cfg.runtime.phoneme_buckets)
         decode = self._decode_fn(max_len or self.cfg.runtime.infer_max_len, None)
         n = 0
@@ -104,6 +110,10 @@ class Synthesizer:
                 lens = np.full((int(b),), bucket, np.int32)
                 decode(phoneme, lens)
                 n += 1
+        for bucket in buckets:
+            for b in batch_sizes:
+                prepare_decode(self._weights, self.cfg, int(b), bucket,
+                               self.cfg.runtime.infer_max_len, self.device)
         return n
 
     def synthesize(
@@ -179,7 +189,8 @@ class Synthesizer:
             key = (max_len, chunk)
             if key not in self._streams:
                 self._streams[key] = make_stream_fns(self.model, self.cfg, max_len=max_len,
-                                                     chunk=chunk, device=self.device)
+                                                     chunk=chunk, device=self.device,
+                                                     weights=self._weights)
             fns = self._streams[key]
             chunks = stream_chunks(fns, self.cfg, fns[0](phoneme, lens), max_len)
         while True:

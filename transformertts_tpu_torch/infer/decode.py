@@ -9,10 +9,11 @@ Two loops with one result:
   the loop ends when every row has voted or at ``max_len``;
 - the kernel loop mirrors ``_megakernel_decode(_batched)``
   (``decode.py:522-685``): each step is ONE launch of the decode-step
-  kernel on the GPU, through an ``ops.decode_step.DecodeStep`` prepared
-  once per chunk of rows (checks, plan, buffers), so a step costs the host
-  one C call.  A batch larger than the kernel takes is decoded as
-  consecutive chunks of rows.
+  kernel on the GPU, through an ``ops.decode_step.DecodeStep`` made once
+  per chunk of rows (checks, buffers) from what ``DecodeWeights`` keeps
+  per shape (packed weights, PE rows, plan and its tables), so a step
+  costs the host one C call.  A batch larger than the kernel takes is
+  decoded as consecutive chunks of rows.
 
 Both are one ``DecodeState``: the encoder's output, the frame buffer, the
 stop logits and votes, and per chunk of rows (``DecodeRows``) its caches,
@@ -42,7 +43,8 @@ The loop runs in Python and reads the stop votes back once per step.
 Spans (``utils/trace.py``): ``decode.init`` (``DecodeState`` and
 ``SpeculativeDecode`` set-up) holds ``decode.encode``, ``decode.cross_kv``
 and one ``decode.plan`` per chunk of rows (``KernelRows`` or ``PlainRows``:
-the PE table, the permuted cross K/V, the caches and the ``DecodeStep``);
+the permuted cross K/V, the caches and the ``DecodeStep``; a kernel loop's
+carries ``hit``: its shape's PE rows and step preparation were kept);
 ``decode.loop`` is one call of ``run_each``, ``run_lockstep`` or
 ``SpeculativeDecode.run`` with ``steps`` (the steps run, as ``n_steps``
 counts them) and ``readback_ns`` (the host's time in the stop readbacks,
@@ -60,7 +62,9 @@ accepts and writes the frames.
 
 from __future__ import annotations
 
+import threading
 import time
+from collections import OrderedDict
 from typing import Optional
 
 import torch
@@ -68,7 +72,6 @@ import torch
 from transformertts_tpu_torch.config import Config
 from transformertts_tpu_torch.device import resolve_device
 from transformertts_tpu_torch.models.masks import NEG_INF, padding_bias
-from transformertts_tpu_torch.models.modules import sinusoid_table
 from transformertts_tpu_torch.models.tts import shift_right
 from transformertts_tpu_torch.ops.decode_step import (
     MAX_BATCH,
@@ -81,6 +84,7 @@ from transformertts_tpu_torch.ops.decode_step import (
     pack_verify_weights,
     prenet_drop_args,
     prenet_keep,
+    prepare_step,
 )
 from transformertts_tpu_torch.utils import trace
 
@@ -126,6 +130,13 @@ def prenet_dropout_step(model, frame, t: int, rate: float, seed: int, row0: int 
         x = torch.where(k, x * keep_scale, torch.zeros_like(x))
     pe_row = model.pe.pe[t: t + 1]
     return (x.float() + model.pe.alpha.float() * pe_row).to(dtype)
+
+
+def kernel_cross_kv(cross_kv) -> tuple:
+    """The cross-attention K and V, L x ((B, Tp, H, dh) x 2), in the
+    kernels' layout: two (L, H, B, Tp, dh) tensors."""
+    return tuple(torch.stack([kv[i] for kv in cross_kv]).permute(0, 3, 1, 2, 4).contiguous()
+                 for i in (0, 1))
 
 
 def _steps(stopped: torch.Tensor, more, step) -> int:
@@ -238,19 +249,16 @@ class PlainRows(DecodeRows):
 class KernelRows(DecodeRows):
     """One decode-step launch per step (the megakernel loops of the JAX
     package); caches in the kernel's (L, H, B, T, dh) layout.  On the GPU
-    the step is a ``DecodeStep`` prepared here; on the CPU
-    ``decode_step``'s plain version."""
+    the step is a ``DecodeStep`` made here from what ``weights``
+    (``DecodeWeights``) keeps for this shape; on the CPU ``decode_step``'s
+    plain version.  ``hit``: the shape's preparation came from the cache."""
 
-    def __init__(self, *args, packed):
+    def __init__(self, *args, weights):
         super().__init__(*args)
         model, m = self.model, self.model.cfg
         dev = self.cross_bias.device
-        alpha = model.pe.alpha.float()
-        self.pe_table = (alpha * torch.from_numpy(
-            sinusoid_table(m.max_len, m.d_model)).to(dev)).float()
-        # L x (B, Tp, H, dh) -> (L, H, B, Tp, dh)
-        ck = torch.stack([kv[0] for kv in self.cross_kv]).permute(0, 3, 1, 2, 4).contiguous()
-        cv = torch.stack([kv[1] for kv in self.cross_kv]).permute(0, 3, 1, 2, 4).contiguous()
+        packed, self.pe_table, prep, self.hit = weights.prepared(self.b, self.n_pos, self.tp, dev)
+        ck, cv = kernel_cross_kv(self.cross_kv)
         self.cbias = self.cross_bias[:, 0, 0, :].float().contiguous()  # (B, Tp)
         shape = (m.decoder_n_layers, m.decoder_n_head, self.b, self.n_pos,
                  m.d_model // m.decoder_n_head)
@@ -258,7 +266,8 @@ class KernelRows(DecodeRows):
         self_v = torch.zeros(shape, dtype=model.dtype, device=dev)
         with_pos = self.attn_win > 0
         if dev.type == "cuda":
-            self.decode_step = DecodeStep(self_k, self_v, ck, cv, packed, with_attn_pos=with_pos)
+            self.decode_step = DecodeStep(self_k, self_v, ck, cv, packed, with_attn_pos=with_pos,
+                                          prep=prep)
             self._step = self.decode_step
         else:
             self.decode_step = None
@@ -287,9 +296,11 @@ class DecodeState:
     writes (``frames`` (B, max_len + 1, n_mels) fp32 with the go frame at
     0, ``stops`` (B, max_len), ``stopped`` (B,)) and the chunks
     (``rows``): one ``PlainRows`` for the plain loop, ``KernelRows`` of at
-    most ``chunk`` rows each for the kernel loop."""
+    most ``chunk`` rows each for the kernel loop, made from ``weights``
+    (``DecodeWeights``).  Each chunk's ``decode.plan`` span of the kernel
+    loop carries ``hit``: its shape's preparation came from the cache."""
 
-    def __init__(self, model, cfg, phoneme, lens, max_len, stop_threshold, kernel, packed,
+    def __init__(self, model, cfg, phoneme, lens, max_len, stop_threshold, kernel, weights,
                  chunk, prenet_dropout, mask_encoder_source=False):
         b, tp = phoneme.shape
         dev, n_mels = phoneme.device, cfg.model.n_mels
@@ -310,9 +321,12 @@ class DecodeState:
                 args = (model, cfg, self.frames[part], self.stops[part], self.stopped[part],
                         [(k[part], v[part]) for k, v in cross_kv], cross_bias[part],
                         self.n_pos, stop_threshold, i, prenet_dropout)
-                with trace.span("decode.plan", rows=min(step, b - i)):
-                    self.rows.append(KernelRows(*args, packed=packed) if kernel
-                                     else PlainRows(*args))
+                with trace.span("decode.plan", rows=min(step, b - i)) as s:
+                    if kernel:
+                        self.rows.append(KernelRows(*args, weights=weights))
+                        s.attrs["hit"] = self.rows[-1].hit
+                    else:
+                        self.rows.append(PlainRows(*args))
 
     @property
     def t(self) -> int:
@@ -391,14 +405,12 @@ class SpeculativeDecode:
         cap = self.n_pos + self.k  # the chunk's rows past n_pos stay in the caches
         L, H, dh = m.decoder_n_layers, m.decoder_n_head, m.d_model // m.decoder_n_head
         if kernel:
-            ck = torch.stack([kv[0] for kv in self.cross_kv]).permute(0, 3, 1, 2, 4).contiguous()
-            cv = torch.stack([kv[1] for kv in self.cross_kv]).permute(0, 3, 1, 2, 4).contiguous()
+            ck, cv = kernel_cross_kv(self.cross_kv)
             self_k = torch.zeros((L, H, 1, cap, dh), dtype=model.dtype, device=dev)
-            pe_table = (model.pe.alpha.float() * torch.from_numpy(
-                sinusoid_table(m.max_len, m.d_model)).to(dev)).float()
             self.verify = DecodeVerify(
                 self_k, torch.zeros_like(self_k), ck, cv, packed,
-                self.cross_bias[:, 0, 0, :].float().contiguous(), pe_table, self.frames[0],
+                self.cross_bias[:, 0, 0, :].float().contiguous(),
+                pe_table(model, self.n_pos + self.k - 1), self.frames[0],
                 self.stops[0], k=self.k, r=self.r, n_pos=self.n_pos, tau=self.tau,
                 stop_threshold=stop_threshold, linear=self.linear, verify_weights=verify_weights)
             self.pass_ = self.verify
@@ -469,25 +481,83 @@ def decode_options(cfg: Config, device: torch.device, use_kernel: Optional[bool]
     return kernel, chunk
 
 
-def weights_packer(model):
-    """``packed()`` -> the decoder weights in the kernel's layout, packed
-    again whenever a parameter was written since the last pack
-    (``weights_version``); ``packed(verify=True)`` -> the verify kernel's
-    copy of them (``pack_verify_weights``), made once per pack at its first
-    use, so that no request's set-up makes it again."""
-    cache: dict = {}  # "key": the parameters' versions the packed copy was made from
+def pe_table(model, n: int) -> torch.Tensor:
+    """(n, d_model) fp32 ``alpha * PE[:n]`` on the model's device, from the
+    model's own fp32 table (the decode-step kernel's PE rows)."""
+    return model.pe.alpha.float() * model.pe.pe[:n]
 
-    def packed(verify: bool = False) -> dict:
-        key = weights_version(model)
-        if cache.get("key") != key:  # the weights changed since the last pack
-            cache.clear()
-            cache["packed"] = pack_decode_weights(model, model.dtype)
-            cache["key"] = key
-        if verify and "verify" not in cache:
-            cache["verify"] = pack_verify_weights(cache["packed"])
-        return cache["verify" if verify else "packed"]
 
-    return packed
+STEPS_MAX = 32  # shapes whose decode-step preparation a DecodeWeights keeps
+
+
+class DecodeWeights:
+    """What every kernel-loop decode of one model reads besides its inputs,
+    made again whenever a parameter was written since (``weights_version``):
+
+    - ``packed()``: the decoder weights in the kernel's layout;
+      ``packed(verify=True)``: the verify kernel's copy of them
+      (``pack_verify_weights``), made at its first use;
+    - ``prepared(b, n_pos, tp, device)``: per shape (B, n_pos, max(n_pos,
+      Tp)), ``alpha * PE[:n_pos]`` and, on CUDA, the decode step's
+      ``StepPrep`` (plan, its tables on the device, the weights' pointers),
+      the ``STEPS_MAX`` shapes used last.
+
+    So no request's set-up packs, plans or uploads again what an earlier
+    request of its shape made.  Thread-safe: one lock guards the cache."""
+
+    def __init__(self, model):
+        self.model = model
+        self._lock = threading.Lock()
+        self._cache: dict = {}  # "key": the parameters' versions the entries were made from
+
+    def _current(self) -> dict:
+        key = weights_version(self.model)
+        if self._cache.get("key") != key:  # the weights changed since the last pack
+            self._cache = {"key": key, "packed": pack_decode_weights(self.model, self.model.dtype),
+                           "steps": OrderedDict(), "pe": {}}
+        return self._cache
+
+    def __call__(self, verify: bool = False) -> dict:
+        with self._lock:
+            cache = self._current()
+            if verify and "verify" not in cache:
+                cache["verify"] = pack_verify_weights(cache["packed"])
+            return cache["verify" if verify else "packed"]
+
+    def prepared(self, b: int, n_pos: int, tp: int, device: torch.device) -> tuple:
+        """(packed weights, ``alpha * PE[:n_pos]``, ``StepPrep`` or None off
+        CUDA, hit) of a chunk of b rows decoding ``n_pos`` positions against
+        ``tp`` encoder positions; ``hit``: all of it came from the cache."""
+        key = (b, n_pos, max(n_pos, tp), device)
+        with self._lock:
+            cache = self._current()
+            steps = cache["steps"]
+            hit = key in steps
+            if hit:
+                steps.move_to_end(key)
+            else:
+                pe = cache["pe"].get(n_pos)
+                if pe is None:
+                    pe = cache["pe"][n_pos] = pe_table(self.model, n_pos)
+                prep = None
+                if device.type == "cuda":
+                    prep = prepare_step(cache["packed"], b, n_pos, tp,
+                                        self.model.cfg.decoder_n_head)
+                steps[key] = (pe, prep)
+                if len(steps) > STEPS_MAX:
+                    steps.popitem(last=False)
+            return (cache["packed"], *steps[key], hit)
+
+
+def prepare_decode(weights: DecodeWeights, cfg: Config, b: int, tp: int, max_len: int,
+                   device: torch.device) -> None:
+    """Fill ``weights``' cache for a kernel-loop decode of b rows over
+    ``tp`` encoder positions to ``max_len`` frames, as the decode would
+    (each chunk of rows), without decoding; nothing off the kernel loop."""
+    kernel, chunk = decode_options(cfg, device, None)
+    if kernel:
+        for i in range(0, b, chunk):
+            weights.prepared(min(chunk, b - i), max_len // cfg.model.reduction_factor, tp, device)
 
 
 def make_decode_fn(
@@ -498,6 +568,7 @@ def make_decode_fn(
     mask_encoder_source: bool = False,
     use_kernel: Optional[bool] = None,
     device: str | torch.device | None = None,
+    weights: Optional[DecodeWeights] = None,
 ):
     """Returns ``decode(phoneme (B, Tp) int, phoneme_lens (B,) int) -> dict``
     with ``pred_melspec`` / ``post_melspec`` (B, max_len, n_mels),
@@ -508,8 +579,11 @@ def make_decode_fn(
     chunk's frames past its own stop, which lie past its rows' lengths.
 
     The decode reads the model's weights as they are at each call: the kernel
-    loop's packed copy of the decoder weights is made again whenever a
-    parameter was written since the last pack (``weights_version``).
+    loop's packed copy of the decoder weights, and what it prepares per
+    shape, are made again whenever a parameter was written since the last
+    pack (``weights_version``).  ``weights``: the ``DecodeWeights`` of
+    ``model`` that keeps them, shared with the caller's other decode and
+    stream functions; None makes one for this function.
 
     ``use_kernel``: None picks the kernel loop on CUDA — it raises there
     when ``cfg.runtime.use_pallas_decode_step`` is off, and the kernel
@@ -548,7 +622,8 @@ def make_decode_fn(
                          "infer_prenet_dropout / decode_attn_window")
     kernel, chunk = decode_options(cfg, device, use_kernel)
     n_pos = max_len // r
-    packed = weights_packer(model)
+    if weights is None:
+        weights = DecodeWeights(model)
 
     @torch.inference_mode()
     def decode(phoneme, phoneme_lens) -> dict:
@@ -562,15 +637,14 @@ def make_decode_fn(
                     raise ValueError(f"max_len/r + decode_speculative_k - 1 ({n_pos + spec_k - 1}) "
                                      f"must be <= model.max_len ({cfg.model.max_len})")
                 spec = SpeculativeDecode(model, cfg, phoneme, lens, max_len, stop_threshold, kernel,
-                                         packed() if kernel else None, mask_encoder_source,
-                                         packed(verify=True) if kernel and device.type == "cuda"
+                                         weights() if kernel else None, mask_encoder_source,
+                                         weights(verify=True) if kernel and device.type == "cuda"
                                          else None)
                 spec.run()
                 return _result(model, spec.frames, spec.stops, spec.t * r, stop_threshold,
                                spec.passes, n_verify_passes=spec.passes)
             state = DecodeState(model, cfg, phoneme, lens, max_len, stop_threshold, kernel,
-                                packed() if kernel else None, chunk, prenet_dropout,
-                                mask_encoder_source)
+                                weights, chunk, prenet_dropout, mask_encoder_source)
             state.run_each(n_pos)
             return _result(model, state.frames, state.stops, state.t * r, stop_threshold,
                            state.n_steps)

@@ -37,7 +37,7 @@ import torch
 
 from transformertts_tpu_torch.config import Config
 from transformertts_tpu_torch.device import resolve_device
-from transformertts_tpu_torch.infer.decode import DecodeState, decode_options, weights_packer
+from transformertts_tpu_torch.infer.decode import DecodeState, DecodeWeights, decode_options
 from transformertts_tpu_torch.utils import trace
 
 
@@ -54,6 +54,7 @@ def make_stream_fns(
     stop_threshold: Optional[float] = None,
     use_kernel: Optional[bool] = None,
     device: str | torch.device | None = None,
+    weights: Optional[DecodeWeights] = None,
 ):
     """Returns (init, chunk_fn, post_fn).
 
@@ -68,8 +69,8 @@ def make_stream_fns(
         valid once the decode has advanced to ``start + chunk + overlap``
         (or ended).  ``frames`` is ``state.frames``.
 
-    ``use_kernel`` and ``device`` as ``make_decode_fn``: on CUDA the chunks
-    run on the decode-step kernel, batches above
+    ``use_kernel``, ``device`` and ``weights`` as ``make_decode_fn``: on
+    CUDA the chunks run on the decode-step kernel, batches above
     ``min(decode_megakernel_max_batch, 8)`` rows as row chunks in lockstep.
     """
     device = resolve_device(device)
@@ -87,14 +88,15 @@ def make_stream_fns(
     kernel, rows = decode_options(cfg, device, use_kernel)
     n_pos, chunk_pos = max_len // r, chunk // r
     overlap = postnet_overlap(cfg)
-    packed = weights_packer(model)
+    if weights is None:
+        weights = DecodeWeights(model)
 
     @torch.inference_mode()
     def init(phoneme, phoneme_lens) -> DecodeState:
         phoneme = torch.as_tensor(phoneme, dtype=torch.long, device=device)
         lens = torch.as_tensor(phoneme_lens, dtype=torch.long, device=device)
-        return DecodeState(model, cfg, phoneme, lens, max_len, stop_threshold, kernel,
-                           packed() if kernel else None, rows, prenet_dropout=0.0)
+        return DecodeState(model, cfg, phoneme, lens, max_len, stop_threshold, kernel, weights,
+                           rows, prenet_dropout=0.0)
 
     @torch.inference_mode()
     def chunk_fn(state: DecodeState):

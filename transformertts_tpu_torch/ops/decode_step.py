@@ -39,10 +39,13 @@ with bulk asynchronous copies ahead of the chain; attention is split into
 and combined in chunk order, rounding each probability against the
 global max as the reference does.  Everything the kernel is handed besides
 pointers (plan, chunks, shared-memory layout) is computed here, where the
-CPU tests reach it.  ``DecodeStep`` prepares a step once per decode (the
-checks, the plan, the buffers), so that each step costs the host one C
-call; ``decode_step`` keeps the function's signature and prepares through
-a small cache.
+CPU tests reach it, memoised per shape.  ``prepare_step`` makes what a
+step needs that depends only on the weights and the shapes (``StepPrep``:
+the plan and its tables on the device), which a caller keeps per shape
+(``infer.decode.DecodeWeights``); ``DecodeStep`` prepares a step once per
+decode from it (the checks, the buffers), so that each step costs the host
+one C call; ``decode_step`` keeps the function's signature and prepares
+through a small cache.
 
 What the TPU shaped and this port drops: the batched TPU kernel flattened
 the caches to (L, H, B*T, dh) and scored every row against every row's
@@ -84,7 +87,9 @@ prepares a pass once per decode; ``decode_verify_reference`` and
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import OrderedDict
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -589,6 +594,9 @@ def chunks_max(rows: int, n_heads: int, n_blocks: int = CLUSTER) -> int:
     return max(1, n_blocks // (rows * n_heads))
 
 
+PLANS_MAX = 64  # decode plans and card plans kept, each (least recently used dropped)
+
+
 def decode_plan(n_layers: int, d: int, d_ffn: int, n_mels: int, d_out: int, rows: int,
                 n_heads: int, n_pos: int, tp: int, itemsize: int, cluster: int = CLUSTER):
     """The kernel's plan for clusters of ``rows`` batch rows: an int32 array
@@ -598,13 +606,29 @@ def decode_plan(n_layers: int, d: int, d_ffn: int, n_mels: int, d_out: int, rows
     block with fewer pieces pads with pieces never issued), and the
     shared-memory layout: the byte offset of every buffer of
     ``SMEM_BUFFERS``, ``ring_bytes`` and ``smem_bytes``.  Raises when a
-    block's buffers or a piece do not fit."""
+    block's buffers or a piece do not fit.
+
+    Memoised on its integers (``PLANS_MAX`` plans), with the cache and
+    encoder lengths as ``max(n_pos, tp)``, the one way the plan reads them:
+    every prompt of a decode's length takes one plan.  The arrays are
+    shared and read-only; the layout is the caller's copy."""
+    stage_rows, piece_rows, layout = _plan_of(n_layers, d, d_ffn, n_mels, d_out, rows, n_heads,
+                                              max(n_pos, tp), itemsize, cluster)
+    return stage_rows, piece_rows, dict(layout)
+
+
+@functools.lru_cache(maxsize=PLANS_MAX)
+def _plan_of(n_layers, d, d_ffn, n_mels, d_out, rows, n_heads, max_keys, itemsize, cluster):
+    """``decode_plan``, computed (the arrays made read-only)."""
     stages = gemv_stages(n_layers, d, d_ffn, n_mels, d_out)
     cols, pieces, bias, need = _block_pieces(
         stages, cluster, lambda k: k * itemsize, lambda k: max(1, PIECE_BYTES // (k * itemsize)))
-    layout = decode_smem_layout(rows, n_layers, n_heads, d // n_heads, d_ffn, n_mels, n_pos, tp,
+    layout = decode_smem_layout(rows, n_layers, n_heads, d // n_heads, d_ffn, n_mels, max_keys,
                                 itemsize, len(stages), max(map(len, pieces)), bias, need, cluster)
-    return _plan_rows(stages, cols, pieces, layout)
+    plan = _plan_rows(stages, cols, pieces, layout)
+    for a in plan[:2]:
+        a.flags.writeable = False
+    return plan
 
 
 def _block_pieces(stages: list, cluster: int, row_bytes, piece_cols) -> tuple:
@@ -667,29 +691,31 @@ def stage_biases(packed: dict, n_layers: int) -> list:
 def bias_table(biases: list, stage_rows, piece_rows, n_bias: int) -> torch.Tensor:
     """(cluster, n_bias) fp32: each block's biases of its columns, stage
     after stage at the stage rows' bias offsets (what the kernel copies
-    into its kBufBias)."""
+    into its kBufBias).  The biases reach the host in one copy."""
     cluster = stage_rows.shape[1]
-    table = torch.zeros((cluster, n_bias), dtype=torch.float32)
+    flat = torch.cat([b.detach().reshape(-1) for b in biases]).float().cpu().numpy()
+    start = np.cumsum([0] + [b.numel() for b in biases])
+    table = np.zeros((cluster, n_bias), np.float32)
     for g in range(cluster):
-        for s, bias in enumerate(biases):
+        for s in range(len(biases)):
             first, end, at, _ = (int(v) for v in stage_rows[s, g])
             if end > first:
                 c0, c1 = int(piece_rows[first, g, 0]), int(piece_rows[end - 1, g, 1])
-                table[g, at:at + c1 - c0] = bias[c0:c1].float().cpu()
-    return table
+                table[g, at:at + c1 - c0] = flat[start[s] + c0:start[s] + c1]
+    return torch.from_numpy(table)
 
 
 def decode_smem_layout(rows: int, n_layers: int, n_heads: int, dh: int, d_ffn: int, n_mels: int,
-                       n_pos: int, tp: int, itemsize: int, n_stages: int, n_pieces: int,
+                       max_keys: int, itemsize: int, n_stages: int, n_pieces: int,
                        bias_floats: int, ring_need: int, cluster: int = CLUSTER) -> dict:
     """Byte offsets of the kernel's shared-memory buffers (``SMEM_BUFFERS``;
     the CUDA source's Buffer enum says what each holds), 16-byte aligned,
-    for clusters of ``rows`` rows; the ring takes what is left of
-    ``SMEM_LIMIT``, at most ``ring_need``."""
+    for clusters of ``rows`` rows and attention over at most ``max_keys``
+    keys (the larger of the cache and encoder lengths); the ring takes what
+    is left of ``SMEM_LIMIT``, at most ``ring_need``."""
     d = n_heads * dh
     rh, ncm = rows * n_heads, chunks_max(rows, n_heads, cluster)
     items = -(-rh * ncm // cluster)  # (row, head, chunk) items a block, at most
-    max_keys = max(n_pos, tp)
     floats = {
         "red": 2 * rows * WARPS, "bias": bias_floats, "ln": 2 * 6 * d,
         "ra": rows * d, "rb": rows * d, "o": rows * d, "q": rows * d,
@@ -729,13 +755,26 @@ def card_plan(n_layers: int, d: int, d_ffn: int, n_mels: int, d_out: int, b: int
     """(blocks a cluster, rows per cluster, ``decode_plan``) for B = b on
     the current card: one row a cluster with the first size of
     ``CLUSTER_SIZES`` whose b clusters the card holds at once; else clusters
-    of ``CLUSTER`` blocks and the rows from ``rows_per_cluster``."""
+    of ``CLUSTER`` blocks and the rows from ``rows_per_cluster``.  Memoised
+    as ``decode_plan``, and on the dtype and the current device's index."""
+    cluster, rows, (stage_rows, piece_rows, layout) = _card_plan_of(
+        n_layers, d, d_ffn, n_mels, d_out, b, n_heads, max(n_pos, tp), dtype, _device_index())
+    return cluster, rows, (stage_rows, piece_rows, dict(layout))
+
+
+def _device_index() -> int:
+    return torch.cuda.current_device() if torch.cuda.is_available() else -1
+
+
+@functools.lru_cache(maxsize=PLANS_MAX)
+def _card_plan_of(n_layers, d, d_ffn, n_mels, d_out, b, n_heads, max_keys, dtype, device):
+    """``card_plan``, computed (``device``: the card the library asks)."""
     lib = _lib()
     is_bf16 = int(dtype == torch.bfloat16)
     itemsize = torch.empty((), dtype=dtype).element_size()
 
     def plan(rows, cluster):
-        return decode_plan(n_layers, d, d_ffn, n_mels, d_out, rows, n_heads, n_pos, tp,
+        return decode_plan(n_layers, d, d_ffn, n_mels, d_out, rows, n_heads, max_keys, max_keys,
                            itemsize, cluster)
 
     def max_clusters(rows, cluster=CLUSTER):  # 0 where the plan does not fit
@@ -752,6 +791,42 @@ def card_plan(n_layers: int, d: int, d_ffn: int, n_mels: int, d_out: int, b: int
     return CLUSTER, rows, plan(rows, CLUSTER)
 
 
+@functools.lru_cache(maxsize=PLANS_MAX)
+def self_chunks(n_pos: int, rows: int, n_heads: int, cluster: int) -> tuple:
+    """``attn_chunks`` of the self-attention keys at every position t <
+    ``n_pos`` (t keys at t), memoised."""
+    return tuple(attn_chunks(t, rows, n_heads, cluster) for t in range(n_pos))
+
+
+class StepPrep(NamedTuple):
+    """What a ``DecodeStep`` needs that depends only on the packed weights
+    and the shapes (B, n_pos, max(n_pos, Tp)) on the current card
+    (``prepare_step``): the cluster plan, its tables on the weights' device
+    (stage rows, piece rows, the bias table), the weights' pointers in
+    ``_PACK_ORDER`` and the self-attention chunks of every position."""
+
+    shape: tuple  # (B, n_pos, max(n_pos, Tp))
+    cluster: int
+    rows: int
+    plan: tuple
+    tensors: tuple
+    pointers: tuple
+    chunks: tuple
+
+
+def prepare_step(packed: dict, b: int, n_pos: int, tp: int, n_heads: int) -> StepPrep:
+    """The ``StepPrep`` of B = b rows over caches of ``n_pos`` positions and
+    ``tp`` encoder positions with the weights ``packed``; it serves every
+    ``tp`` up to ``max(n_pos, tp)``."""
+    n_layers, d, d_ffn = packed["sWo"].shape[0], packed["pw1"].shape[0], packed["W1"].shape[1]
+    n_mels, d_out = packed["pw1"].shape[1], packed["head_w"].shape[0]
+    cluster, rows, plan = card_plan(n_layers, d, d_ffn, n_mels, d_out, b, n_heads, n_pos, tp,
+                                    packed["pw1"].dtype)
+    return StepPrep((b, n_pos, max(n_pos, tp)), cluster, rows, plan,
+                    _plan_tensors(plan, packed), tuple(packed[k].data_ptr() for k in _PACK_ORDER),
+                    self_chunks(n_pos, rows, n_heads, cluster))
+
+
 # ------------------------------------------------------------- the launch
 
 class _StepConfig(ctypes.Structure):
@@ -766,22 +841,34 @@ class _StepConfig(ctypes.Structure):
         ("stages", ctypes.c_void_p), ("pieces", ctypes.c_void_p), ("bias", ctypes.c_void_p)]
 
 
+def _plan_tensors(plan, packed: dict) -> tuple:
+    """The stage rows, piece rows (each rank's rows contiguous, for one
+    bulk copy each) and bias table of ``plan`` on the weights' device."""
+    stage_rows, piece_rows, layout = plan
+    dev = packed["pw1"].device
+    stages = torch.from_numpy(stage_rows.transpose(1, 0, 2).copy()).to(dev)
+    pieces = torch.from_numpy(piece_rows.transpose(1, 0, 2).copy()).to(dev)
+    bias = bias_table(stage_biases(packed, packed["sWo"].shape[0]), stage_rows, piece_rows,
+                      layout["n_bias"]).to(dev)
+    return stages, pieces, bias
+
+
 def _launch_config(plan, packed: dict, cluster: int, b: int, rows: int, n_heads: int, n_pos: int,
-                   tp: int, weights: dict | None = None) -> tuple:
+                   tp: int, weights: dict | None = None, tensors: tuple | None = None,
+                   pointers: tuple | None = None) -> tuple:
     """The kernel's ``Config`` for ``plan`` (``decode_plan``'s result) with
     clusters of ``cluster`` blocks decoding ``rows`` rows each, ``b`` batch
     rows of caches of ``n_pos`` and ``tp`` positions, pointing to
-    ``weights`` (default ``packed``, whose shapes give the widths), and the
-    plan's tensors on the weights' device that it points to (keep them
-    alive)."""
+    ``weights`` (default ``packed``, whose shapes give the widths; or the
+    ``pointers`` of ``packed`` in ``_PACK_ORDER``), and the plan's tensors
+    on the weights' device that it points to (``tensors``, else made from
+    ``plan``; keep them alive)."""
     stage_rows, piece_rows, layout = plan
-    n_layers, d, dev = packed["sWo"].shape[0], packed["pw1"].shape[0], packed["pw1"].device
+    n_layers, d = packed["sWo"].shape[0], packed["pw1"].shape[0]
     dh = d // n_heads
-    # each rank's rows contiguous, for one bulk copy each
-    stages = torch.from_numpy(stage_rows.transpose(1, 0, 2).copy()).to(dev)
-    pieces = torch.from_numpy(piece_rows.transpose(1, 0, 2).copy()).to(dev)
-    bias = bias_table(stage_biases(packed, n_layers), stage_rows, piece_rows,
-                      layout["n_bias"]).to(dev)
+    stages, pieces, bias = _plan_tensors(plan, packed) if tensors is None else tensors
+    if pointers is None:
+        pointers = [(packed if weights is None else weights)[k].data_ptr() for k in _PACK_ORDER]
     cross_chunk, cross_nc = attn_chunks(tp, rows, n_heads, cluster)
     cfg = _StepConfig(
         cluster=cluster, B=b, R=rows, L=n_layers, H=n_heads, dh=dh, F=packed["W1"].shape[1],
@@ -793,8 +880,7 @@ def _launch_config(plan, packed: dict, cluster: int, b: int, rows: int, n_heads:
         first_piece=((ctypes.c_int * 2) * MAX_CLUSTER)(
             *[(ctypes.c_int * 2)(*piece_rows[0, g, :2]) for g in range(cluster)]),
         scale=dh ** -0.5,
-        w=(ctypes.c_void_p * len(_PACK_ORDER))(
-            *[(packed if weights is None else weights)[k].data_ptr() for k in _PACK_ORDER]),
+        w=(ctypes.c_void_p * len(_PACK_ORDER))(*pointers),
         stages=stages.data_ptr(), pieces=pieces.data_ptr(), bias=bias.data_ptr())
     return (stages, pieces, bias), cfg
 
@@ -826,12 +912,14 @@ class DecodeStep:
     """One decoder step on the GPU, prepared for fixed caches and weights.
 
     Built once per decode (per chunk of rows): it checks the caches and the
-    packed weights, picks the rows a cluster decodes, computes the plan and
-    uploads it, allocates the outputs and fills the kernel's ``Config``.
+    packed weights, takes what depends only on the weights and the shapes
+    (``prep``: the rows a cluster decodes, the plan and its tables on the
+    device; made here by ``prepare_step`` when not given), allocates the
+    outputs and fills the kernel's ``Config``.
     Each call is then one C call and one kernel launch on the stream that
     is current at the call:
 
-        step = DecodeStep(self_k, self_v, cross_k, cross_v, packed, with_attn_pos)
+        step = DecodeStep(self_k, self_v, cross_k, cross_v, packed, with_attn_pos[, prep])
         y, k_new, v_new[, pos] = step(t, frame, pe_row, cross_bias)
 
     The results are the step's own buffers, overwritten by its next call.
@@ -840,26 +928,30 @@ class DecodeStep:
     ``decode_step.launches``).
     """
 
-    def __init__(self, self_k, self_v, cross_k, cross_v, packed, with_attn_pos: bool = False):
+    def __init__(self, self_k, self_v, cross_k, cross_v, packed, with_attn_pos: bool = False,
+                 prep: StepPrep | None = None):
         _check_fixed_args(self_k, self_v, cross_k, cross_v, packed)
         lib = _lib()
         n_layers, n_heads, b, n_pos, dh = self_k.shape
         tp, dev = cross_k.shape[3], self_k.device
-        d, d_ffn = n_heads * dh, packed["W1"].shape[1]
-        n_mels, d_out = packed["pw1"].shape[1], packed["head_w"].shape[0]
-        is_bf16 = int(packed["pw1"].dtype == torch.bfloat16)
-        cluster, rows, plan = card_plan(
-            n_layers, d, d_ffn, n_mels, d_out, b, n_heads, n_pos, tp, packed["pw1"].dtype)
-        self._plan, self._cfg = _launch_config(plan, packed, cluster, b, rows, n_heads, n_pos, tp)
+        d_ffn, d_out = packed["W1"].shape[1], packed["head_w"].shape[0]
+        if prep is None:
+            prep = prepare_step(packed, b, n_pos, tp, n_heads)
+        elif prep.shape != (b, n_pos, max(n_pos, tp)):
+            raise ValueError(f"decode_step: a step prepared for (B, n_pos, max keys) {prep.shape} "
+                             f"cannot take {(b, n_pos, max(n_pos, tp))}")
+        cluster, rows, plan = prep.cluster, prep.rows, prep.plan
+        self._plan, self._cfg = _launch_config(plan, packed, cluster, b, rows, n_heads, n_pos, tp,
+                                               tensors=prep.tensors, pointers=prep.pointers)
         self.y = torch.empty((b, d_out), dtype=torch.float32, device=dev)
         self.k_new = torch.empty((n_layers, n_heads, b, dh), dtype=self_k.dtype, device=dev)
         self.v_new = torch.empty_like(self.k_new)
         self.pos = torch.empty((b, 1), dtype=torch.float32, device=dev) if with_attn_pos else None
-        self._self_chunks = [attn_chunks(t, rows, n_heads, cluster) for t in range(n_pos)]
+        self._self_chunks = prep.chunks
         self.layout, self.rows, self.cluster = plan[2], rows, cluster
         self.blocks = b // rows * cluster
         self._keep = (self_k, self_v, cross_k, cross_v, packed)  # the pointers stay valid
-        self._is_bf16 = is_bf16
+        self._is_bf16 = int(packed["pw1"].dtype == torch.bfloat16)
         self._fixed = (self_k.data_ptr(), self_v.data_ptr(), cross_k.data_ptr(),
                        cross_v.data_ptr())
         self._call = lib.tts_decode_step
@@ -950,7 +1042,7 @@ def pack_verify_weights(packed: dict) -> dict:
     8 rows of a tensor-core load from the shared-memory ring fall in
     distinct banks; biases and LayerNorm parameters are the same tensors.
     fp32 needs no copy: the dict itself.  Made once per weights version
-    (``infer.decode.weights_packer``), never per request."""
+    (``infer.decode.DecodeWeights``), never per request."""
     pad = verify_row_pad(packed["pw1"].element_size())
     if not pad:
         return packed
