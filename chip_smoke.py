@@ -176,7 +176,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     also at ``paper.yaml`` widths; the log-mel FFT kernel beside the dense
     one and the operations each does), and both training configurations' ms
     per step and audio-seconds per second; all timings with the card's name
-    and power limit.
+    and power limit;
+16. tacotron2 (run after the decode phase): the Tacotron 2 step kernel
+    (``ops/tacotron2_step.py``) at NVIDIA's widths
+    (``portbench/configs/tacotron2.json``, seeded weights, bf16), B 1 and
+    8 over Tp 192 with prenet dropout 0.5: 32 steps of the
+    kernel and of ``tacotron2_step_reference``, each from its own state and
+    both fed the kernel's frames, every stage's output and state within
+    ``T2_TOL`` at every step; a second run of the kernel equal bit for bit;
+    64 calls under ``torch.profiler`` no other kernel and at most 64
+    launches; the kernel's time a step back to back beside its plain
+    version's and its bound (``portbench/counts_tacotron2.py``); then the
+    main path: 12 concurrent requests of 576 frames through
+    ``DynamicBatcher`` -> ``Synthesizer`` and one ``Synthesizer.stream``,
+    ``Tacotron2Step.total`` zeroed before each: one launch a decode step.
 
 The train phase keeps its 3 checked + 4 timed steps while the whole run stays
 near two minutes; it may drop to 1 + 2 if later phases push the run past that.
@@ -207,7 +220,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, published
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores, published
 ALL_PHASES = ("build", "mask", "kernel", "decode", "serve", "stream", "spec", "train-parity",
-              "train", "preprocess", "train-ffn", "trainer", "parallel", "time", "time-train")
+              "train", "preprocess", "train-ffn", "trainer", "parallel", "time", "time-train",
+              "tacotron2")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # max|kernel - plain| / max(1, max|plain|)
 # kernel loop vs plain loop, fp32, 64 fed-back frames: as the CPU test of the
 # port against the JAX loop; the H100 showed at most 1.2e-6 relative
@@ -3274,6 +3288,178 @@ def phase_time_ffn_mel(device, card: str) -> dict:
     return rows
 
 
+# ------------------------------------------------------------------ Tacotron 2
+
+T2_TP, T2_STEPS, T2_SERVE_LEN = 192, 32, 576
+# kernel vs tacotron2_step_reference, each output and state over T2_STEPS
+# steps, max|kernel - plain| / max(1, max|plain|): both take the same bf16
+# operands and sum in fp32 in other orders, and the recurrence carries it
+# (the H100 showed at most 3.4e-4); a stage that computes the wrong thing
+# moves its own output by far more
+T2_TOL = 2e-3
+T2_STATES = ("p1", "p", "q", "energy", "alpha", "alpha_cum", "ctx", "c1", "c2", "y")
+
+
+def tacotron2_setup(b: int, device, seed: int = 2**31 + 99):
+    """Tacotron 2 at NVIDIA's widths (``portbench/configs/tacotron2.json``),
+    bf16, seeded weights, prenet dropout 0.5, and b rows of ragged phoneme ids
+    padded to ``T2_TP`` (row 0 full)."""
+    import torch
+
+    from portbench import harness
+    from portbench.reference.tacotron2_weights import make_weights
+    from transformertts_tpu_torch.models.tacotron2 import Tacotron2
+
+    conf = harness.config_spec("tacotron2")
+    cfg = harness.program_config(conf, {"infer_max_len": T2_SERVE_LEN, "stop_threshold": 2.0})
+    weights = make_weights(conf["model"], seed, device)
+    model = Tacotron2(cfg.model, dtype=torch.bfloat16, device=device)
+    model.load_state_dict(weights, strict=True)
+    gen = torch.Generator().manual_seed(seed)
+    lens = torch.randint(T2_TP // 2, T2_TP + 1, (b,), generator=gen)
+    lens[0] = T2_TP
+    ids = torch.where(torch.arange(T2_TP)[None] < lens[:, None],
+                      torch.randint(4, 84, (b, T2_TP), generator=gen), 0)
+    return conf, cfg, weights, model, ids.to(device), lens.to(device)
+
+
+def t2_gaps(kern, plain, t: int) -> dict:
+    """Each output and state of one step, kernel against plain."""
+    import torch
+
+    out = {}
+    for name in T2_STATES + ("h1", "h2"):
+        a, r = getattr(kern, name), getattr(plain, name)
+        if name in ("h1", "h2"):  # double-buffered: the half this step wrote
+            a, r = a[(t + 1) & 1], r[(t + 1) & 1]
+        if name == "energy":  # padded positions are -inf in both
+            a, r = torch.nan_to_num(a, neginf=0.0), torch.nan_to_num(r, neginf=0.0)
+        out[name] = rel_err(a, r)[1]
+    return out
+
+
+def t2_one_launch_a_call(call, n: int = 64) -> None:
+    """``n`` calls ``call(t)`` under ``torch.profiler`` (device activity
+    only: the step's cooperative launch is no PyTorch operation a host
+    event could hold) launch no kernel but ``tacotron2_step``'s, and at
+    most ``n``: at most one a call (at least one a call: each call's state
+    moved, which the gap check reads).  A profiling session after others in
+    one process may miss its first few launches (the full run's profiler
+    recorded 14 of 16, an earlier one 0 of 1; alone 16 of 16), so the
+    count is a ceiling, not an equality."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for t in range(n):
+            call(t)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not any(w in e.name.lower() for w in ("memcpy", "memset"))]
+    if not 0 < len(kernels) <= n or not all("tacotron2_step" in k for k in kernels):
+        raise AssertionError(f"{n} calls launched {len(kernels)} kernels: {kernels[:30]}")
+    log(f"[tacotron2] {n} calls under the profiler: {len(kernels)} launches recorded, all of "
+        f"{kernels[0][:80]}")
+
+
+def phase_tacotron2(device, card: str) -> dict:
+    """The Tacotron 2 step kernel at NVIDIA's widths on its path's shapes
+    (B 1 and 8, Tp 192, prenet dropout 0.5): against its plain version,
+    timed beside it and its bound, and its launches on the main path."""
+    import torch
+
+    from portbench import counts_tacotron2
+    from transformertts_tpu_torch.infer import DynamicBatcher, Synthesizer
+    from transformertts_tpu_torch.ops.tacotron2_step import (
+        Tacotron2State,
+        Tacotron2Step,
+        pack_tacotron2_weights,
+        tacotron2_step_reference,
+    )
+
+    seed = 1234 ^ 0x5EED  # the decode's mask seed at training.seed 1234
+    drop = dict(prenet_dropout=PRENET_DROPOUT, seed=seed)
+    worst, rows = {}, {}
+    with torch.no_grad():
+        for b in (1, 8):
+            conf, cfg, _, model, ids, lens = tacotron2_setup(b, device)
+            memory = model.encode(ids, lens)
+            pm = model.process_memory(memory)
+            packed = pack_tacotron2_weights(model)
+            lens32 = lens.int()
+            kern_state = Tacotron2State(packed, b, T2_TP, device)
+            plain_state = Tacotron2State(packed, b, T2_TP, device)
+            step = Tacotron2Step(memory, pm, lens32, packed, kern_state)
+            frame = torch.zeros((b, cfg.model.n_mels), device=device)
+            frames, gaps = [frame], {}
+            for t in range(T2_STEPS):  # both from their own state, fed the kernel's frames
+                y = step(t, frames[-1], **drop)
+                tacotron2_step_reference(t, frames[-1], plain_state, memory, pm, lens32, packed,
+                                         **drop)
+                for name, g in t2_gaps(kern_state, plain_state, t).items():
+                    gaps[name] = max(gaps.get(name, 0.0), g)
+                frames.append(y[:, : cfg.model.n_mels].clone(memory_format=torch.contiguous_format))
+            ys = torch.stack(frames[1:])
+            again = Tacotron2State(packed, b, T2_TP, device)
+            step2 = Tacotron2Step(memory, pm, lens32, packed, again)
+            ys2 = torch.stack([step2(t, frames[t], **drop)[:, : cfg.model.n_mels].clone()
+                               for t in range(T2_STEPS)])
+            log(f"[tacotron2] B={b} Tp={T2_TP} {T2_STEPS} steps, prenet dropout "
+                f"{PRENET_DROPOUT}: widest gap to the plain version by output "
+                + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items()))
+            bad = {k: v for k, v in gaps.items() if not v <= T2_TOL}
+            if bad:
+                raise AssertionError(f"tacotron2_step B={b} beyond {T2_TOL}: {bad}")
+            if not torch.equal(ys, ys2):
+                raise AssertionError(f"tacotron2_step B={b}: a second run gave other bits")
+            worst[b] = max(gaps.values())
+            if b == 8:
+                t2_one_launch_a_call(lambda t: step(t, frames[-1], **drop))
+
+            state = Tacotron2State(packed, b, T2_TP, device)
+            timed = Tacotron2Step(memory, pm, lens32, packed, state)
+            kern = lambda: timed(7, frame, **drop)  # noqa: E731
+            plain = lambda: tacotron2_step_reference(  # noqa: E731
+                7, frame, state, memory, pm, lens32, packed, **drop)
+            ms, host = time_ms(kern, 200, 10), host_us(kern)
+            plain_ms = time_ms(plain, 20, 3)
+            nbytes, flops = counts_tacotron2.step_bytes_flops(conf["model"], b, T2_TP)
+            bound, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
+            rows[b] = (ms, plain_ms, bound, by)
+            log(f"[time] tacotron2_step bf16 B={b} Tp={T2_TP}, prenet dropout {PRENET_DROPOUT}: "
+                f"kernel {ms * 1e3:.1f} us/step back to back ({host:.1f} us of host time a "
+                f"call), plain {plain_ms * 1e3:.1f} us/step, bound {bound * 1e3:.2f} us ({by}, "
+                f"{nbytes / 1e6:.2f} MB) [{card}]")
+            del model, memory, pm, packed, step, step2, timed
+
+    # the main path: DynamicBatcher -> Synthesizer -> kernel loop, then a stream
+    conf, cfg, weights, model, _, _ = tacotron2_setup(1, device)
+    del model
+    synth = Synthesizer(cfg, state_dict=weights, stats=dict(conf["stats"]), device=device)
+    batcher = DynamicBatcher(synth, max_batch=8, max_wait_ms=50.0, max_len=T2_SERVE_LEN)
+    try:
+        Tacotron2Step.total = synth.steps_decoded = 0
+        with ThreadPoolExecutor(12) as pool:
+            mels = list(pool.map(lambda txt: batcher.submit(txt).result(timeout=300), TEXTS[:12]))
+        launches, steps = Tacotron2Step.total, synth.steps_decoded
+    finally:
+        batcher.close()
+    if any(m.shape != (cfg.model.n_mels, T2_SERVE_LEN) or not np.isfinite(m).all()
+           for m in mels):
+        raise AssertionError("bad mel from the Tacotron 2 batcher")
+    Tacotron2Step.total = 0
+    chunks = list(synth.stream(TEXTS[0], chunk=STREAM_CHUNK, max_len=T2_SERVE_LEN))
+    launches_stream = Tacotron2Step.total
+    log(f"[tacotron2] DynamicBatcher, 12 requests of {T2_SERVE_LEN} frames: {launches} kernel "
+        f"launches for {steps} decode steps; Synthesizer.stream, {len(chunks)} chunks: "
+        f"{launches_stream} launches")
+    if launches != steps or launches < T2_SERVE_LEN or launches_stream != T2_SERVE_LEN:
+        raise AssertionError("Tacotron 2 serving did not launch the step kernel once a step")
+    return {"worst": worst, "rows": rows, "launches": launches,
+            "launches_stream": launches_stream}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3320,6 +3506,7 @@ def main(argv=None) -> int:
     mel_worst = phase_mel_kernel(device) if "kernel" in phases else {}
     if "decode" in phases:
         phase_decode(cfg, device)
+    t2 = phase_tacotron2(device, card) if "tacotron2" in phases else {}
     stream_launches = {}
     if "stream" in phases:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
@@ -3444,10 +3631,22 @@ def main(argv=None) -> int:
             "shapes": {shape: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"), r))
                        for (kern, shape), r in train_rows.items() if kern == kernel},
         })
+    # T2: Tacotron 2's step, on its serving path (it replaces no TPU kernel)
+    ms, plain, bound, by = t2["rows"][8]
+    kernels.append({
+        "name": f"tacotron2_step (B=8, bf16, Tp {T2_TP}, prenet dropout {PRENET_DROPOUT})",
+        "route": "cuda", "source": src + "tacotron2_step.cu", "replaces": None,
+        "launches": t2["launches"], "max_abs_err": max(t2["worst"].values()),
+        "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "launches_stream": t2["launches_stream"],
+        "shapes": {f"B {b} Tp {T2_TP}": dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), r))
+                   for b, r in t2["rows"].items()},
+    })
     if any(k["launches"] <= 0 for k in kernels):
         raise AssertionError("a kernel of the path was launched no time on the main path")
     if any(k["launches_trainer"] <= 0 for k in kernels
-           if "ffn" not in k["name"] and "verify" not in k["name"]):
+           if "ffn" not in k["name"] and "verify" not in k["name"]
+           and not k["name"].startswith("tacotron2")):
         raise AssertionError("a kernel of the trainer path was launched no time on it")
     if any(k.get("launches_stream", 1) <= 0 for k in kernels):
         raise AssertionError("the decode step was launched no time on the streaming path")

@@ -53,6 +53,9 @@ class AudioConfig:
             raise ValueError("hop_length and n_mels must be positive")
 
 
+ARCHITECTURES = ("transformer_tts", "tacotron2")
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     # ref: config.yaml:25-42 and TransformerTTS.__init__ defaults
@@ -84,8 +87,48 @@ class ModelConfig:
     # ~r x fewer decode steps and a shorter self-attention — an opt-in
     # speed/quality trade-off.  Mel lengths/buckets must be multiples of r.
     reduction_factor: int = 1
+    # The architecture the port builds (``models/factory.py``):
+    # "transformer_tts" (the keys above) or "tacotron2" (Shen et al.,
+    # arXiv:1712.05884, at NVIDIA's recipe, github.com/NVIDIA/tacotron2
+    # hparams.py: the keys below keep its names).  Tacotron 2 also reads
+    # n_phon (its symbols), n_mels, reduction_factor (1 only) and the
+    # postnet's n_layers, kernel_size and dropout; its postnet is
+    # ``postnet_embedding_dim`` wide.  NVIDIA's gate_threshold and
+    # max_decoder_steps are runtime.stop_threshold and runtime.infer_max_len;
+    # its p_attention_dropout and p_decoder_dropout act in training only,
+    # which the port has not for Tacotron 2.
+    architecture: str = "transformer_tts"
+    symbols_embedding_dim: int = 512
+    encoder_n_convolutions: int = 3
+    encoder_kernel_size: int = 5
+    encoder_embedding_dim: int = 512
+    attention_rnn_dim: int = 1024
+    decoder_rnn_dim: int = 1024
+    prenet_dim: int = 256
+    attention_dim: int = 128
+    attention_location_n_filters: int = 32
+    attention_location_kernel_size: int = 31
+    postnet_embedding_dim: int = 512
 
     def validate(self) -> None:
+        if self.architecture not in ARCHITECTURES:
+            raise ValueError(f"unknown model.architecture {self.architecture!r} "
+                             f"(known: {', '.join(ARCHITECTURES)})")
+        if self.architecture == "tacotron2":
+            if self.reduction_factor != 1:
+                raise ValueError("tacotron2 takes reduction_factor 1 only, got "
+                                 f"{self.reduction_factor}")
+            if self.symbols_embedding_dim != self.encoder_embedding_dim:
+                raise ValueError("tacotron2 needs symbols_embedding_dim == encoder_embedding_dim")
+            if self.encoder_embedding_dim % 2:
+                raise ValueError("encoder_embedding_dim must be even (a BiLSTM of half each way)")
+            for name in ("encoder_kernel_size", "attention_location_kernel_size",
+                         "postnet_kernel_size"):
+                if getattr(self, name) % 2 != 1:
+                    raise ValueError(f"{name} must be odd for same-padding")
+            if self.postnet_n_layers < 2:
+                raise ValueError("postnet needs >= 2 layers")
+            return
         for side, heads in (("encoder", self.encoder_n_head), ("decoder", self.decoder_n_head)):
             if self.d_model % heads != 0:
                 raise ValueError(f"d_model={self.d_model} not divisible by {side}_n_head={heads}")

@@ -3,7 +3,10 @@
 ``Synthesizer`` packages the serving pipeline — g2p, bucket padding,
 KV-cached decode (the CUDA decode-step kernel on the GPU), mel
 denormalization, Griffin-Lim waveforms — behind one object, one-shot
-(``synthesize``) or streamed chunk by chunk (``stream``).
+(``synthesize``) or streamed chunk by chunk (``stream``).  The model is the
+one ``model.architecture`` names (``models/factory.py:build_model``): a
+Tacotron 2 decodes through the same loop with its recurrent state and its
+own step kernel (``ops/tacotron2_step.py``).
 
 Spans (``utils/trace.py``): ``synth.g2p`` (text to padded ids) and
 ``synth.deliver`` (copies to the host, per-row slicing, denormalization)
@@ -28,7 +31,7 @@ from transformertts_tpu_torch.dsp import denormalize_mel
 from transformertts_tpu_torch.dsp.griffin_lim import griffin_lim
 from transformertts_tpu_torch.infer.decode import DecodeWeights, make_decode_fn, prepare_decode
 from transformertts_tpu_torch.infer.streaming import make_stream_fns, stream_chunks
-from transformertts_tpu_torch.models import TransformerTTS
+from transformertts_tpu_torch.models.factory import build_model, is_tacotron2
 from transformertts_tpu_torch.text import G2p, phonemize
 from transformertts_tpu_torch.train.checkpoint import load_eval_weights
 from transformertts_tpu_torch.utils import trace
@@ -54,8 +57,11 @@ class Synthesizer:
             raise ValueError("need exactly one of checkpoint_dir, variables or state_dict")
         self.cfg = cfg
         self.device = resolve_device(device)
+        if variables is not None and is_tacotron2(cfg):
+            raise ValueError("model.architecture tacotron2 takes a state_dict or a checkpoint: "
+                             "the JAX package has no Tacotron 2 to convert variables from")
         dtype = torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16" else torch.float32
-        self.model = TransformerTTS(cfg.model, dtype=dtype, device=self.device)
+        self.model = build_model(cfg, dtype, self.device)
         if checkpoint_dir is not None:
             load_eval_weights(self.model, cfg, checkpoint_dir)
         else:

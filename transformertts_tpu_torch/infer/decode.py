@@ -52,6 +52,17 @@ two clock reads a step: the rest of the loop is host work); under a running
 profiler each step is a ``decode.step`` range as well.  ``decode.postnet``
 is the postnet and the rows' lengths of the result.
 
+A Tacotron 2 model (``model.architecture`` tacotron2, ``models/tacotron2.py``)
+decodes through the same ``DecodeState``: its rows carry a recurrent state
+of fixed size (both LSTM cells, the attention weights and their running
+sum, the context) in place of a growing cache, ``T2PlainRows`` through the
+model's modules and ``T2KernelRows`` through ``ops/tacotron2_step.py`` (one
+C call and one launch a step on the GPU); ``decode.init`` holds ``decode.encode`` (the
+convolutions and the BiLSTM over each row's length) and ``decode.memory``
+(``W_mem memory``) in place of ``decode.cross_kv``.  Its prenet always
+drops at ``runtime.infer_prenet_dropout`` (the stream too), and speculative
+decode and the window raise.
+
 Speculative decode (``runtime.decode_speculative_k`` K > 1, one utterance:
 JAX ``_speculative_decode``) is ``SpeculativeDecode``: each pass drafts K -
 1 inputs, verifies the K positions at once and advances by the accepted
@@ -71,6 +82,7 @@ import torch
 
 from transformertts_tpu_torch.config import Config
 from transformertts_tpu_torch.device import resolve_device
+from transformertts_tpu_torch.models.factory import is_tacotron2
 from transformertts_tpu_torch.models.masks import NEG_INF, padding_bias
 from transformertts_tpu_torch.models.tts import shift_right
 from transformertts_tpu_torch.ops.decode_step import (
@@ -85,6 +97,13 @@ from transformertts_tpu_torch.ops.decode_step import (
     prenet_drop_args,
     prenet_keep,
     prepare_step,
+)
+from transformertts_tpu_torch.ops.tacotron2_step import (
+    Tacotron2State,
+    Tacotron2Step,
+    pack_tacotron2_weights,
+    prepare_tacotron2,
+    tacotron2_step_reference,
 )
 from transformertts_tpu_torch.utils import trace
 
@@ -291,6 +310,71 @@ class KernelRows(DecodeRows):
         return y[:, : n_mels * r].reshape(b, r, n_mels), y[:, n_mels * r:], exp_pos
 
 
+class T2PlainRows(DecodeRows):
+    """Tacotron 2's step through the model's modules (``Tacotron2.decoder_step``):
+    the recurrent state of ``initial_state`` in place of a cache.
+    ``cross_kv`` is [(memory, processed memory)] of the chunk's rows."""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        (self.memory, self.pm), = self.cross_kv
+        self.valid = self.cross_bias[:, 0, 0, :] == 0
+        self.state = self.model.initial_state(self.b, self.tp)
+        self.keep_scale = prenet_drop_args(self.prenet_dropout)[1]
+
+    def body(self, t):
+        keep = None
+        if self.prenet_dropout > 0.0:
+            p = self.model.cfg.prenet_dim
+            keep = ([prenet_keep(t, i, self.b, p, self.prenet_dropout, self.seed, self.row0,
+                                 self.memory.device) for i in (0, 1)], self.keep_scale)
+        mel, stop, _ = self.model.decoder_step(self.frames[:, t], self.state, self.memory,
+                                               self.pm, self.valid, keep)
+        return mel[:, None, :], stop[:, None], None
+
+
+class T2KernelRows(DecodeRows):
+    """Tacotron 2's step as ``ops.tacotron2_step``: on the GPU a
+    ``Tacotron2Step`` made here from what ``weights`` keeps for this shape
+    (one C call a step), on the CPU ``tacotron2_step_reference``; the state
+    is a ``Tacotron2State``.  ``hit``: the shape's preparation came from the
+    cache."""
+
+    def __init__(self, *args, weights):
+        super().__init__(*args)
+        (memory, pm), = self.cross_kv
+        dev = memory.device
+        packed, _, prep, self.hit = weights.prepared(self.b, self.n_pos, self.tp, dev)
+        lens = (self.cross_bias[:, 0, 0, :] == 0).sum(1).int()
+        self.state = Tacotron2State(packed, self.b, self.tp, dev)
+        if dev.type == "cuda":
+            self._step = Tacotron2Step(memory.contiguous(), pm.contiguous(), lens, packed,
+                                       self.state, prep)
+        else:
+            def step(t, frame, **drop):
+                return tacotron2_step_reference(t, frame, self.state, memory, pm, lens, packed,
+                                                **drop)
+            self._step = step
+
+    def body(self, t):
+        y = self._step(t, self.frames[:, t], prenet_dropout=self.prenet_dropout, seed=self.seed,
+                       row0=self.row0)
+        return y[:, None, : self.n_mels], y[:, self.n_mels:], None
+
+    def step(self) -> None:
+        """On the GPU the kernel also writes the frame and the stop logit into
+        the decode's buffers and or's the stop vote into ``stopped`` (the
+        shared step's writes, without their launches and their host work);
+        on the CPU the shared step."""
+        if not isinstance(self._step, Tacotron2Step):
+            return super().step()
+        t = self.t
+        self._step(t, self.frames[:, t], prenet_dropout=self.prenet_dropout, seed=self.seed,
+                   row0=self.row0, emit=(self.frames[:, t + 1], self.stops[:, t], self.stopped,
+                                         self.stop_threshold))
+        self.t = t + 1
+
+
 class DecodeState:
     """The state of one decode of a batch: the buffers every chunk of rows
     writes (``frames`` (B, max_len + 1, n_mels) fp32 with the go frame at
@@ -305,12 +389,20 @@ class DecodeState:
         b, tp = phoneme.shape
         dev, n_mels = phoneme.device, cfg.model.n_mels
         self.n_pos = max_len // cfg.model.reduction_factor
+        t2 = is_tacotron2(model)
         with trace.span("decode.init"):
             with trace.span("decode.encode"):
-                memory = model.encode(phoneme, lens if mask_encoder_source else None)
-            with trace.span("decode.cross_kv"):
-                cross_kv = model.build_cross_cache(memory)  # L x ((B, Tp, H, dh) x 2)
-                cross_bias = padding_bias(lens, tp)  # (B, 1, 1, Tp)
+                memory = model.encode(phoneme, lens if mask_encoder_source or t2 else None)
+            if t2:
+                with trace.span("decode.memory"):
+                    cross_kv = [(memory, model.process_memory(memory))]  # the rows' (K, V)
+                    cross_bias = padding_bias(lens, tp)
+                plain, kernel_rows = T2PlainRows, T2KernelRows
+            else:
+                with trace.span("decode.cross_kv"):
+                    cross_kv = model.build_cross_cache(memory)  # L x ((B, Tp, H, dh) x 2)
+                    cross_bias = padding_bias(lens, tp)  # (B, 1, 1, Tp)
+                plain, kernel_rows = PlainRows, KernelRows
             self.frames = torch.zeros((b, max_len + 1, n_mels), dtype=torch.float32, device=dev)
             self.stops = torch.full((b, max_len), NEG_INF, dtype=torch.float32, device=dev)
             self.stopped = torch.zeros((b,), dtype=torch.bool, device=dev)
@@ -323,10 +415,10 @@ class DecodeState:
                         self.n_pos, stop_threshold, i, prenet_dropout)
                 with trace.span("decode.plan", rows=min(step, b - i)) as s:
                     if kernel:
-                        self.rows.append(KernelRows(*args, weights=weights))
+                        self.rows.append(kernel_rows(*args, weights=weights))
                         s.attrs["hit"] = self.rows[-1].hit
                     else:
-                        self.rows.append(PlainRows(*args))
+                        self.rows.append(plain(*args))
 
     @property
     def t(self) -> int:
@@ -481,6 +573,19 @@ def decode_options(cfg: Config, device: torch.device, use_kernel: Optional[bool]
     return kernel, chunk
 
 
+def refuse_for_tacotron2(cfg: Config) -> None:
+    """Raises for the decode options Tacotron 2 does not have: speculative
+    decode and the windowed cross-attention (both of TransformerTTS's
+    decoder)."""
+    rt = cfg.runtime
+    if int(rt.decode_speculative_k) > 1:
+        raise ValueError("model.architecture tacotron2 has no speculative decode "
+                         "(runtime.decode_speculative_k must be 0 or 1)")
+    if int(rt.decode_attn_window) > 0:
+        raise ValueError("model.architecture tacotron2 has no windowed cross-attention "
+                         "(runtime.decode_attn_window must be 0)")
+
+
 def pe_table(model, n: int) -> torch.Tensor:
     """(n, d_model) fp32 ``alpha * PE[:n]`` on the model's device, from the
     model's own fp32 table (the decode-step kernel's PE rows)."""
@@ -502,18 +607,22 @@ class DecodeWeights:
       ``StepPrep`` (plan, its tables on the device, the weights' pointers),
       the ``STEPS_MAX`` shapes used last.
 
+    For a Tacotron 2 model the packed weights are ``pack_tacotron2_weights``'
+    and the preparation per (B, Tp) is a ``Tacotron2Prep`` (no PE rows).
+
     So no request's set-up packs, plans or uploads again what an earlier
     request of its shape made.  Thread-safe: one lock guards the cache."""
 
     def __init__(self, model):
-        self.model = model
+        self.model, self.t2 = model, is_tacotron2(model)
         self._lock = threading.Lock()
         self._cache: dict = {}  # "key": the parameters' versions the entries were made from
 
     def _current(self) -> dict:
         key = weights_version(self.model)
         if self._cache.get("key") != key:  # the weights changed since the last pack
-            self._cache = {"key": key, "packed": pack_decode_weights(self.model, self.model.dtype),
+            pack = pack_tacotron2_weights if self.t2 else pack_decode_weights
+            self._cache = {"key": key, "packed": pack(self.model, self.model.dtype),
                            "steps": OrderedDict(), "pe": {}}
         return self._cache
 
@@ -528,13 +637,16 @@ class DecodeWeights:
         """(packed weights, ``alpha * PE[:n_pos]``, ``StepPrep`` or None off
         CUDA, hit) of a chunk of b rows decoding ``n_pos`` positions against
         ``tp`` encoder positions; ``hit``: all of it came from the cache."""
-        key = (b, n_pos, max(n_pos, tp), device)
+        key = (b, tp, device) if self.t2 else (b, n_pos, max(n_pos, tp), device)
         with self._lock:
             cache = self._current()
             steps = cache["steps"]
             hit = key in steps
             if hit:
                 steps.move_to_end(key)
+            elif self.t2:  # no PE rows; the step's sizes, pointers and shared memory
+                prep = prepare_tacotron2(cache["packed"], b, tp) if device.type == "cuda" else None
+                steps[key] = (None, prep)
             else:
                 pe = cache["pe"].get(n_pos)
                 if pe is None:
@@ -614,6 +726,9 @@ def make_decode_fn(
     r = cfg.model.reduction_factor
     if max_len % r:
         raise ValueError(f"max_len ({max_len}) must be a multiple of reduction_factor ({r})")
+    t2 = is_tacotron2(model)
+    if t2:
+        refuse_for_tacotron2(cfg)
     prenet_dropout = float(cfg.runtime.infer_prenet_dropout)
     prenet_drop_args(prenet_dropout)  # raises outside [0, 1)
     spec_k = int(cfg.runtime.decode_speculative_k)
@@ -630,7 +745,8 @@ def make_decode_fn(
         phoneme = torch.as_tensor(phoneme, dtype=torch.long, device=device)
         lens = torch.as_tensor(phoneme_lens, dtype=torch.long, device=device)
         with trace.scope():  # one decode, one trace (the caller's when it has one)
-            if spec_k > 1 and phoneme.shape[0] == 1:  # one utterance; batches fall through
+            # one utterance; batches fall through
+            if spec_k > 1 and phoneme.shape[0] == 1 and not t2:
                 if n_pos + spec_k - 1 > cfg.model.max_len:
                     # the pass reads PE rows [t, t + K): past the table's end they
                     # would shift even position 0's encoding, which is always accepted

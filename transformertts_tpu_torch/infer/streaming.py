@@ -11,7 +11,8 @@ that ``init`` prepared; the plain loop runs only for ``use_kernel=False``.
 As the JAX stream, the whole batch stops when every row has voted, and the
 stream reads neither ``runtime.infer_prenet_dropout`` nor
 ``runtime.decode_speculative_k``: it decodes without prenet dropout, one
-position a step.
+position a step.  A Tacotron 2 stream does drop (its prenet's dropout is
+part of the model at inference), with the one-shot decode's masks.
 
 Postnet exactness: the postnet is NON-causal — n_layers convs of kernel k
 give a receptive field of ``overlap = n_layers*(k-1)//2`` frames on EACH
@@ -37,7 +38,13 @@ import torch
 
 from transformertts_tpu_torch.config import Config
 from transformertts_tpu_torch.device import resolve_device
-from transformertts_tpu_torch.infer.decode import DecodeState, DecodeWeights, decode_options
+from transformertts_tpu_torch.infer.decode import (
+    DecodeState,
+    DecodeWeights,
+    decode_options,
+    refuse_for_tacotron2,
+)
+from transformertts_tpu_torch.models.factory import is_tacotron2
 from transformertts_tpu_torch.utils import trace
 
 
@@ -86,6 +93,10 @@ def make_stream_fns(
     if chunk % r:
         raise ValueError(f"chunk ({chunk}) must be a multiple of reduction_factor ({r})")
     kernel, rows = decode_options(cfg, device, use_kernel)
+    prenet_dropout = 0.0
+    if is_tacotron2(model):  # its prenet drops at inference: the one-shot decode's frames
+        refuse_for_tacotron2(cfg)
+        prenet_dropout = float(cfg.runtime.infer_prenet_dropout)
     n_pos, chunk_pos = max_len // r, chunk // r
     overlap = postnet_overlap(cfg)
     if weights is None:
@@ -96,7 +107,7 @@ def make_stream_fns(
         phoneme = torch.as_tensor(phoneme, dtype=torch.long, device=device)
         lens = torch.as_tensor(phoneme_lens, dtype=torch.long, device=device)
         return DecodeState(model, cfg, phoneme, lens, max_len, stop_threshold, kernel, weights,
-                           rows, prenet_dropout=0.0)
+                           rows, prenet_dropout=prenet_dropout)
 
     @torch.inference_mode()
     def chunk_fn(state: DecodeState):

@@ -1,5 +1,6 @@
 """One home for deriving TransformerTTS runtime kwargs from a Config
-(``transformertts_tpu/models/factory.py``).
+(``transformertts_tpu/models/factory.py``), and for building the model that
+``model.architecture`` names (``build_model``).
 
 The JAX package gates its fused LayerNorm and fused FFN on ``d_model % 128``
 and on the FFN's memory estimate (TPU lane and memory rules); the port has
@@ -15,6 +16,24 @@ from __future__ import annotations
 import torch
 
 from transformertts_tpu_torch.device import resolve_device
+from transformertts_tpu_torch.models.tacotron2 import Tacotron2
+from transformertts_tpu_torch.models.tts import TransformerTTS
+
+
+def is_tacotron2(model_or_cfg) -> bool:
+    """Whether a model, or a ``Config`` / ``ModelConfig``, is Tacotron 2."""
+    if isinstance(model_or_cfg, Tacotron2):
+        return True
+    model_cfg = getattr(model_or_cfg, "model", model_or_cfg)
+    return getattr(model_cfg, "architecture", None) == "tacotron2"
+
+
+def build_model(cfg, dtype: torch.dtype, device: str | torch.device | None = None, **kwargs):
+    """The model ``cfg.model.architecture`` names, in compute type ``dtype``
+    on ``device`` (None: the GPU); ``kwargs`` go to ``TransformerTTS``."""
+    if is_tacotron2(cfg):
+        return Tacotron2(cfg.model, dtype=dtype, device=device)
+    return TransformerTTS(cfg.model, dtype=dtype, device=device, **kwargs)
 
 
 def runtime_model_kwargs(cfg, device: str | torch.device | None = None,

@@ -250,6 +250,9 @@ def make_train_step(
     ``return_mixed_inputs=True`` additionally returns the scheduled-sampling
     mixed decoder inputs of the FIRST micro-batch, (B, T_m, n_mels).
     """
+    if cfg.model.architecture != "transformer_tts":
+        raise ValueError(f"model.architecture {cfg.model.architecture} has no train step yet: "
+                         "training is ported for transformer_tts only")
     optimizer = optimizer or make_optimizer(cfg)
     decay = cfg.training.ema_decay
 

@@ -93,6 +93,9 @@ class Trainer:
     def __init__(self, cfg: Config, exp_dir: str | Path, resume: bool = True,
                  profile_steps: int = 0, device: str | torch.device | None = None):
         """``device`` None means the GPU (each process's current one)."""
+        if cfg.model.architecture != "transformer_tts":
+            raise ValueError(f"model.architecture {cfg.model.architecture} has no trainer yet: "
+                             "training is ported for transformer_tts only")
         self.device = resolve_device(device)
         self.mesh = build_mesh(cfg)
         self.rank0 = self.mesh.rank == 0

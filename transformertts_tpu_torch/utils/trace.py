@@ -40,7 +40,8 @@ The spans of the port (the layer's module in brackets):
 - ``synth.g2p``, ``synth.deliver`` (``infer/api.py``, and each chunk's copy
   in ``infer/streaming.py``): text to padded ids; copies to the host,
   per-row slicing and denormalization.
-- ``decode.init`` with ``decode.encode``, ``decode.cross_kv`` and one
+- ``decode.init`` with ``decode.encode``, ``decode.cross_kv`` (a Tacotron
+  2 model: ``decode.memory``, its processed memory ``W_mem memory``) and one
   ``decode.plan`` per chunk of rows (``rows``); ``decode.loop`` (``steps``,
   ``readback_ns``: the time spent reading the stop vote back, summed over
   the loop's steps); ``decode.postnet`` (``infer/decode.py``,
