@@ -60,7 +60,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    without and with inference prenet dropout 0.5 (the same hash masks);
    at ``configs/large_tp.yaml`` widths the kernel decode in fp32 against
    ``naive_decode`` and the step in bf16 against its plain version (B 1
-   and 8, t 0, 200, 399, within ``TOL``, equal bits);
+   and 8, t 0, 200, 399, within ``TOL``, equal bits); then the stop votes
+   read back ``LAG`` steps late (``check_late_readback``) at ``Config()``,
+   bf16, B 8, 576 forced steps;
 5. serve: the serving path, ``make_http_server`` -> ``DynamicBatcher`` ->
    ``Synthesizer`` -> kernel loop, with seeded random weights in bf16:
    13 HTTP requests (12 concurrent, then one alone), one batch at the
@@ -189,7 +191,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
     version's and its bound (``portbench/counts_tacotron2.py``); then the
     main path: 12 concurrent requests of 576 frames through
     ``DynamicBatcher`` -> ``Synthesizer`` and one ``Synthesizer.stream``,
-    ``Tacotron2Step.total`` zeroed before each: one launch a decode step.
+    ``Tacotron2Step.total`` zeroed before each: one launch a decode step;
+    then the stop votes read back ``LAG`` steps late (``check_late_readback``)
+    at B 8, 576 forced steps.
+
+``check_late_readback`` (phases decode and tacotron2): a B 8 decode of 576
+forced steps under ``torch.profiler`` waits on the device (CUDA's
+``cudaEventSynchronize`` and ``cudaStreamSynchronize`` calls) at most
+ceil(576 / ``LAG``) + 2 times, launches the step kernel once a step (the
+wrapper's counter) and gives frames bit-equal to a run that reads the votes
+after every step (``LAG`` 1); the loop's ms a step of both, in turns (1,
+``LAG``, ``LAG``, 1); then a decode whose rows vote (the stop threshold
+taken from the forced run's stop logits, the batch's stop by step 288)
+equal bit for bit at both lags, its overrun rolled back.
 
 The train phase keeps its 3 checked + 4 timed steps while the whole run stays
 near two minutes; it may drop to 1 + 2 if later phases push the run past that.
@@ -1242,6 +1256,93 @@ def phase_decode(cfg, device) -> None:
         log(f"[decode] fp32 B=2 64 frames W={window} prenet dropout {rate}: " + ", ".join(msg)
             + f"; pred_melspec gap by 16 frames {growth}")
     check_naive_decode(device)
+    from transformertts_tpu_torch.ops.decode_step import decode_step
+
+    bf16 = make_model(cfg, torch.bfloat16, device, seed=6)
+    ids = torch.as_tensor(rng.integers(1, 70, (8, 96)), device=device)
+    ids_lens = torch.as_tensor(rng.integers(48, 97, 8), device=device)
+    check_late_readback(
+        "decode", lambda th: make_decode_fn(bf16, cfg, max_len=LATE_STEPS, stop_threshold=th,
+                                            device=device)(ids, ids_lens),
+        lambda: decode_step.launches, "decode_step_kernel", card_line())
+
+
+LATE_STEPS = 576  # the serving cells' forced steps a request
+
+
+def check_late_readback(what: str, decode, steps, kernel: str, card: str) -> None:
+    """``decode(threshold)`` (a B 8 decode of ``LATE_STEPS`` positions on
+    the card, inputs on the device) with the stop votes read back ``LAG``
+    steps late, against the same decode read back after every step (``LAG``
+    1), as the module docstring says; ``steps()`` reads the step kernel's
+    launch counter and ``kernel`` names the kernel in the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from transformertts_tpu_torch.infer import decode as decode_mod
+    from transformertts_tpu_torch.utils import trace
+
+    lag = decode_mod.LAG
+
+    def run(at: int, threshold: float = 2.0):
+        decode_mod.LAG = at
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            out = decode(threshold)
+            torch.cuda.synchronize()
+        finally:
+            decode_mod.LAG = lag
+        return out, [s for s in trace.spans() if s.name == "decode.loop" and s.start_ns >= t0]
+
+    run(lag)  # warm
+    before = steps()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        late, loops = run(lag)
+    launches = steps() - before
+    events = prof.events()
+    span = [e.time_range for e in events if e.name == "decode.loop"]
+    syncs = sum(e.name in ("cudaEventSynchronize", "cudaStreamSynchronize")
+                and span[0].start <= e.time_range.start <= span[0].end for e in events)
+    recorded = sum(e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name
+                   for e in events)
+    each, _ = run(1)
+    most = math.ceil(LATE_STEPS / lag) + 2
+    log(f"[{what}] B 8, {LATE_STEPS} forced steps, LAG {lag}, under torch.profiler: "
+        f"{syncs} host waits on the device inside decode.loop (at most {most}; the span's "
+        f"waits {loops[0].attrs['waits']}), {launches} step launches ({recorded} recorded by the "
+        f"profiler), overrun {loops[0].attrs['overrun']}")
+    if not (len(span) == 1 and 0 < syncs <= most and launches == late["n_steps"] == LATE_STEPS
+            >= recorded and loops[0].attrs["overrun"] == 0):
+        raise AssertionError(f"{what}: the late readback waited {syncs} times or launched "
+                             f"{launches} kernels for {late['n_steps']} steps")
+    for k in ("pred_melspec", "pred_stop", "post_melspec"):
+        if not torch.equal(late[k], each[k]):
+            raise AssertionError(f"{what}: {k} read LAG {lag} steps late differs from LAG 1")
+    ms = {}
+    for at in (1, lag, lag, 1):
+        _, loops = run(at)
+        ms.setdefault(at, []).append(loops[0].ns / 1e6 / loops[0].attrs["steps"])
+    log(f"[{what}] decode.loop ms a step in turns (1, {lag}, {lag}, 1): LAG 1 "
+        + " / ".join(f"{v:.4f}" for v in ms[1]) + f", LAG {lag} "
+        + " / ".join(f"{v:.4f}" for v in ms[lag]) + f" [{card}]")
+    # a stop inside the decode: the threshold each row's running peak has
+    # reached by the middle step, a little lower, so every row has voted by then
+    mid = LATE_STEPS // 2
+    peak = torch.sigmoid(late["pred_stop"].float()).cummax(dim=1).values
+    threshold = float(peak[:, mid].min()) * (1 - 1e-4)
+    want = int((peak.min(dim=0).values >= threshold).float().argmax()) + 1
+    stop_late, loops = run(lag, threshold)
+    stop_each, _ = run(1, threshold)
+    log(f"[{what}] stop threshold {threshold:.6f}: {stop_late['n_steps']} steps at LAG {lag} "
+        f"(overrun {loops[0].attrs['overrun']} rolled back, {loops[0].attrs['waits']} waits), "
+        f"{stop_each['n_steps']} at LAG 1, {want} from the forced run's logits")
+    if not stop_late["n_steps"] == stop_each["n_steps"] <= mid + 1:
+        raise AssertionError(f"{what}: the stop moved with LAG")
+    for k in ("pred_melspec", "pred_stop", "post_melspec", "n_frames_per_row"):
+        if not torch.equal(stop_late[k], stop_each[k]):
+            raise AssertionError(f"{what}: {k} of a stopped decode differs between LAG {lag} "
+                                 "and LAG 1")
 
 
 NAIVE_FRAMES = 32
@@ -3371,6 +3472,7 @@ def phase_tacotron2(device, card: str) -> dict:
 
     from portbench import counts_tacotron2
     from transformertts_tpu_torch.infer import DynamicBatcher, Synthesizer
+    from transformertts_tpu_torch.infer.decode import make_decode_fn
     from transformertts_tpu_torch.ops.tacotron2_step import (
         Tacotron2State,
         Tacotron2Step,
@@ -3456,6 +3558,12 @@ def phase_tacotron2(device, card: str) -> dict:
         f"{launches_stream} launches")
     if launches != steps or launches < T2_SERVE_LEN or launches_stream != T2_SERVE_LEN:
         raise AssertionError("Tacotron 2 serving did not launch the step kernel once a step")
+    conf, cfg, _, model, ids, lens = tacotron2_setup(8, device)
+    with torch.no_grad():
+        check_late_readback(
+            "tacotron2", lambda th: make_decode_fn(model, cfg, max_len=LATE_STEPS,
+                                                   stop_threshold=th, device=device)(ids, lens),
+            lambda: Tacotron2Step.total, "tacotron2_step", card)
     return {"worst": worst, "rows": rows, "launches": launches,
             "launches_stream": launches_stream}
 

@@ -117,8 +117,8 @@ def case(name: str, b: int, repeat: int, device) -> dict:
         cross_kv = model.build_cross_cache(model.encode(phoneme, None))
         frames = torch.zeros((b, N_POS + 1, m.n_mels), device=device)
         stops = torch.zeros((b, N_POS), device=device)
-        stopped = torch.zeros((b,), dtype=torch.bool, device=device)
-        args = (model, cfg, frames, stops, stopped, cross_kv, padding_bias(lens, TP), N_POS, 2.0,
+        votes = torch.zeros((N_POS, b), dtype=torch.bool, device=device)
+        args = (model, cfg, frames, stops, votes, cross_kv, padding_bias(lens, TP), N_POS, 2.0,
                 0, 0.0)
         weights = DecodeWeights(model)
         weights()  # packed once: the pack is not part of a request's plan

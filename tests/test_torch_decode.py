@@ -11,6 +11,11 @@ r in {1, 2}, forced full length (stop threshold 2.0), the stop path
 Tolerance fp32, max|port - jax| <= 1e-4 * max(1, max|jax|): decoding feeds
 each frame back, so the per-step summation-order differences (1e-6
 relative) grow over the steps; the step counts must agree exactly.
+
+The stop votes read back ``LAG`` steps late (``StopVotes``): with votes
+forced at every offset of the lag window (``tests/decode_votes.py``), the
+one-shot decode equals the decode that reads them after every step, bit
+for bit, on both loops, B 1, 2 and 10, r 1 and 2, W 0 and 2.
 """
 
 import functools
@@ -19,9 +24,11 @@ import jax
 import numpy as np
 import pytest
 
+from tests import decode_votes
 from tests.test_torch_models import assert_close, configs, jax_model_and_variables, port_model
 from transformertts_tpu.infer.decode import make_decode_fn as jax_make_decode_fn
 from transformertts_tpu.infer.decode import naive_decode as jax_naive_decode
+from transformertts_tpu_torch.infer import decode as decode_mod
 from transformertts_tpu_torch.infer.decode import make_decode_fn, naive_decode
 
 TOL = 1e-4
@@ -351,3 +358,63 @@ def test_decode_weights_under_threads(fake_card):
     assert not any(t.is_alive() for t in threads)
     assert sorted(seen) == sorted(shapes)
     assert all(len(ids) == 1 for ids in seen.values()), seen
+
+
+# ------------------------------------- the stop votes read back LAG steps late
+
+LAG_POS = 20  # decoded positions: room for a stop 2 LAG deep and for none
+LAG_SETUPS = {  # id -> (use_kernel, B, r, window): B 10 is two chunks of rows
+    "plain-b2-r1-w0": (False, 2, 1, 0),
+    "kernel-b10-r1-w2": (True, 10, 1, 2),
+    "kernel-b1-r2-w0": (True, 1, 2, 0),
+    "plain-b10-r2-w2": (False, 10, 2, 2),
+}
+
+
+def _lag_inputs(b):
+    rng = np.random.default_rng(100 + b)
+    lens = rng.integers(8, 17, b)
+    lens[0] = 16
+    return rng.integers(1, 60, (b, 16)).astype(np.int32), lens.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _lag_model(r, window):
+    jcfg, pcfg = configs(r, decode_attn_window=window, decode_megakernel_max_batch=8)
+    return pcfg, port_model(pcfg, jax_model_and_variables(jcfg)[1])
+
+
+@pytest.mark.parametrize("last", decode_votes.last_votes() + [LAG_POS - 1, None])
+@pytest.mark.parametrize("setup", list(LAG_SETUPS))
+def test_late_stop_readback_equals_per_step_readback(monkeypatch, setup, last):
+    """The one-shot decode (``run_each``) with the last row voting at each
+    offset of the lag window, at the last position or never: the result
+    read ``LAG`` steps late equals, bit for bit, the one read after every
+    step; each chunk of rows keeps the steps up to its own stop, the
+    steps it ran past the stop are rolled back (zero frames, ``NEG_INF``
+    stop logits) and counted as ``overrun``, and the host waited as often
+    as ``lag_counts`` says."""
+    use_kernel, b, r, window = LAG_SETUPS[setup]
+    pcfg, model = _lag_model(r, window)
+    votes = decode_votes.vote_steps(b, last)
+    fn = make_decode_fn(model, pcfg, max_len=LAG_POS * r, stop_threshold=decode_votes.THRESHOLD,
+                        use_kernel=use_kernel, device="cpu")
+    runs = {lag: decode_votes.decode_with_votes(monkeypatch, lag, votes,
+                                                lambda: fn(*_lag_inputs(b)))
+            for lag in (1, decode_mod.LAG)}
+    decode_votes.assert_same(runs[1][0], runs[decode_mod.LAG][0])
+    chunk = 8 if use_kernel else b
+    for lag, (out, loops, calls) in runs.items():
+        assert len(loops) == 1
+        kept = waits = 0
+        for lo in range(0, b, chunk):
+            rows = slice(lo, lo + chunk)
+            stop = decode_votes.chunk_stop(votes, rows)
+            ran, w = decode_votes.lag_counts(LAG_POS, stop, lag)
+            n = LAG_POS if stop is None else stop + 1
+            decode_votes.assert_rolled_back(out, rows, n, r)
+            kept, waits = kept + n, waits + w
+        assert out["n_steps"] == loops[0].attrs["steps"] == kept
+        assert loops[0].attrs["overrun"] == calls - kept
+        assert loops[0].attrs["waits"] == waits
+        assert calls - kept <= (2 * lag - 1) * -(-b // chunk)

@@ -15,7 +15,10 @@ frames 1e-4 as well (the postnet adds 5 convolutions of those frames, as
 the one-shot decode's ``post_melspec`` in the same file).  Within the port
 the stream computes the one-shot decode's steps, so its frames are equal
 bit for bit; the windowed postnet equals the full-buffer postnet within
-1e-5 (other convolution shapes, other summation order).
+1e-5 (other convolution shapes, other summation order).  With stop votes
+forced across the chunks' boundaries (``tests/decode_votes.py``), the
+stream that reads them ``LAG`` steps late equals, bit for bit, the one that
+reads them after every step.
 """
 
 import dataclasses
@@ -25,11 +28,13 @@ import numpy as np
 import pytest
 import torch
 
+from tests import decode_votes
 from tests.test_torch_models import assert_close, configs, jax_model_and_variables, port_model
 from transformertts_tpu.infer.api import Synthesizer as JaxSynthesizer
 from transformertts_tpu.infer.streaming import stream_decode as jax_stream_decode
 from transformertts_tpu_torch import cli
 from transformertts_tpu_torch.infer import Synthesizer
+from transformertts_tpu_torch.infer import decode as decode_mod
 from transformertts_tpu_torch.infer.decode import make_decode_fn
 from transformertts_tpu_torch.infer.streaming import (
     make_stream_fns,
@@ -140,8 +145,7 @@ def test_stream_row_chunks_run_in_lockstep():
                                         stop_threshold=2.0, use_kernel=True, device="cpu")
     state = init(phoneme, lens)
     assert [rows.b for rows in state.rows] == [8, 2]
-    with torch.inference_mode():
-        state.stopped[:8] = True  # every row of the first chunk has voted
+    state.votes.voted[:8] = True  # every row of the first chunk has voted
     state, _, n = chunk_fn(state)
     assert n == CHUNK and [rows.t for rows in state.rows] == [CHUNK, CHUNK]
     fns = make_stream_fns(model, pcfg, max_len=MAX_LEN, chunk=CHUNK, stop_threshold=2.0,
@@ -216,3 +220,56 @@ def test_stream_ignores_prenet_dropout_and_speculative_decode():
                                     stop_threshold=2.0, device="cpu")))
     for a, b in zip(base, other):
         np.testing.assert_array_equal(a, b)
+
+
+LAG_CHUNK = 20  # positions a chunk: one wait inside it and one at its end
+LAG_SETUPS = {  # id -> (use_kernel, B, r, window): B 10 is two chunks of rows in lockstep
+    "kernel-b10-r1-w0": (True, 10, 1, 0),
+    "plain-b2-r2-w2": (False, 2, 2, 2),
+}
+
+
+@pytest.mark.parametrize("last", [12 + v for v in decode_votes.last_votes()])
+@pytest.mark.parametrize("setup", list(LAG_SETUPS))
+def test_stream_late_stop_readback_equals_per_step_readback(monkeypatch, setup, last):
+    """The stream (``run_lockstep``, 2 chunks of 20 positions) with the last
+    row voting at each offset of the lag window from position 12 on: in the
+    first chunk, at its last position, and in the second.  Every chunk the
+    generator yields, the frames and stop logits of the state, and the steps
+    run are those of the votes read after every step, bit for bit; every
+    ``decode.loop`` counts the steps it ran past the batch's stop as
+    ``overrun`` and its waits as ``lag_counts`` says."""
+    use_kernel, b, r, window = LAG_SETUPS[setup]
+    _, pcfg, _, _, model = _models(r, decode_attn_window=window, decode_megakernel_max_batch=8)
+    votes = decode_votes.vote_steps(b, last)
+    max_len = 2 * LAG_CHUNK * r
+    fns = make_stream_fns(model, pcfg, max_len=max_len, chunk=LAG_CHUNK * r,
+                          stop_threshold=decode_votes.THRESHOLD, use_kernel=use_kernel,
+                          device="cpu")
+
+    def run():
+        state = fns[0](*_inputs(b, seed=3))
+        return state, list(stream_chunks(fns, pcfg, state, max_len))
+
+    runs = {lag: decode_votes.decode_with_votes(monkeypatch, lag, votes, run)
+            for lag in (1, decode_mod.LAG)}
+    (one, chunks_one), _, _ = runs[1]
+    (late, chunks_late), _, _ = runs[decode_mod.LAG]
+    assert [s for *_, s in chunks_one] == [s for *_, s in chunks_late]
+    for (p1, q1, _), (p2, q2, _) in zip(chunks_one, chunks_late, strict=True):
+        np.testing.assert_array_equal(p1, p2)
+        np.testing.assert_array_equal(q1, q2)
+    assert torch.equal(one.frames, late.frames) and torch.equal(one.stops, late.stops)
+    assert one.t == late.t == last + 1 and one.n_steps == late.n_steps
+    assert not late.frames[:, (last + 1) * r + 1:].any()
+    for lag, ((state, _), loops, calls) in runs.items():
+        start = 0
+        for s in loops:
+            stop = last - start if start <= last else None
+            n = 0 if stop is None else min(start + LAG_CHUNK, 2 * LAG_CHUNK) - start
+            ran, w = decode_votes.lag_counts(n, stop if stop is not None and stop < n else None,
+                                             lag)
+            assert s.attrs["waits"] == w
+            assert s.attrs["overrun"] == ran * len(state.rows) - s.attrs["steps"]
+            start += s.attrs["steps"] // len(state.rows)
+        assert sum(s.attrs["overrun"] for s in loops) == calls - state.n_steps

@@ -10,7 +10,10 @@ Tolerance (fp32): max |port - reference| <= 1e-5 x max(1, max |reference|).
 The port and the reference compute the same sums in another order (the
 kernel's plain version also folds the location dense layer into the
 convolution), and the recurrent state carries each step's rounding into
-the next: the gaps measured here are 2e-8 to 3.3e-7.
+the next: the gaps measured here are 2e-8 to 3.3e-7.  With stop votes
+forced at every offset of the lag window (``tests/decode_votes.py``), both
+Tacotron 2 loops read them ``LAG`` steps late and equal, bit for bit, the
+loops that read them after every step.
 
 The tests marked ``card`` run on the GPU (``python -m pytest
 tests/test_torch_tacotron2.py -m card``) at the published widths: the
@@ -30,7 +33,9 @@ from portbench import harness
 from portbench.reference import masks
 from portbench.reference.tacotron2 import PlainT2, prenet_seed
 from portbench.reference.tacotron2_weights import make_weights
+from tests import decode_votes
 from transformertts_tpu_torch.config import config_from_dict, load_config
+from transformertts_tpu_torch.infer import decode
 from transformertts_tpu_torch.infer.api import Synthesizer
 from transformertts_tpu_torch.infer.decode import make_decode_fn
 from transformertts_tpu_torch.models.tacotron2 import Tacotron2
@@ -178,6 +183,32 @@ def test_tacotron2_refuses_what_it_lacks(path, tmp_path):
             Trainer(cfg, tmp_path, device="cpu")
         else:
             Synthesizer(cfg, variables={"params": {}}, device="cpu")
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("last", decode_votes.last_votes() + [STEPS - 1])
+@pytest.mark.parametrize("use_kernel", [False, True], ids=["plain", "kernel"])
+def test_tacotron2_late_stop_readback_equals_per_step_readback(monkeypatch, use_kernel, last):
+    """The Tacotron 2 rows (``T2PlainRows``, and ``T2KernelRows`` on the
+    kernel's plain version) with the last of 3 rows voting at each offset of
+    the lag window or at the last step: read ``LAG`` steps late, the result
+    equals the one read after every step bit for bit, and the steps run past
+    the stop are rolled back and counted."""
+    c = conf(infer_prenet_dropout=0.5)
+    cfg, model, _ = model_of(c)
+    ids, lens = batch()
+    votes = decode_votes.vote_steps(3, last)
+    fn = make_decode_fn(model, cfg, stop_threshold=decode_votes.THRESHOLD, use_kernel=use_kernel,
+                        device="cpu")
+    runs = {lag: decode_votes.decode_with_votes(monkeypatch, lag, votes, lambda: fn(ids, lens))
+            for lag in (1, decode.LAG)}
+    decode_votes.assert_same(runs[1][0], runs[decode.LAG][0])
+    for lag, (out, loops, calls) in runs.items():
+        ran, waits = decode_votes.lag_counts(STEPS, last, lag)
+        assert out["n_steps"] == out["n_frames"] == last + 1
+        decode_votes.assert_rolled_back(out, slice(0, 3), last + 1, 1)
+        assert calls == ran and loops[0].attrs["overrun"] == ran - last - 1
+        assert loops[0].attrs["waits"] == waits
 
 
 # ------------------------------------------------------------------ on the card

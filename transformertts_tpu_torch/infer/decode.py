@@ -38,7 +38,17 @@ kernel loop inside the kernel, with the same counter-hash masks
 (``ops.decode_step.prenet_keep``; seed ``training.seed ^ 0x5EED`` as the
 JAX loop's key).
 
-The loop runs in Python and reads the stop votes back once per step.
+The loop runs in Python and reads the stop votes back ``LAG`` steps late
+(``StopVotes``): each step writes its votes into its own row of a vote
+history on the device, and every ``LAG`` steps the loop copies the rows
+just written to pinned host memory without waiting and waits on the copy
+of ``LAG`` steps earlier, so the host queues steps up to 2 ``LAG`` ahead
+of the device and the device does not wait for the host's readback.  The
+first step after which every row had voted is found exactly, from the
+votes as the steps cast them (never recomputed from the stop logits); the
+steps launched past it are rolled back (their frames zero, their stop
+logits ``NEG_INF``, ``t`` set back), so the result is that of a loop that
+reads the votes back before every step.
 
 Spans (``utils/trace.py``): ``decode.init`` (``DecodeState`` and
 ``SpeculativeDecode`` set-up) holds ``decode.encode``, ``decode.cross_kv``
@@ -46,11 +56,14 @@ and one ``decode.plan`` per chunk of rows (``KernelRows`` or ``PlainRows``:
 the permuted cross K/V, the caches and the ``DecodeStep``; a kernel loop's
 carries ``hit``: its shape's PE rows and step preparation were kept);
 ``decode.loop`` is one call of ``run_each``, ``run_lockstep`` or
-``SpeculativeDecode.run`` with ``steps`` (the steps run, as ``n_steps``
-counts them) and ``readback_ns`` (the host's time in the stop readbacks,
-two clock reads a step: the rest of the loop is host work); under a running
-profiler each step is a ``decode.step`` range as well.  ``decode.postnet``
-is the postnet and the rows' lengths of the result.
+``SpeculativeDecode.run`` with ``steps`` (the steps kept, as ``n_steps``
+counts them), ``waits`` (the host's blocking waits for the votes: about
+one per ``LAG`` steps, one per pass of ``SpeculativeDecode``),
+``overrun`` (steps launched past the stop and rolled back) and
+``readback_ns`` (the host's time inside those waits: the rest of the loop
+is host work); under a running profiler each step is a ``decode.step``
+range as well.  ``decode.postnet`` is the postnet and the rows' lengths of
+the result.
 
 A Tacotron 2 model (``model.architecture`` tacotron2, ``models/tacotron2.py``)
 decodes through the same ``DecodeState``: its rows carry a recurrent state
@@ -78,6 +91,7 @@ import time
 from collections import OrderedDict
 from typing import Optional
 
+import numpy as np
 import torch
 
 from transformertts_tpu_torch.config import Config
@@ -158,37 +172,111 @@ def kernel_cross_kv(cross_kv) -> tuple:
                  for i in (0, 1))
 
 
-def _steps(stopped: torch.Tensor, more, step) -> int:
-    """Calls ``step()`` while ``more()`` and some row of ``stopped`` has not
-    voted, reading the votes back before each step; returns the nanoseconds
-    those readbacks took (the host waiting for the device).  Under a running
-    profiler each step is a ``decode.step`` range."""
-    waited, ranged = 0, trace.profiling()
-    while more():
+LAG = 8  # steps between the decode loop's waits for the stop votes
+
+
+class StopVotes:
+    """A decode's stop votes, read back ``LAG`` steps late.
+
+    ``votes`` (n_pos, B) bool on the decode's device: each step writes its
+    rows' votes into its own row (the step at position t into row t).  Every
+    ``LAG`` steps ``run`` copies the rows just written into ``host``, their
+    copy in pinned memory, without waiting, records an event, waits on the
+    one recorded ``LAG`` steps before and reads the rows that event covers,
+    oldest first, or-ing each into ``voted``: the first step after which
+    every row has voted is the stop.  So the host runs at most 2 ``LAG``
+    steps ahead of the device and the device has steps queued while the
+    host waits.  At the loop's end one more wait reads the rows still
+    pending.  On the CPU the copies are synchronous and there are no
+    events.
+
+    ``voted``: each row's votes or-ed over the steps the loops kept, the
+    state the next loop starts from (the check before its first step).
+    Made once per ``DecodeState`` (``host`` from the caching host allocator:
+    no ``cudaHostAlloc`` per request) and used by one thread."""
+
+    def __init__(self, n_pos: int, b: int, device: torch.device):
+        self.lag, self.device = LAG, device
+        cuda = device.type == "cuda"
+        self.votes = torch.zeros((n_pos, b), dtype=torch.bool, device=device)
+        self.host = torch.empty((n_pos, b), dtype=torch.bool, pin_memory=cuda)
+        self.host_np = self.host.numpy()
+        self.voted = np.zeros(b, dtype=bool)
+        self.events = [torch.cuda.Event() for _ in range(3)] if cuda else None
+
+    def _copy(self, first: int, end: int, event: int) -> None:
+        """Rows ``first .. end - 1`` to the host, then event ``event``."""
+        self.host[first:end].copy_(self.votes[first:end], non_blocking=True)
+        if self.events is not None:
+            self.events[event].record(torch.cuda.current_stream(self.device))
+
+    def _wait(self, event: int) -> int:
+        """Waits on event ``event``; returns the nanoseconds waited."""
+        if self.events is None:
+            return 0
         t0 = time.perf_counter_ns()
-        done = bool(stopped.all())
-        waited += time.perf_counter_ns() - t0
-        if done:
-            break
-        if ranged:
-            with trace.step_range("decode.step"):
+        self.events[event].synchronize()
+        return time.perf_counter_ns() - t0
+
+    def _read(self, rows: slice, first: int, end: int) -> Optional[int]:
+        """Or's the votes of positions ``first .. end - 1`` into ``voted``
+        of ``rows``, in turn, up to the first position after which every
+        row had voted: returns that position, else None."""
+        if first >= end:
+            return None
+        seen = np.logical_or.accumulate(self.host_np[first:end, rows], axis=0) | self.voted[rows]
+        done = seen.all(axis=1)
+        at = int(done.argmax()) if done.any() else end - first - 1
+        self.voted[rows] = seen[at]
+        return first + at if done[at] else None
+
+    def run(self, rows: slice, t: int, n: int, step) -> tuple:
+        """Calls ``step()`` (the steps at positions t, t + 1, ...) at most n
+        times while some row of ``rows`` has not voted; returns (steps kept,
+        steps run, waits, nanoseconds waited).  The steps kept are those a
+        loop that read the votes before every step runs: up to the first
+        after which every row had voted.  The caller rolls back the rest.
+        Under a running profiler each step is a ``decode.step`` range."""
+        if n <= 0 or self.voted[rows].all():
+            return 0, 0, 0, 0
+        lag, ranged = self.lag, trace.profiling()
+        ran = read = waits = waited = 0
+        stop = None
+        while ran < n and stop is None:
+            if ranged:
+                with trace.step_range("decode.step"):
+                    step()
+            else:
                 step()
-        else:
-            step()
-    return waited
+            ran += 1
+            if ran % lag == 0:
+                mark = ran // lag  # the votes up to step ran - lag are in at mark - 1's event
+                self._copy(t + ran - lag, t + ran, mark % 2)
+                if mark > 1:
+                    waited += self._wait((mark - 1) % 2)
+                    waits += 1
+                    stop = self._read(rows, t + read, t + ran - lag)
+                    read = ran - lag
+        if stop is None:
+            self._copy(t + ran - ran % lag, t + ran, 2)
+            waited += self._wait(2)
+            waits += 1
+            stop = self._read(rows, t + read, t + ran)
+        return (ran if stop is None else stop - t + 1), ran, waits, waited
 
 
 class DecodeRows:
     """One chunk of rows of a ``DecodeState``: the step body and what only
     this chunk's steps read (caches, window center).  ``frames``, ``stops``
-    and ``stopped`` are views of the whole state's buffers; ``row0`` is the
-    chunk's first row in the batch."""
+    and ``votes`` (``StopVotes.votes``: row t the votes of the step at t)
+    are views of the whole state's buffers; ``row0`` is the chunk's first
+    row in the batch."""
 
-    def __init__(self, model, cfg, frames, stops, stopped, cross_kv, cross_bias, n_pos,
+    def __init__(self, model, cfg, frames, stops, votes, cross_kv, cross_bias, n_pos,
                  stop_threshold, row0, prenet_dropout):
         m = cfg.model
         self.model, self.r, self.n_mels = model, m.reduction_factor, m.n_mels
-        self.frames, self.stops, self.stopped = frames, stops, stopped
+        self.frames, self.stops, self.votes = frames, stops, votes
         self.cross_kv, self.cross_bias = cross_kv, cross_bias
         self.n_pos, self.stop_threshold = n_pos, stop_threshold
         self.attn_win = int(cfg.runtime.decode_attn_window)
@@ -208,15 +296,22 @@ class DecodeRows:
         mel_t, stop_t, exp_pos = self.body(t)
         self.frames[:, t * r + 1: t * r + 1 + r] = mel_t
         self.stops[:, t * r: t * r + r] = stop_t
-        self.stopped |= (torch.sigmoid(stop_t) >= self.stop_threshold).any(dim=1)
+        torch.any(torch.sigmoid(stop_t) >= self.stop_threshold, dim=1, out=self.votes[t])
         if exp_pos is not None:
             self.center = torch.maximum(self.center, exp_pos)
         self.t += 1
 
-    def run(self, until: int) -> int:
-        """Steps until position ``until`` or until every row has voted;
-        returns the nanoseconds spent reading the votes back."""
-        return _steps(self.stopped, lambda: self.t < until, self.step)
+    def roll_back(self, t: int) -> None:
+        """Takes back the steps at positions ``t`` on, run past the stop:
+        their frames zero again and their stop logits ``NEG_INF``, as if
+        never run, and ``t`` the position reached.  What else they wrote
+        (caches, window center, recurrent state) is dead: no caller resumes
+        a loop past its stop."""
+        r, end = self.r, self.t
+        if t < end:
+            self.frames[:, t * r + 1: end * r + 1] = 0.0
+            self.stops[:, t * r: end * r] = NEG_INF
+            self.t = t
 
 
 class PlainRows(DecodeRows):
@@ -363,14 +458,14 @@ class T2KernelRows(DecodeRows):
 
     def step(self) -> None:
         """On the GPU the kernel also writes the frame and the stop logit into
-        the decode's buffers and or's the stop vote into ``stopped`` (the
+        the decode's buffers and the stop vote into ``votes`` (the
         shared step's writes, without their launches and their host work);
         on the CPU the shared step."""
         if not isinstance(self._step, Tacotron2Step):
             return super().step()
         t = self.t
         self._step(t, self.frames[:, t], prenet_dropout=self.prenet_dropout, seed=self.seed,
-                   row0=self.row0, emit=(self.frames[:, t + 1], self.stops[:, t], self.stopped,
+                   row0=self.row0, emit=(self.frames[:, t + 1], self.stops[:, t], self.votes[t],
                                          self.stop_threshold))
         self.t = t + 1
 
@@ -378,7 +473,7 @@ class T2KernelRows(DecodeRows):
 class DecodeState:
     """The state of one decode of a batch: the buffers every chunk of rows
     writes (``frames`` (B, max_len + 1, n_mels) fp32 with the go frame at
-    0, ``stops`` (B, max_len), ``stopped`` (B,)) and the chunks
+    0, ``stops`` (B, max_len), ``votes``, a ``StopVotes``) and the chunks
     (``rows``): one ``PlainRows`` for the plain loop, ``KernelRows`` of at
     most ``chunk`` rows each for the kernel loop, made from ``weights``
     (``DecodeWeights``).  Each chunk's ``decode.plan`` span of the kernel
@@ -405,12 +500,12 @@ class DecodeState:
                 plain, kernel_rows = PlainRows, KernelRows
             self.frames = torch.zeros((b, max_len + 1, n_mels), dtype=torch.float32, device=dev)
             self.stops = torch.full((b, max_len), NEG_INF, dtype=torch.float32, device=dev)
-            self.stopped = torch.zeros((b,), dtype=torch.bool, device=dev)
+            self.votes = StopVotes(self.n_pos, b, dev)
             step = chunk if kernel else b
             self.rows = []
             for i in range(0, b, step):
                 part = slice(i, i + step)
-                args = (model, cfg, self.frames[part], self.stops[part], self.stopped[part],
+                args = (model, cfg, self.frames[part], self.stops[part], self.votes.votes[:, part],
                         [(k[part], v[part]) for k, v in cross_kv], cross_bias[part],
                         self.n_pos, stop_threshold, i, prenet_dropout)
                 with trace.span("decode.plan", rows=min(step, b - i)) as s:
@@ -430,11 +525,25 @@ class DecodeState:
         """Steps run, summed over the chunks (kernel launches on the GPU)."""
         return sum(rows.t for rows in self.rows)
 
+    def _run(self, rows: slice, chunks: list, until: int, step, attrs: dict) -> None:
+        """``votes.run`` from the chunks' position to ``until``, then the
+        chunks rolled back to the stop; adds to the span's counters
+        (``overrun`` summed over the chunks, as ``steps``)."""
+        t = chunks[0].t
+        kept, ran, waits, waited = self.votes.run(rows, t, until - t, step)
+        for chunk in chunks:
+            chunk.roll_back(t + kept)
+        attrs["waits"] += waits
+        attrs["overrun"] += (ran - kept) * len(chunks)
+        attrs["readback_ns"] += waited
+
     def run_each(self, until: int) -> None:
         """Each chunk to position ``until`` or its own rows' votes, in turn."""
-        with trace.span("decode.loop") as s:
+        with trace.span("decode.loop", waits=0, overrun=0, readback_ns=0) as s:
             before = self.n_steps
-            s.attrs["readback_ns"] = sum([rows.run(until) for rows in self.rows])
+            for rows in self.rows:
+                self._run(slice(rows.row0, rows.row0 + rows.b), [rows], until, rows.step,
+                          s.attrs)
             s.attrs["steps"] = self.n_steps - before
 
     def run_lockstep(self, until: int) -> None:
@@ -444,9 +553,9 @@ class DecodeState:
             for rows in self.rows:
                 rows.step()
 
-        with trace.span("decode.loop") as s:
+        with trace.span("decode.loop", waits=0, overrun=0, readback_ns=0) as s:
             before = self.n_steps
-            s.attrs["readback_ns"] = _steps(self.stopped, lambda: self.t < until, step)
+            self._run(slice(None), self.rows, until, step, s.attrs)
             s.attrs["steps"] = self.n_steps - before
 
 
@@ -553,7 +662,8 @@ class SpeculativeDecode:
                 stopped = bool(code & 1)
                 self.passes += 1
             s.attrs["readback_ns"] = waited
-            s.attrs["steps"] = self.passes - before
+            s.attrs["steps"] = s.attrs["waits"] = self.passes - before
+            s.attrs["overrun"] = 0
 
 
 def decode_options(cfg: Config, device: torch.device, use_kernel: Optional[bool]) -> tuple:

@@ -42,9 +42,11 @@ The spans of the port (the layer's module in brackets):
   per-row slicing and denormalization.
 - ``decode.init`` with ``decode.encode``, ``decode.cross_kv`` (a Tacotron
   2 model: ``decode.memory``, its processed memory ``W_mem memory``) and one
-  ``decode.plan`` per chunk of rows (``rows``); ``decode.loop`` (``steps``,
-  ``readback_ns``: the time spent reading the stop vote back, summed over
-  the loop's steps); ``decode.postnet`` (``infer/decode.py``,
+  ``decode.plan`` per chunk of rows (``rows``); ``decode.loop`` (``steps``;
+  ``waits``: the host's blocking waits for the stop votes, which it reads
+  back a few steps late; ``overrun``: steps run past the stop and rolled
+  back; ``readback_ns``: the time spent inside those waits);
+  ``decode.postnet`` (``infer/decode.py``,
   ``infer/streaming.py``).  Under a running profiler each decode step is a
   ``decode.step`` range on the profiler's timeline and nothing more.
 - ``train.step`` (``micro``, ``frames``: padded mel frames) with
